@@ -65,6 +65,14 @@ def split_id64(start_id: int) -> tuple[int, int]:
     return start_id & MASK32, start_id >> 32
 
 
+def add_id(lo, hi, delta) -> PhotonId:
+    """The 64-bit id ``(lo, hi) + delta`` for a ``delta`` in ``[0, 2**32)``:
+    the low word wraps and its carry goes into the high word."""
+    new_lo = (lo + delta) & MASK32
+    new_hi = (hi + (new_lo < lo).to(torch.int64)) & MASK32
+    return PhotonId(lo=new_lo, hi=new_hi)
+
+
 def mul32(x: torch.Tensor, c: int) -> torch.Tensor:
     """``(x * c) mod 2**32`` for a word ``x`` and a constant ``c``,
     through 16-bit halves of ``c`` so int64 never overflows."""

@@ -77,22 +77,17 @@ def _regenerate(state, remaining, launched_per_lane, next_id, quota,
     rel = relaunch.to(torch.int64)
     n_relaunch = rel.sum()
     rank = torch.cumsum(rel, 0) - 1  # 0-based among relaunched
-    next_lo, next_hi = next_id
-    ids_lo = (next_lo + rank) & xrng.MASK32
-    # low-word wraparound carries into the high word (masked lanes may
-    # compute a garbage id; their sample is discarded by the merge)
-    ids_hi = (next_hi + (ids_lo < next_lo).to(torch.int64)) & xrng.MASK32
-    pos, direc, w0, rng = source.sample(xrng.PhotonId(ids_lo, ids_hi), seed)
+    # masked lanes may compute a garbage id (rank -1); their sample is
+    # discarded by the merge
+    pos, direc, w0, rng = source.sample(xrng.add_id(*next_id, rank), seed)
     fresh = ph.launch(pos, direc, w0, rng, relaunch, shape)
     merged = ph.PhotonState(*(
         torch.where(relaunch[:, None] if new.ndim > 1 else relaunch, new, old)
         for new, old in zip(fresh, state)))
     merged = merged._replace(alive=state.alive | relaunch)
-    new_lo = (next_lo + n_relaunch) & xrng.MASK32
-    new_hi = (next_hi + (new_lo < next_lo).to(torch.int64)) & xrng.MASK32
     w_new = torch.where(relaunch, w0, torch.zeros_like(w0)).sum()
     return (merged, remaining - n_relaunch, launched_per_lane + rel,
-            (new_lo, new_hi), w_new)
+            tuple(xrng.add_id(*next_id, n_relaunch)), w_new)
 
 
 def check_labels(labels_flat, media) -> None:

@@ -55,10 +55,8 @@ def launch_ids(n: int, id_offset: int, device) -> xrng.PhotonId:
     """Ids ``id_offset .. id_offset + n - 1`` as 64-bit (lo, hi) words,
     with the low-word wraparound carried into the high word."""
     lo0, hi0 = xrng.split_id64(id_offset)
-    lo = (lo0 + torch.arange(n, dtype=torch.int64, device=device)) \
-        & xrng.MASK32
-    hi = (hi0 + (lo < lo0).to(torch.int64)) & xrng.MASK32
-    return xrng.PhotonId(lo=lo, hi=hi)
+    return xrng.add_id(lo0, hi0,
+                       torch.arange(n, dtype=torch.int64, device=device))
 
 
 def fresh_state(volume: Volume, n_photons: int, seed: int = 1234,

@@ -117,3 +117,16 @@ def test_split_id64():
         trng.split_id64(-1)
     with pytest.raises(ValueError):
         trng.split_id64(2**64)
+
+
+def test_add_id_carries_into_the_high_word():
+    # exact integer arithmetic: the 64-bit sum, split back into words
+    r = np.random.default_rng(11)
+    starts = [0, 2**32 - 3, 5 * 2**32 + 2**32 - 1, 2**64 - 2**32]
+    deltas = r.integers(0, 2**32, size=64).tolist() + [0, 1, 2, 2**32 - 1]
+    for s in starts:
+        lo, hi = trng.split_id64(s)
+        got = trng.add_id(lo, hi, torch.tensor(deltas, dtype=torch.int64))
+        want = [trng.split_id64((s + d) % 2**64) for d in deltas]
+        assert got.lo.tolist() == [w[0] for w in want]
+        assert got.hi.tolist() == [w[1] for w in want]

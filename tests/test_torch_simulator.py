@@ -13,6 +13,7 @@ run must stay below 1e-5 of the launched weight.
 """
 
 import dataclasses
+import json
 
 import pytest
 
@@ -133,3 +134,26 @@ def test_analysis_matches_reference_helpers():
                       device="cpu")
     mu = TA.fit_axial_decay(res, vol, (2, 12), axis_xy=(6, 6))
     assert np.isfinite(mu) and mu > 0
+
+
+def test_profile_run_reads_device_intervals(tmp_path, monkeypatch):
+    from repro_torch.launch import profile_run as P
+
+    trace = {"traceEvents": [
+        {"ph": "X", "cat": "kernel", "name": "void photon_step_kernel<true>",
+         "ts": 10.0, "dur": 5.0},
+        {"ph": "X", "cat": "kernel", "name": "cumsum", "ts": 12.0, "dur": 6.0},
+        {"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy DtoH", "ts": 30.0,
+         "dur": 1.0},
+        {"ph": "X", "cat": "cpu_op", "name": "aten::add", "ts": 0.0,
+         "dur": 100.0},
+    ]}
+    path = tmp_path / "t.json"
+    path.write_text(json.dumps(trace))
+    ev = P.device_events(str(path))
+    assert [e[0] for e in ev] == ["photon_step", "other_kernels", "memcpy"]
+    # overlapping kernels count once: [10, 18] and [30, 31]
+    assert P.busy_us([(a, b) for _, _, a, b in ev]) == 9.0
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        P.main(["--photons", "10"])
