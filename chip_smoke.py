@@ -6,26 +6,45 @@ Phases, each printing one JSON line; any failed check raises, so the
 script exits non-zero and prints no result:
 
   env      torch / CUDA versions and the card (nvidia-smi name, power limit)
-  build    nvcc builds the photon-step kernel from csrc/ (seconds)
-  kernel   the kernel against its plain PyTorch version on the card, from
-           fresh pencil photons on 60^3 B1 and B2 (131072 lanes, K=8;
-           B2 also with 4 time gates and an off-axis pencil), and on a
-           mid-run B1 and B2 state at the main path's shape (262144
-           lanes, K=16): rng bit-equal, alive/ivox equal on >= 99.99% of
-           lanes, float state within 1e-5 relative, totals within 1e-5
-           relative, every fluence / exitance cell and every lane's
-           escaped / timed-out weight within 4 sqrt(lanes K) 2^-24 of
-           its array's largest value, and that check failing on outputs
-           with deposits moved to a wrong voxel, gate or exitance bin;
-           kernel and plain times by CUDA events, and the bound of each
-           mid-run launch
-  main     repro_torch.launch.simulate.main for B1 and B2 at 60^3 with
-           10^7 photons, 262144 lanes, K=16: exact photon accounting,
+  build    nvcc builds the photon-step kernel from csrc/, one library per
+           set of output groups, all started together (seconds)
+  kernel   K1, the base group, against its plain PyTorch version on the
+           card, from fresh pencil photons on 60^3 B1 and B2 (131072
+           lanes, K=8; B2 also with 4 time gates and an off-axis pencil),
+           and on a mid-run B1 and B2 state at the main path's shape
+           (262144 lanes, K=16): rng bit-equal, alive/ivox equal on >=
+           99.99% of lanes, float state within 1e-5 relative, totals
+           within 1e-5 relative, every fluence / exitance cell and every
+           lane's escaped / timed-out weight within 4 sqrt(lanes K) 2^-24
+           of its array's largest value, and that check failing on
+           outputs with deposits moved to a wrong voxel, gate or exitance
+           bin; kernel and plain device times by CUDA events behind a
+           spin kernel (the mid-run launches also as the host launches
+           them), and the bound of each mid-run launch
+  groups   K2-K5, the optional groups (detectors, records, replay
+           Jacobian, stats), each variant against the plain version on
+           fresh B2 photons (60^3, 131072 lanes, K=8, 4 gates, three
+           detectors) and on a mid-run B2 state at the detection path's
+           shape (262144 lanes, K=16, 50 gates): ppath, records and stats
+           lane by lane bit-equal, TPSF, detector path sums and Jacobian
+           cell by cell within the same limit, the lane state bit-equal
+           with the groups on and off, and the limit failing a detector
+           index swapped, a gate off by one and a Jacobian column off by
+           one; times and bounds as for K1
+  main     repro_torch.launch.simulate for B1 and B2 at 60^3 with 10^7
+           photons, 262144 lanes, K=16: exact photon accounting,
            energy-balance residue < 1e-4, the kernel launched at least
            once per round, B1's axial decay against diffusion theory
-  kernels  one entry per kernel of the path (launches in the main run,
-           error against the plain version; times and bound weighted by
-           the main run's launches of each template instantiation)
+  detect   the detection path at the same size: B2 with 50 gates over
+           5 ns, three detectors, 2^20 record slots, gate-resolved replay
+           and round stats: exact accounting, no record overflow, every
+           record replayed at its detector and gate, the Jacobian's
+           medium sums equal to det_ppath within 1e-5, the stats'
+           escaped weight equal to the result's
+  kernels  one entry per kernel variant the paths launch (launches in
+           the main runs, error against the plain version, times and
+           bound; K1's weighted by the main runs' launches of each
+           template instantiation)
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or without the repository's ``src/`` beside it, the script
@@ -42,6 +61,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 3.35 TB/s, float32 outside the
@@ -68,11 +88,38 @@ MUFU_OPS_PER_SEGMENT = 18
 # HBM traffic: they are reported apart, not in the bytes bound.
 ATOMIC_BYTES_PER_SEGMENT = 4
 
+# Extra float32 operations of the optional groups: per live segment the
+# path's product and sum (detectors), the Jacobian's product and its
+# index (replay), the two counter sums (stats); per capture 5 for each
+# disk tested and 2 for each medium of the path sums.
+GROUP_F32_OPS_PER_SEGMENT = {1: 2, 2: 0, 4: 3, 8: 2}
+
 PHOTONS = 10_000_000
 LANES = 262_144
 K_MAIN = 16
 CMP_LANES, CMP_K = 131_072, 8
 SIZE = 60
+# the detection path: 50 gates of 0.1 ns, 2 mm disks 10, 15 and 20 mm
+# from the pencil at (30, 30), 2^20 record slots
+DETECTORS = [{"x": 40, "y": 30, "radius": 2}, {"x": 45, "y": 30, "radius": 2},
+             {"x": 50, "y": 30, "radius": 2}]
+NTG_DETECT, TMAX_DETECT = 50, 5.0
+SAVE_DETECTED = 1 << 20
+DETECT_ARGV = ["--bench", "B2", "--photons", str(PHOTONS), "--lanes",
+               str(LANES), "--size", str(SIZE), "--steps-per-round",
+               str(K_MAIN), "--time-gates", str(NTG_DETECT), "--tmax-ns",
+               str(TMAX_DETECT), "--detectors", json.dumps(DETECTORS),
+               "--save-detected", str(SAVE_DETECTED), "--replay",
+               "--replay-gate-resolved", "--collect-stats"]
+# group bits of the kernel's variants (kernels/photon_step/photon_step.py)
+DET, RECORD, JAC, STATS = 1, 2, 4, 8
+GROUP_ROWS = {DET: "K2", RECORD: "K3", JAC: "K4", STATS: "K5"}
+# the variants the detection path launches, and where
+PATH_VARIANTS = {DET | RECORD | STATS: "detection forward",
+                 DET | RECORD: "replay pass A", JAC: "replay pass B"}
+# the variants held against the plain version: each group alone, and
+# the detection path's
+CHECK_VARIANTS = (DET, DET | RECORD, JAC, STATS, DET | RECORD | STATS)
 
 
 def emit(phase: str, **fields) -> None:
@@ -84,11 +131,25 @@ def check(ok: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def time_cuda(fn, reps: int, warmup: int = 1) -> float:
-    """Mean milliseconds per call by CUDA events."""
+# ~0.1 s of spinning at the 1.98 GHz boost clock
+SPIN_CYCLES = 200_000_000
+
+
+def time_cuda(fn, reps: int, warmup: int = 1, backlog: bool = True) -> float:
+    """Mean milliseconds per call by CUDA events.
+
+    With ``backlog`` a spin kernel holds the stream while the host
+    enqueues the calls, so the events time the device work of the calls
+    back to back.  Without it they time the loop as the host runs it,
+    which is the host's rate wherever one call's host work (the
+    wrapper's checks and allocations) takes longer than its device work.
+    """
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
     start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    if backlog:
+        torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -111,6 +172,31 @@ TOTAL_TOL = 1e-5
 
 def cell_tol(n_lanes: int, n_steps: int) -> float:
     return CELL_SIGMAS * math.sqrt(max(n_lanes * n_steps, 1)) * 2.0**-24
+
+
+def cells(name, a, b, tol, fails, out, lanes=None):
+    """Hold an accumulated array against the plain version's: total
+    within TOTAL_TOL relative, every cell (or, for a per-lane array,
+    every lane of the ``lanes`` mask) within ``tol`` of the largest
+    value, so a deposit into a wrong cell fails even where the totals
+    agree.  Adds the numbers to ``out[name]`` and failures to ``fails``."""
+    if a.shape != b.shape:
+        fails.append(f"{name} shape {tuple(a.shape)} != {tuple(b.shape)}")
+        return
+    a, b = a.double(), b.double()
+    ta, tb = float(a.sum()), float(b.sum())
+    rel = abs(ta - tb) / max(abs(tb), 1e-12)
+    if rel > TOTAL_TOL:
+        fails.append(f"{name} totals differ by {rel:.3e} relative")
+    if lanes is not None:
+        a, b = a[lanes], b[lanes]
+    cell = float((a - b).abs().max()) if a.numel() else 0.0
+    cell_rel = cell / max(float(b.abs().max()) if b.numel() else 0.0, 1e-12)
+    if cell_rel > tol:
+        fails.append(f"{name} differs by {cell_rel:.3e} of its largest value "
+                     f"in some cell")
+    out[name] = {"total": tb, "total_rel": rel, "cell_max_abs": cell,
+                 "cell_max_rel_to_max": cell_rel}
 
 
 def measure(got, want, tol: float, min_equal: float = 0.9999):
@@ -143,25 +229,9 @@ def measure(got, want, tol: float, min_equal: float = 0.9999):
            "state_max_rel": max_rel}
     for name, a, b in zip(("fluence", "exitance", "escaped", "timed"),
                           got[1:], want[1:]):
-        if a.shape != b.shape:
-            fails.append(f"{name} shape {tuple(a.shape)} != {tuple(b.shape)}")
-            continue
-        a, b = a.double(), b.double()
-        ta, tb = float(a.sum()), float(b.sum())
-        rel = abs(ta - tb) / max(abs(tb), 1e-12)
-        if rel > TOTAL_TOL:
-            fails.append(f"{name} totals differ by {rel:.3e} relative")
-        if name in ("escaped", "timed"):  # per lane
-            a, b = a[same], b[same]
-        cell = float((a - b).abs().max()) if a.numel() else 0.0
-        cell_rel = cell / max(float(b.abs().max()) if b.numel() else 0.0,
-                              1e-12)
-        if cell_rel > tol:
-            fails.append(f"{name} differs by {cell_rel:.3e} of its largest "
-                         f"value in some cell")
-        max_abs = max(max_abs, cell)
-        out[name] = {"total_rel": rel, "cell_max_abs": cell,
-                     "cell_max_rel_to_max": cell_rel}
+        cells(name, a, b, tol, fails, out,
+              same if name in ("escaped", "timed") else None)
+        max_abs = max(max_abs, out.get(name, {}).get("cell_max_abs", 0.0))
     out["cell_tol"] = tol
     out["max_abs_err"] = max_abs
     return out, fails
@@ -198,6 +268,108 @@ def check_sees_index_errors(got, want, shape, ntg, tol) -> dict:
     return seen
 
 
+def measure_groups(got, want, base, groups, tol):
+    """A group variant's outputs against the plain version's on the same
+    inputs, and its lane state against the base variant's: ``(diffs,
+    failures)``.  Per-lane outputs (ppath, records, stats) must be
+    bit-equal on the lanes whose state agrees; grids are held by
+    ``cells``."""
+    diffs, fails = measure(got[:5], want[:5], tol)
+    for name, x, y in zip(got[0]._fields, got[0], base[0]):
+        if not torch.equal(x, y):
+            fails.append(f"lane state {name} changes with groups {groups}")
+    for i, name in ((3, "escaped"), (4, "timed")):
+        if not torch.equal(got[i], base[i]):
+            fails.append(f"{name} weight changes with groups {groups}")
+    same = (got[0].alive == want[0].alive) & (
+        got[0].ivox == want[0].ivox).all(dim=1)
+    names = []
+    if groups & DET:
+        names += ["ppath", "det_w", "det_ppath"]
+    if groups & RECORD:
+        names += ["cap_det", "cap_gate"]
+    if groups & JAC:
+        names += ["jac"]
+    if groups & STATS:
+        names += ["stats"]
+    check(len(got) == len(want) == 5 + len(names),
+          f"groups {groups}: {len(got)} outputs, plain {len(want)}")
+    for name, a, b in zip(names, got[5:], want[5:]):
+        if name in ("ppath", "cap_det", "cap_gate", "stats"):
+            if not torch.equal(a[same], b[same]):
+                fails.append(f"{name} differs from the plain version")
+            diffs[name] = {"lanes_equal": int(
+                (a == b).reshape(a.shape[0], -1).all(dim=1).sum())}
+            if name == "cap_det":
+                diffs[name]["captures"] = int((b >= 0).sum())
+        else:
+            cells(name, a, b, tol, fails, diffs)
+            diffs["max_abs_err"] = max(diffs["max_abs_err"],
+                                       diffs[name]["cell_max_abs"])
+    return diffs, fails
+
+
+def check_groups_see_index_errors(got, want, base, groups, n_det, ntg,
+                                  jac_cols, tol) -> dict:
+    """The group comparison must fail a TPSF and path sums with the
+    detectors rolled by one, a TPSF with the gate off by one, and a
+    Jacobian with the column off by one.  Returns the largest cell
+    difference each makes, as a share of the grid's largest value."""
+    mutations = {}
+    if groups & DET:
+        dw = got[6].reshape(n_det, ntg)
+        mutations["detector index swapped"] = {
+            6: dw.roll(1, dims=0).reshape(-1), 7: got[7].roll(1, dims=0)}
+        mutations["gate off by one"] = {6: dw.roll(1, dims=1).reshape(-1)}
+    if groups & JAC:
+        i = 5 + (3 if groups & DET else 0) + (2 if groups & RECORD else 0)
+        mutations["jacobian column off by one"] = {
+            i: got[i].reshape(-1, jac_cols).roll(1, dims=1).reshape(-1)}
+    seen = {}
+    for what, swaps in mutations.items():
+        bad = list(got)
+        for i, wrong in swaps.items():
+            bad[i] = wrong
+        diffs, fails = measure_groups(bad, want, base, groups, tol)
+        check(bool(fails), f"the group comparison misses {what}")
+        seen[what] = fails
+    return seen
+
+
+def group_bound(groups, lanes, live, captures, ntg, n_det, n_media,
+                jac_cols, state_lane_bytes) -> dict:
+    """Least time of one launch, in ms, from the bytes it must move and
+    the operations it must do on these inputs (HBM rate; float32 and
+    special-function rates), as K1's bound counts them."""
+    nvox = SIZE**3
+    lane_bytes = 2 * state_lane_bytes + 8
+    grid_bytes = nvox + 4 * nvox * ntg + 4 * SIZE * SIZE
+    if groups & DET:   # ppath in and out; geometry in; TPSF, sums out
+        lane_bytes += 8 * n_media
+        grid_bytes += 12 * n_det + 4 * n_det * ntg + 4 * n_det * n_media
+    if groups & RECORD:  # cap_det, cap_gate out
+        lane_bytes += 8
+    if groups & JAC:   # jac_w, jac_col in; the Jacobian out
+        lane_bytes += 8
+        grid_bytes += 4 * nvox * jac_cols
+    if groups & STATS:  # the (n, 2) block out
+        lane_bytes += 8
+    hbm = lane_bytes * lanes + grid_bytes
+    f32 = (F32_OPS_PER_SEGMENT + sum(
+        ops for bit, ops in GROUP_F32_OPS_PER_SEGMENT.items()
+        if groups & bit)) * live
+    if groups & DET:
+        f32 += captures * (5 * n_det + 2 * n_media)
+    bound = {"bytes": hbm / HBM_BYTES_PER_S * 1e3,
+             "operations": max(f32 / F32_OPS_PER_S,
+                               MUFU_OPS_PER_SEGMENT * live
+                               / MUFU_OPS_PER_S) * 1e3}
+    bound_by = max(bound, key=bound.get)
+    return {"hbm_bytes": hbm, "f32_ops": f32, "bytes_ms": bound["bytes"],
+            "operations_ms": bound["operations"], "bound_ms": bound[bound_by],
+            "bound_by": bound_by}
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -215,13 +387,16 @@ def main() -> None:
     from repro_torch.core import photon as ph
     from repro_torch.core import simulator as S
     from repro_torch.core import volume as V
+    from repro_torch.detectors import as_detectors, det_geometry
     from repro_torch.kernels.photon_step import ops
     from repro_torch.kernels.photon_step import photon_step as K
     from repro_torch.kernels.photon_step import spec
     from repro_torch.kernels.photon_step.ref import photon_steps_ref
     from repro_torch.launch import simulate as launch
+    from repro_torch.replay import detected_records
     from repro_torch.sources import Pencil
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     card = nvidia_smi()
     emit("env", torch=torch.__version__, cuda=torch.version.cuda,
@@ -229,11 +404,16 @@ def main() -> None:
          device_count=torch.cuda.device_count(), nvidia_smi=card)
 
     # --- build ------------------------------------------------------------
-    seconds = K.load()
-    log = K.library_path().with_suffix(".log")
-    ptxas = [ln.strip() for ln in log.read_text().splitlines()
-             if "registers" in ln or "spill" in ln] if log.exists() else []
-    emit("build", seconds=seconds, library=str(K.library_path().name),
+    seconds = K.build_all()
+    K.load(K.VALID_GROUPS)
+    ptxas = {}
+    for g in K.VALID_GROUPS:
+        log = K.library_path(g).with_suffix(".log")
+        ptxas[K.group_names(g)] = [
+            ln.strip() for ln in log.read_text().splitlines()
+            if "registers" in ln or "spill" in ln] if log.exists() else []
+    emit("build", seconds=seconds, variants=len(K.VALID_GROUPS),
+         libraries=[K.library_path(g).name for g in K.VALID_GROUPS],
          ptxas=ptxas)
 
     # --- kernel against the plain version -------------------------------------
@@ -273,25 +453,39 @@ def main() -> None:
 
     # a mid-run state at the main path's shape, for each template
     # instantiation the main path launches (B1: DO_REFLECT=false, B2: true)
-    def mid_run(bench):
-        vol, cfg = launch.get_bench(bench, SIZE, dev)
-        cfg = dataclasses.replace(cfg, steps_per_round=K_MAIN)
+    def mid_run_state(vol, cfg, **groups):
+        """The lanes after 12 rounds of regeneration and a kernel launch,
+        as the simulator runs them, and regenerated once more; with
+        detectors the per-medium paths are carried too.  Returns
+        ``(state, ppath)``."""
         src = Pencil()
         st = ops.fresh_state(vol, LANES, seed=99)._replace(
             alive=torch.zeros(LANES, dtype=torch.bool, device=dev))
+        pp = (torch.zeros((LANES, vol.media.shape[0]), device=dev)
+              if groups else None)
         remaining = torch.tensor(PHOTONS, device=dev)
         launched = torch.zeros(LANES, dtype=torch.int64, device=dev)
         next_id = (torch.tensor(0, device=dev), torch.tensor(0, device=dev))
-        labels = vol.labels.reshape(-1)
-        for _ in range(12):
-            st, remaining, launched, next_id, _ = S._regenerate(
+        for i in range(13):
+            st, remaining, launched, next_id, _, *carry = S._regenerate(
                 st, remaining, launched, next_id, None, src, 99, "dynamic",
-                shape)
-            st = K.photon_step_cuda(labels, vol.media, st, shape, 1.0, cfg,
-                                    K_MAIN)[0]
-        st, *_ = S._regenerate(st, remaining, launched, next_id, None, src,
-                               99, "dynamic", shape)
+                shape, pp)
+            if i == 12:
+                return st, (carry[0] if groups else None)
+            kw = dict(groups, ppath=carry[0]) if groups else {}
+            outs = K.photon_step_cuda(vol.labels.reshape(-1), vol.media, st,
+                                      shape, 1.0, cfg, K_MAIN, **kw)
+            st, pp = outs[0], (outs[5] if groups else None)
+
+    def mid_run(bench):
+        vol, cfg = launch.get_bench(bench, SIZE, dev)
+        cfg = dataclasses.replace(cfg, steps_per_round=K_MAIN)
+        labels = vol.labels.reshape(-1)
+        st, _ = mid_run_state(vol, cfg)
         _, diffs, ms, plain_ms = kernel_vs_plain(vol, cfg, st, K_MAIN, 20)
+        args = (labels, vol.media, st, shape, 1.0, cfg, K_MAIN)
+        host_loop_ms = time_cuda(lambda: K.photon_step_cuda(*args), 20,
+                             backlog=False)
         # live lane-segments of this launch, counted by the plain step
         live, walk = 0, st
         for _ in range(K_MAIN):
@@ -311,7 +505,8 @@ def main() -> None:
         emit("kernel", bench=bench, lanes=LANES, k=K_MAIN,
              do_reflect=cfg.do_reflect,
              start="after 12 regenerate+kernel rounds", ms=ms,
-             plain_ms=plain_ms, live_segments=live, hbm_bytes=bytes_moved,
+             host_loop_ms=host_loop_ms, plain_ms=plain_ms,
+             live_segments=live, hbm_bytes=bytes_moved,
              bytes_ms=bound["bytes"], operations_ms=bound["operations"],
              bound_ms=bound[bound_by], bound_by=bound_by,
              l2_atomics=live, l2_atomic_bytes=ATOMIC_BYTES_PER_SEGMENT * live,
@@ -322,10 +517,98 @@ def main() -> None:
 
     timed = {bench: mid_run(bench) for bench in ("B1", "B2")}
 
+    # --- K2-K5: the optional groups against the plain version ----------------
+    geom = det_geometry(as_detectors(DETECTORS), dev)
+    n_det = len(DETECTORS)
+
+    def group_kwargs(vol, state, groups, ntg, ppath):
+        n = state.w.shape[0]
+        kw = {}
+        if groups & DET:
+            kw.update(ppath=ppath, det_geom=geom)
+        if groups & RECORD:
+            kw["record"] = True
+        if groups & JAC:
+            gen = torch.Generator(device=dev).manual_seed(5)
+            kw.update(jac_w=torch.rand(n, device=dev, generator=gen),
+                      jac_col=torch.randint(0, n_det * ntg, (n,), device=dev,
+                                            generator=gen, dtype=torch.int32),
+                      jac_cols=n_det * ntg)
+        if groups & STATS:
+            kw["stats"] = True
+        return kw
+
+    def groups_vs_plain(vol, cfg, state, ppath, n_steps, reps, start):
+        args = (vol.labels.reshape(-1), vol.media, state, vol.shape,
+                vol.unitinmm, cfg, n_steps)
+        ntg, n_media = cfg.n_time_gates, vol.media.shape[0]
+        lanes = state.w.numel()
+        tol = cell_tol(lanes, n_steps)
+        base = K.photon_step_cuda(*args)
+        # live lane-segments and captures of this launch, from the plain
+        # version's stats block and records
+        work = photon_steps_ref(*args, **group_kwargs(
+            vol, state, DET | RECORD | STATS, ntg, ppath))
+        live = float(work[-1][:, 0].double().sum())
+        captures = int((work[8] >= 0).sum())
+        out = {}
+        for groups in CHECK_VARIANTS:
+            kw = group_kwargs(vol, state, groups, ntg, ppath)
+            got = K.photon_step_cuda(*args, **kw)
+            again = K.photon_step_cuda(*args, **kw)
+            want = photon_steps_ref(*args, **kw)
+            torch.cuda.synchronize()
+            for x, y in zip(list(got[0]) + list(got[5:]),
+                            list(again[0]) + list(again[5:])):
+                if x.dtype != torch.float32 or x.shape[0] == lanes:
+                    check(torch.equal(x, y), "two kernel runs differ lane "
+                          "by lane")
+            diffs, fails = measure_groups(got, want, base, groups, tol)
+            check(not fails, f"groups {K.group_names(groups)}: "
+                  + "; ".join(fails))
+            seen = check_groups_see_index_errors(
+                got, want, base, groups, n_det, ntg, n_det * ntg, tol)
+            ms = time_cuda(lambda: K.photon_step_cuda(*args, **kw), reps)
+            plain_ms = time_cuda(lambda: photon_steps_ref(*args, **kw), 2)
+            bound = group_bound(groups, lanes, live, captures, ntg, n_det,
+                                n_media, n_det * ntg,
+                                spec.STATE_LANE_BYTES_PORT)
+            emit("groups", variant=K.variant_name(groups, cfg),
+                 rows=[r for b, r in GROUP_ROWS.items() if groups & b],
+                 start=start, lanes=lanes, k=n_steps, ntg=ntg,
+                 tmax_ns=cfg.tmax_ns, n_det=n_det, ms=ms, plain_ms=plain_ms,
+                 live_segments=live, captures=captures,
+                 mutations_seen={k: v[0] for k, v in seen.items()},
+                 **bound, **diffs)
+            out[groups] = {"variant": K.variant_name(groups, cfg), "ms": ms,
+                           "plain_ms": plain_ms,
+                           "max_abs_err": diffs["max_abs_err"], **bound}
+        return out
+
+    # fresh photons from a pencil under the first detector; 4 gates over
+    # 0.02 ns spread K = 8 segments over every gate
+    vol, cfg = launch.get_bench("B2", SIZE, dev)
+    cfg = dataclasses.replace(cfg, n_time_gates=4, tmax_ns=0.02)
+    state = ops.fresh_state(vol, CMP_LANES, seed=1234, source={
+        "type": "pencil", "pos": [40.0, 30.0, 0.0]})
+    groups_vs_plain(vol, cfg, state, torch.zeros(
+        (CMP_LANES, vol.media.shape[0]), device=dev), CMP_K, 10,
+        "fresh pencil photons at (40, 30, 0)")
+
+    # a mid-run state at the detection path's shape, its per-medium
+    # paths carried round to round as the simulator carries them
+    vol, cfg = launch.get_bench("B2", SIZE, dev)
+    cfg = dataclasses.replace(cfg, steps_per_round=K_MAIN,
+                              n_time_gates=NTG_DETECT, tmax_ns=TMAX_DETECT)
+    st, pp = mid_run_state(vol, cfg, det_geom=geom, record=True, stats=True)
+    timed_groups = groups_vs_plain(vol, cfg, st, pp, K_MAIN, 20,
+                                   "after 12 regenerate+kernel rounds")
+    cfg_detect = cfg
+
     # --- main path ------------------------------------------------------------
     launches = {}
     for bench in ("B1", "B2"):
-        K.photon_step_cuda.launches = 0
+        K.reset_launches()
         t0 = time.perf_counter()
         res = launch.main(["--bench", bench, "--photons", str(PHOTONS),
                            "--lanes", str(LANES), "--size", str(SIZE),
@@ -359,6 +642,67 @@ def main() -> None:
              timed_out=bal["timed_out"], residue_frac=bal["residue_frac"],
              **extra)
 
+    # --- detection path ---------------------------------------------------
+    K.reset_launches()
+    t0 = time.perf_counter()
+    run = launch.run(DETECT_ARGV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    by_variant = dict(K.photon_step_cuda.launches_by)
+    res, rep = run.result, run.replay
+    bal = A.energy_balance(res)
+    check(int(res.n_launched) == PHOTONS, "n_launched != photons")
+    check(float(res.launched_w) == PHOTONS, "launched_w != photons")
+    check(abs(bal["residue_frac"]) < 1e-4,
+          f"energy residue {bal['residue_frac']:.3e}")
+    check(tuple(res.energy.shape) == shape + (NTG_DETECT,)
+          and bool(torch.isfinite(res.energy).all()), "energy grid malformed")
+    check(tuple(res.det_w.shape) == (n_det, NTG_DETECT)
+          and bool(torch.isfinite(res.det_w).all()), "TPSF malformed")
+    check(int(res.det_rec_overflow) == 0,
+          f"{int(res.det_rec_overflow)} records overflowed")
+    rec = detected_records(res)
+    check(rep is not None and rep.n_records == rec.shape[0] > 0,
+          "no replay of the records")
+    exact_det = int((rep.replayed_det == rep.det).sum())
+    exact_gate = int((rep.gate == rec[:, 3].astype(np.int32)).sum())
+    check(exact_det == exact_gate == rep.n_records,
+          f"{exact_det} / {exact_gate} of {rep.n_records} records replayed "
+          f"at their detector / gate")
+    med = A.jacobian_medium_sums(rep.jacobian, V.benchmark_b2(shape))
+    ppath_sums = res.det_ppath.double().cpu().numpy()
+    identity = np.abs(med - ppath_sums) / np.maximum(np.abs(ppath_sums),
+                                                     1e-30)
+    identity = float(identity[ppath_sums != 0].max())
+    check(identity <= 1e-5 and (med[ppath_sums == 0] == 0).all(),
+          f"Jacobian medium sums miss det_ppath by {identity:.3e} relative")
+    per_det = np.zeros(n_det)
+    np.add.at(per_det, rep.det, rep.w_exit.astype(np.float64))
+    det_tot = res.det_w.double().sum(dim=1).cpu().numpy()
+    w_exit_rel = float((np.abs(per_det - det_tot) / det_tot).max())
+    check(w_exit_rel <= 1e-5, f"replayed exit weight misses det_w by "
+          f"{w_exit_rel:.3e}")
+    check(res.stats.escaped_w == np.float32(res.escaped_w.item()),
+          "RoundStats.escaped_w != SimResult.escaped_w")
+    check(int(res.stats.relaunched) == PHOTONS, "stats relaunched != photons")
+    for groups, where in PATH_VARIANTS.items():
+        name = K.variant_name(groups, cfg_detect)
+        check(by_variant.get(name, 0) >= 1, f"{name} ({where}) never launched")
+    rounds = res.steps // K_MAIN
+    fwd_variant = K.variant_name(DET | RECORD | STATS, cfg_detect)
+    check(by_variant[fwd_variant] == rounds,
+          f"{by_variant[fwd_variant]} forward launches for {rounds} rounds")
+    emit("detect", argv=DETECT_ARGV, seconds=wall,
+         forward_seconds=run.seconds,
+         photons_per_ms=PHOTONS / run.seconds / 1e3,
+         rounds=rounds, residue_frac=bal["residue_frac"],
+         records=rep.n_records, replay_seconds=run.replay_seconds,
+         replay_records_per_ms=rep.n_records / run.replay_seconds / 1e3,
+         records_exact=exact_det, identity_max_rel=identity,
+         w_exit_max_rel=w_exit_rel, detected_w=det_tot.tolist(),
+         lane_occupancy=res.stats.lane_occupancy(),
+         launches_by_variant=by_variant)
+
     # --- kernel table ---------------------------------------------------------
     # one kernel source, two instantiations: its times and bound are the
     # mean over the main run's launches of each
@@ -370,6 +714,7 @@ def main() -> None:
     bound = {k: per_launch(lambda t: t["bound"][k])
              for k in ("bytes", "operations")}
     bound_by = max(bound, key=bound.get)
+    emit("wall", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [{
         "name": "photon_step_base", "route": "cuda",
         "source": "src/repro_torch/kernels/photon_step/csrc/photon_step.cu",
@@ -386,7 +731,19 @@ def main() -> None:
             {"bench": b, "do_reflect": b == "B2", "launches": launches[b],
              "ms": timed[b]["ms"], "plain_ms": timed[b]["plain_ms"],
              "bound_ms": max(timed[b]["bound"].values())}
-            for b in launches]}]}), flush=True)
+            for b in launches]}] + [{
+        "name": "photon_step_" + K.group_names(g).replace("+", "_"),
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/photon_step/csrc/photon_step.cu",
+        "replaces": "src/repro/kernels/photon_step/photon_step.py:396",
+        "variant": timed_groups[g]["variant"], "path": where,
+        "rows": [r for b, r in GROUP_ROWS.items() if g & b],
+        "launches": by_variant[timed_groups[g]["variant"]],
+        "max_abs_err": timed_groups[g]["max_abs_err"],
+        "ms": timed_groups[g]["ms"], "plain_ms": timed_groups[g]["plain_ms"],
+        "bound_ms": timed_groups[g]["bound_ms"],
+        "bound_by": timed_groups[g]["bound_by"], "library_ms": None}
+        for g, where in PATH_VARIANTS.items()]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,7 +5,9 @@ is the deposited energy divided by (mua * voxel volume * launched
 weight); for a time-resolved run it is the gate sum of ``fluence_td``.
 The validation helpers check a run against physics (energy
 conservation; the diffusion-theory attenuation
-mu_eff = sqrt(3 mua (mua + mus'))).
+mu_eff = sqrt(3 mua (mua + mus'))).  The detector helpers reduce the
+TPSF and partial-pathlength sums of a detector run and the Jacobian of
+a replay (``repro_torch.replay``).
 """
 
 from __future__ import annotations
@@ -48,6 +50,79 @@ def fluence_cw(result: SimResult, volume: Volume) -> np.ndarray:
 def gate_times_ns(cfg: SimConfig) -> np.ndarray:
     """Gate-center times (ns) of the ``cfg.n_time_gates`` bins."""
     return (np.arange(cfg.n_time_gates) + 0.5) * cfg.gate_width_ns
+
+
+def tpsf(result: SimResult, cfg: SimConfig) -> tuple[np.ndarray, np.ndarray]:
+    """Detector time-point-spread functions from the capture histogram.
+
+    Returns ``(times_ns, tpsf)``: the (ntg,) gate-centre times and the
+    (n_det, ntg) detected weight per unit launched weight per ns.
+    """
+    det_w = _host(result.det_w).astype(np.float64)
+    if det_w.size and det_w.shape[1] != cfg.n_time_gates:
+        raise ValueError(
+            f"result has {det_w.shape[1]} gates but cfg.n_time_gates="
+            f"{cfg.n_time_gates}")
+    norm = max(float(_host(result.launched_w)), 1e-20) * cfg.gate_width_ns
+    return gate_times_ns(cfg), det_w / norm
+
+
+def detector_mean_ppath(result: SimResult) -> np.ndarray:
+    """Weight-weighted mean per-medium partial pathlength (mm) of the
+    detected photons, ``(n_det, n_media)`` (MCX's convention); rows of
+    detectors that caught nothing are zero."""
+    det_ppath = _host(result.det_ppath).astype(np.float64)
+    tot_w = _host(result.det_w).astype(np.float64).sum(axis=1, keepdims=True)
+    return np.where(tot_w > 0, det_ppath / np.maximum(tot_w, 1e-20), 0.0)
+
+
+def rescale_detected(result: SimResult, volume: Volume,
+                     new_mua) -> np.ndarray:
+    """First-order absorption rescaling of detected weight.
+
+    For per-medium absorption coefficients ``new_mua`` (1/mm, one per
+    media row) estimates each detector's detected weight without a new
+    run, from the mean partial pathlengths:
+    ``w' = w * exp(-sum_m dmua_m * <L_m>)``.  Returns ``(n_det,)``.
+    """
+    new_mua = np.asarray(new_mua, np.float64)
+    old_mua = _host(volume.media).astype(np.float64)[:, 0]
+    if new_mua.shape != old_mua.shape:
+        raise ValueError(f"new_mua must have shape {old_mua.shape}")
+    mean_l = detector_mean_ppath(result)            # (n_det, n_media)
+    tot_w = _host(result.det_w).astype(np.float64).sum(axis=1)
+    return tot_w * np.exp(-mean_l @ (new_mua - old_mua))
+
+
+def jacobian_medium_sums(jacobian, volume: Volume,
+                         per_gate: bool = False) -> np.ndarray:
+    """Sum a replay Jacobian over the voxels of each medium label.
+
+    ``jacobian`` is ``(nx, ny, nz, n_det)`` or gate-resolved
+    ``(nx, ny, nz, n_det, ntg)``; returns ``(n_det, n_media)``, the
+    gate axis summed first (the gates partition the scatter), or with
+    ``per_gate=True`` ``(n_det, ntg, n_media)``.  By construction the
+    ``(n_det, n_media)`` result equals the forward run's ``det_ppath``:
+    each detected packet adds ``w_exit * L_m`` to both.
+    """
+    jac = np.asarray(jacobian, np.float64)
+    if jac.ndim not in (4, 5):
+        raise ValueError(
+            f"jacobian must be (nx, ny, nz, n_det[, ntg]), got shape "
+            f"{jac.shape}")
+    if per_gate and jac.ndim != 5:
+        raise ValueError("per_gate=True requires a gate-resolved "
+                         "(nx, ny, nz, n_det, ntg) Jacobian")
+    labels = _host(volume.labels).reshape(-1)
+    n_media = volume.media.shape[0]
+    trail = jac.shape[3:]                      # (n_det,) or (n_det, ntg)
+    flat = jac.reshape(-1, *trail)
+    out = np.zeros(trail + (n_media,), np.float64)
+    for m in range(n_media):
+        out[..., m] = flat[labels == m].sum(axis=0)
+    if jac.ndim == 5 and not per_gate:
+        out = out.sum(axis=1)                  # the gate axis partitions J
+    return out
 
 
 def energy_balance(result: SimResult) -> dict[str, float]:

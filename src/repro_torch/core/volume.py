@@ -160,9 +160,8 @@ class SimConfig:
     regeneration runs once per round and the accumulators are flushed
     once per round.  ``n_time_gates`` bins deposited energy over
     time-of-flight into equal gates over ``[0, tmax_ns]``; 1 is the
-    continuous-wave case.  ``collect_stats`` is carried for parity with
-    the reference; the round counters arrive in a later part of the
-    port and the simulator rejects it until then.
+    continuous-wave case.  ``collect_stats`` returns the round counters
+    (``telemetry.RoundStats``) on ``SimResult.stats``.
     """
 
     do_reflect: bool = False
@@ -174,7 +173,7 @@ class SimConfig:
     max_steps: int = 500_000     # hard cap on lock-step iterations
     steps_per_round: int = 1     # K: fused segments per outer iteration
     n_time_gates: int = 1        # time-resolved fluence gates over [0, tmax_ns]
-    collect_stats: bool = False  # round counters (not yet ported)
+    collect_stats: bool = False  # round counters on SimResult.stats
 
     @property
     def gate_width_ns(self) -> float:

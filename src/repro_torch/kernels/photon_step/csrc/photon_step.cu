@@ -1,10 +1,20 @@
 // Photon-step kernel for NVIDIA Hopper (sm_90a): K hop-drop-spin
 // transport segments per photon lane, with fluence, exitance and
-// escaped / timed-out weight accumulated in the kernel.
+// escaped / timed-out weight accumulated in the kernel, and the optional
+// output groups as compile-time variants.
 //
 // Replaces: the TPU kernel repro/kernels/photon_step/photon_step.py,
-//   photon_step_pallas (its pallas_call, body _kernel), base output
-//   group only (no detectors, records, replay Jacobian or stats).
+//   photon_step_pallas (its pallas_call, body _kernel), every output
+//   group:
+//     base      state, fluence, exitance, escaped, timed   (always)
+//     DET       ppath, det_w (TPSF), det_ppath             (n_det > 0)
+//     RECORD    cap_det, cap_gate                          (record)
+//     JAC       jac, the replay Jacobian                   (jac_cols > 0)
+//     STATS     (n, 2) segments entered alive, deposit     (stats)
+//   The source is compiled once per valid set of groups, with
+//   -DPS_GROUPS=<mask> (1 DET, 2 RECORD, 4 JAC, 8 STATS; RECORD needs
+//   DET), into a library of its own; groups that are off compile away,
+//   so the base variant is the base kernel alone.
 //
 // What bounds it: per live lane-segment it reads 2 labels (1 B each,
 //   from L2: the 216 KB label grid of a 60^3 volume stays resident in
@@ -18,22 +28,35 @@
 //   bound it about equally, while one launch took 0.25 ms on an H100
 //   80GB HBM3 at 700 W.  Warp divergence (scatter vs wall crossing vs
 //   Fresnel) and atomic contention near the source are the likely
-//   losses.
+//   losses.  The groups add little: DET reads and writes the lane's
+//   per-medium path (4 B a medium each way) and updates one entry of it
+//   per live segment in place (L1/L2), and each capture (at most one
+//   per photon) adds 1 + n_media atomics; RECORD writes 8 B a lane;
+//   STATS 8 B a lane; JAC reads 8 B a lane and adds one atomic per live
+//   segment into an nvox x jac_cols grid (130 MB at 60^3 with 150
+//   columns, far beyond L2, so those atomics go to HBM).
 //
 // What the design does about it: one thread per lane, 256 threads a
 //   block, a tail-masked grid.  The state lives in registers across the
 //   K segments and is written back once in the reference layout.  The
-//   fluence and exitance sums use atomicAdd on zero-initialised float32
-//   buffers in device memory; a zero deposit (dead lane) is skipped, so
-//   only live segments touch memory.  DO_REFLECT and TAYLOR are
-//   template flags so the specialised kernel carries only its physics.
+//   fluence, exitance, TPSF, path-sum and Jacobian sums use atomicAdd
+//   on zero-initialised float32 buffers in device memory, indexed in
+//   64 bits where a grid can pass 2^31 cells; an add of exactly zero
+//   (dead lane, missed detector, padding lane) is skipped, so only
+//   live segments touch memory.  The per-medium path stays in device
+//   memory rather than registers, so n_media has no compile-time bound.
+//   DO_REFLECT and TAYLOR are template flags so the specialised kernel
+//   carries only its physics.
 //
-// Parity: the arithmetic follows repro_torch/core/photon.py operation
-//   by operation.  Build with --fmad=false and without fast math: every
-//   constant below is a float literal, and logf/expf/sinf/cosf/sqrtf
-//   and IEEE division are what PyTorch's elementwise CUDA operators
-//   call, so the per-lane state matches the plain version bit for bit
-//   where the operation order matches.
+// Parity: the arithmetic follows repro_torch/core/photon.py and
+//   repro_torch/detectors operation by operation.  Build with
+//   --fmad=false and without fast math: every constant below is a float
+//   literal, and logf/expf/sinf/cosf/sqrtf and IEEE division are what
+//   PyTorch's elementwise CUDA operators call, so the per-lane state
+//   (and ppath, cap_det, cap_gate and the stats block) matches the
+//   plain version bit for bit where the operation order matches.  No
+//   group writes a variable of the lane state, so the state and the
+//   base outputs are the same with any group on or off.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,6 +70,35 @@ constexpr float kTwoPi = 6.28318548202514648f;  // float32(2 pi)
 constexpr float kCLight = 299.792458f;    // mm/ns
 constexpr float kU24 = 5.9604644775390625e-08f;  // 2^-24
 constexpr float kZExitFace = 0.25f;
+
+#ifndef PS_GROUPS
+#define PS_GROUPS 0
+#endif
+constexpr int kGroupDet = 1, kGroupRecord = 2, kGroupJac = 4,
+              kGroupStats = 8;
+constexpr bool kDet = (PS_GROUPS & kGroupDet) != 0;
+constexpr bool kRecord = (PS_GROUPS & kGroupRecord) != 0;
+constexpr bool kJac = (PS_GROUPS & kGroupJac) != 0;
+constexpr bool kStats = (PS_GROUPS & kGroupStats) != 0;
+static_assert(PS_GROUPS >= 0 && PS_GROUPS < 16, "PS_GROUPS is a 4-bit mask");
+static_assert(!kRecord || kDet, "the RECORD group needs the DET group");
+
+// Pointers and sizes of the optional groups; members of a group that is
+// compiled out are null and never read.
+struct Groups {
+  const float* ppath_in;    // DET (n, n_media)
+  const float* det_geom;    // DET (n_det, 3): x, y, radius^2
+  const float* jac_w;       // JAC (n,)
+  const int32_t* jac_col;   // JAC (n,)
+  float* ppath_out;         // DET (n, n_media)
+  float* det_w;             // DET (n_det * ntg), zeroed
+  float* det_ppath;         // DET (n_det, n_media), zeroed
+  int32_t* cap_det;         // RECORD (n,)
+  int32_t* cap_gate;        // RECORD (n,)
+  float* jac;               // JAC (nvox * jac_cols), zeroed
+  float* stats;             // STATS (n, 2)
+  int n_det, n_media, jac_cols;
+};
 
 struct Rng {
   uint32_t x, y, z, w;
@@ -89,7 +141,7 @@ __global__ void __launch_bounds__(256) photon_step_kernel(
     float* __restrict__ esc_out, float* __restrict__ timed_out,
     int n, int nx, int ny, int nz, float unit, int n_steps, int ntg,
     float gate_scale, float tmax, float w_threshold, float roulette_m,
-    float roulette_p, int general_exact) {
+    float roulette_p, int general_exact, const Groups grp) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n) return;
 
@@ -109,6 +161,23 @@ __global__ void __launch_bounds__(256) photon_step_kernel(
   r.w = (uint32_t)rng_in[4 * lane + 3];
   bool alive = alive_in[lane] != 0;
   float esc_acc = 0.f, timed_acc = 0.f;
+
+  // the lane's per-medium path, carried in its row of ppath_out
+  float* pp = nullptr;
+  if (kDet) {
+    const int nm = grp.n_media;
+    pp = grp.ppath_out + (long long)lane * nm;
+    for (int m = 0; m < nm; ++m)
+      pp[m] = grp.ppath_in[(long long)lane * nm + m];
+  }
+  int cap_det = -1, cap_gate = 0;
+  float jac_w = 0.f;
+  int jac_col = 0;
+  if (kJac) {
+    jac_w = grp.jac_w[lane];
+    jac_col = grp.jac_col[lane];
+  }
+  float st_live = 0.f, st_dep = 0.f;
 
   for (int k = 0; k < n_steps; ++k) {
     const int cx = clampi(iv[0], 0, nx - 1);
@@ -266,11 +335,53 @@ __global__ void __launch_bounds__(256) photon_step_kernel(
     const float esc_w = escapes ? w_after : 0.f;
     if (escapes) w_final = 0.f;
 
+    if (kStats) {
+      st_live = st_live + (alive ? 1.f : 0.f);
+      st_dep = st_dep + (alive ? dep : 0.f);
+    }
     if (alive) {
-      // deposition (zero deposits add nothing and are skipped)
+      // deposition (zero deposits add nothing and are skipped); the gate
+      // is computed where it is used, so the base variant does no work
+      // of the groups
       if (dep != 0.f) {
         const int gate = clampi((int)floorf(t_new * gate_scale), 0, ntg - 1);
         atomicAdd(fluence + flat * ntg + gate, dep);
+      }
+      const float seg_len = seg * unit;
+      if (kDet) {
+        // the segment's path joins the lane's medium sum before the
+        // capture test, so a detected photon carries its last segment
+        pp[label] = pp[label] + seg_len;
+        if (esc_w > 0.f && np_[2] < kZExitFace) {
+          int det = -1;  // the first disk that holds the exit point
+          for (int dd = 0; dd < grp.n_det; ++dd) {
+            const float dx = np_[0] - __ldg(grp.det_geom + 3 * dd + 0);
+            const float dy = np_[1] - __ldg(grp.det_geom + 3 * dd + 1);
+            if (dx * dx + dy * dy <= __ldg(grp.det_geom + 3 * dd + 2)) {
+              det = dd;
+              break;
+            }
+          }
+          if (det >= 0) {
+            const int gate =
+                clampi((int)floorf(t_new * gate_scale), 0, ntg - 1);
+            atomicAdd(grp.det_w + (long long)det * ntg + gate, esc_w);
+            for (int m = 0; m < grp.n_media; ++m) {
+              const float v = esc_w * pp[m];
+              if (v != 0.f)
+                atomicAdd(grp.det_ppath + (long long)det * grp.n_media + m, v);
+            }
+            if (kRecord) {
+              cap_det = det;
+              cap_gate = gate;
+            }
+          }
+        }
+      }
+      if (kJac) {
+        const float v = jac_w * seg_len;
+        if (v != 0.f)
+          atomicAdd(grp.jac + flat * grp.jac_cols + jac_col, v);
       }
       if (esc_w > 0.f && np_[2] < kZExitFace) {
         const int ex = clampi((int)floorf(np_[0]), 0, nx - 1);
@@ -308,6 +419,14 @@ __global__ void __launch_bounds__(256) photon_step_kernel(
   alive_out[lane] = alive ? 1 : 0;
   esc_out[lane] = esc_acc;
   timed_out[lane] = timed_acc;
+  if (kRecord) {
+    grp.cap_det[lane] = cap_det;
+    grp.cap_gate[lane] = cap_gate;
+  }
+  if (kStats) {
+    grp.stats[2 * lane + 0] = st_live;
+    grp.stats[2 * lane + 1] = st_dep;
+  }
 }
 
 template <bool DO_REFLECT, bool TAYLOR>
@@ -316,6 +435,30 @@ cudaError_t launch(const void* const* in, void* const* out, const int* ints,
   const int n = ints[0];
   const int threads = 256;
   const int blocks = (n + threads - 1) / threads;
+  // the optional inputs and outputs follow the base ones, in the order
+  // of the output contract (kernels/photon_step/spec.py)
+  Groups grp = {};
+  int i_in = 10, i_out = 12;
+  if (kDet) {
+    grp.ppath_in = (const float*)in[i_in++];
+    grp.det_geom = (const float*)in[i_in++];
+    grp.ppath_out = (float*)out[i_out++];
+    grp.det_w = (float*)out[i_out++];
+    grp.det_ppath = (float*)out[i_out++];
+  }
+  if (kJac) {
+    grp.jac_w = (const float*)in[i_in++];
+    grp.jac_col = (const int32_t*)in[i_in++];
+  }
+  if (kRecord) {
+    grp.cap_det = (int32_t*)out[i_out++];
+    grp.cap_gate = (int32_t*)out[i_out++];
+  }
+  if (kJac) grp.jac = (float*)out[i_out++];
+  if (kStats) grp.stats = (float*)out[i_out++];
+  grp.n_det = ints[10];
+  grp.n_media = ints[11];
+  grp.jac_cols = ints[12];
   photon_step_kernel<DO_REFLECT, TAYLOR><<<blocks, threads, 0, stream>>>(
       (const uint8_t*)in[0], (const float*)in[1], (const float*)in[2],
       (const float*)in[3], (const int32_t*)in[4], (const float*)in[5],
@@ -325,22 +468,28 @@ cudaError_t launch(const void* const* in, void* const* out, const int* ints,
       (int64_t*)out[6], (uint8_t*)out[7], (float*)out[8], (float*)out[9],
       (float*)out[10], (float*)out[11], n, ints[1], ints[2], ints[3],
       floats[0], ints[4], ints[5], floats[1], floats[2], floats[3],
-      floats[4], floats[5], ints[6]);
+      floats[4], floats[5], ints[6], grp);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C entry point, bound with ctypes.
-//   in:  labels, media, pos, dir, ivox, w, s_left, t, rng, alive (10)
+//   in:  labels, media, pos, dir, ivox, w, s_left, t, rng, alive (10),
+//        then [ppath, det_geom] (DET), [jac_w, jac_col] (JAC)
 //   out: pos, dir, ivox, w, s_left, t, rng, alive, fluence, exitance,
-//        escaped, timed (12)
-//   ints:   n, nx, ny, nz, n_steps, ntg, general_exact, do_reflect, taylor
+//        escaped, timed (12), then [ppath, det_w, det_ppath] (DET),
+//        [cap_det, cap_gate] (RECORD), [jac] (JAC), [stats] (STATS)
+//   ints:   n, nx, ny, nz, n_steps, ntg, general_exact, do_reflect, taylor,
+//           groups, n_det, n_media, jac_cols
 //   floats: unit, gate_scale, tmax, w_threshold, roulette_m, roulette_p
-// Returns the cudaError_t of the launch (0 on success).
+// Returns the cudaError_t of the launch (0 on success), or
+// cudaErrorInvalidValue when ``groups`` is not the set this library was
+// built for.
 extern "C" int photon_step_launch(const void* const* in, void* const* out,
                                   const int* ints, const float* floats,
                                   void* stream) {
+  if (ints[9] != PS_GROUPS) return (int)cudaErrorInvalidValue;
   if (ints[0] <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   const bool do_reflect = ints[7] != 0, taylor = ints[8] != 0;
@@ -354,6 +503,8 @@ extern "C" int photon_step_launch(const void* const* in, void* const* out,
   }
   return (int)err;
 }
+
+extern "C" int photon_step_groups() { return PS_GROUPS; }
 
 extern "C" const char* photon_step_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

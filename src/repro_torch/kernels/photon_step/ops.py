@@ -37,8 +37,9 @@ def photon_steps(labels_flat, media, state, shape, unitinmm, cfg: SimConfig,
                  record: bool = False, jac_w=None, jac_col=None,
                  jac_cols: int = 0, stats: bool = False):
     """Returns ``(new_state, fluence_flat, exitance_flat,
-    escaped_per_lane, timed_per_lane)``: the kernel for CUDA tensors,
-    the plain version for CPU tensors."""
+    escaped_per_lane, timed_per_lane)`` and the optional output groups
+    the arguments ask for (see ``ref.photon_steps_ref``): the kernel for
+    CUDA tensors, the plain version for CPU tensors."""
     dev = state.w.device
     if dev.type == "cuda":
         fn = photon_step_cuda

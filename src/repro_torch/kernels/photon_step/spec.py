@@ -3,10 +3,10 @@
 The plain version (``ref.photon_steps_ref``), the CUDA wrapper
 (``photon_step.photon_step_cuda``), the dispatcher (``ops.photon_steps``)
 and the round executor in ``repro_torch.core.simulator`` produce the same
-output groups, in the same order, gated by the same flags.  The constants
-are plain literals, equal to those of the JAX reference's spec.  This
-part of the port implements the base group only; the optional groups
-raise ``NotImplementedError`` until their kernels are ported.
+output groups, in the same order, gated by the same flags, and each
+asserts ``output_arity``.  The constants are plain literals, equal to
+those of the JAX reference's spec.  ``check_groups`` holds the
+reference's rules on which optional inputs go together.
 """
 
 from __future__ import annotations
@@ -57,18 +57,23 @@ def output_arity(n_det: int = 0, record: bool = False, jac_cols: int = 0,
     return n
 
 
-def reject_optional_groups(ppath=None, det_geom=None, record=False,
-                           jac_w=None, jac_col=None, jac_cols=0,
-                           stats=False) -> None:
-    """Raise for any optional output group: only the base group is
-    ported so far."""
-    asked = [name for name, on in (
-        ("ppath/det_geom", ppath is not None or det_geom is not None),
-        ("record", bool(record)),
-        ("jac_w/jac_col/jac_cols",
-         jac_w is not None or jac_col is not None or bool(jac_cols)),
-        ("stats", bool(stats))) if on]
-    if asked:
-        raise NotImplementedError(
-            f"photon-step output groups {asked} are not ported yet; only "
-            f"the base group (state, fluence, exitance, escaped, timed) is")
+def check_groups(ppath=None, det_geom=None, record=False, jac_w=None,
+                 jac_col=None, jac_cols: int = 0) -> tuple[int, bool, int]:
+    """Check which optional output groups a call asks for; returns
+    ``(n_det, record, jac_cols)``.
+
+    Raises ``ValueError`` as the reference does: ``ppath`` and
+    ``det_geom`` go together, ``jac_w``, ``jac_col`` and ``jac_cols > 0``
+    go together, and ``record`` needs detectors.
+    """
+    if (ppath is None) != (det_geom is None):
+        raise ValueError("ppath and det_geom must be given together")
+    jac_cols = int(jac_cols)
+    if (jac_cols > 0) != (jac_w is not None) or \
+            (jac_w is None) != (jac_col is None):
+        raise ValueError("jac_w, jac_col and jac_cols > 0 must be given "
+                         "together")
+    n_det = 0 if det_geom is None else int(det_geom.shape[0])
+    if record and not n_det:
+        raise ValueError("record=True requires detectors (det_geom)")
+    return n_det, bool(record), jac_cols

@@ -15,6 +15,13 @@ fluence and exitance sums are float atomics in both, in an order that
 changes from run to run: a cell of n deposits moves by about
 sqrt(n) * 2^-24 of its value between two orders, while a deposit into a
 wrong voxel, gate or bin moves cells by far more.
+
+The optional output groups are held the same way: per-lane ``ppath``,
+``cap_det``, ``cap_gate`` and the stats block bit-equal to the plain
+version, TPSF, detector path sums and Jacobian cell by cell, and the
+lane state and base outputs of the kernel bit-equal with any group on
+or off.  Replay on the card brings back every record of a B2 forward
+run with reflection at its detector and gate.
 """
 
 import dataclasses
@@ -27,9 +34,11 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import analysis as A  # noqa: E402
 from repro_torch.core import simulator as S  # noqa: E402
 from repro_torch.core import volume as V  # noqa: E402
+from repro_torch.detectors import as_detectors, det_geometry  # noqa: E402
 from repro_torch.kernels.photon_step import ops  # noqa: E402
 from repro_torch.kernels.photon_step import photon_step as kernel  # noqa: E402
 from repro_torch.kernels.photon_step.ref import photon_steps_ref  # noqa: E402
+from repro_torch.replay import detected_records, replay_jacobian  # noqa: E402
 
 SHAPE = (24, 20, 16)
 SRC = {"type": "pencil", "pos": [12.0, 10.0, 0.0]}
@@ -131,3 +140,84 @@ def test_simulate_on_card_is_deterministic_and_conserves(cuda_device):
                                b.energy.double().sum(), rtol=1e-5, atol=0)
     assert_cells_close(a.energy, b.energy, a.steps * 8192)
     assert_cells_close(a.exitance, b.exitance, a.steps * 8192)
+
+
+DETS = [(12.0, 10.0, 3.0), (15.0, 10.0, 2.0), (9.0, 12.0, 2.0)]
+
+
+def _group_kwargs(vol, n, groups, dev):
+    gen = torch.Generator().manual_seed(11)
+    kw = {}
+    if groups & 1:
+        kw.update(ppath=torch.zeros(n, vol.media.shape[0], device=dev),
+                  det_geom=det_geometry(as_detectors(DETS), dev))
+    if groups & 2:
+        kw["record"] = True
+    if groups & 4:
+        kw.update(jac_w=torch.rand(n, generator=gen).to(dev),
+                  jac_col=torch.randint(0, 5, (n,), generator=gen,
+                                        dtype=torch.int32).to(dev),
+                  jac_cols=5)
+    if groups & 8:
+        kw["stats"] = True
+    return kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("groups", kernel.VALID_GROUPS[1:])
+def test_groups_match_plain_version_and_leave_state_alone(cuda_device,
+                                                          groups):
+    vol = V.benchmark_b2(SHAPE, cuda_device)
+    cfg = dataclasses.replace(V.b2_config(), n_time_gates=4, tmax_ns=0.2)
+    n = 4096
+    state = ops.fresh_state(vol, n, seed=3, source=SRC)
+    args = (vol.labels.reshape(-1), vol.media, state, SHAPE, 1.0, cfg, 24)
+    kw = _group_kwargs(vol, n, groups, cuda_device)
+    base = kernel.photon_step_cuda(*args)
+    got = kernel.photon_step_cuda(*args, **kw)
+    want = photon_steps_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert len(got) == len(want) == 5 + sum(
+        k for bit, k in ((1, 3), (2, 2), (4, 1), (8, 1)) if groups & bit)
+    for x, y in zip(got[0], base[0]):
+        assert torch.equal(x, y)  # the groups leave the lane state alone
+    assert torch.equal(got[3], base[3]) and torch.equal(got[4], base[4])
+    assert torch.equal(got[0].rng, want[0].rng)
+    cur = 5
+    if groups & 1:
+        assert torch.equal(got[cur], want[cur])  # ppath, lane by lane
+        for a, b in zip(got[cur + 1:cur + 3], want[cur + 1:cur + 3]):
+            assert_cells_close(a, b, n * 24)
+        assert float(got[cur + 1].sum()) > 0
+        cur += 3
+    if groups & 2:
+        assert torch.equal(got[cur], want[cur])
+        assert torch.equal(got[cur + 1], want[cur + 1])
+        cur += 2
+    if groups & 4:
+        assert_cells_close(got[cur], want[cur], n * 24)
+        cur += 1
+    if groups & 8:
+        assert torch.equal(got[cur], want[cur])
+    assert kernel.photon_step_cuda.launches_by[
+        kernel.variant_name(groups, cfg)] >= 1
+
+
+@pytest.mark.cuda
+def test_replay_on_card_brings_back_every_record(cuda_device):
+    vol = V.benchmark_b2((30, 30, 30))
+    cfg = dataclasses.replace(V.b2_config(), steps_per_round=8,
+                              n_time_gates=10)
+    src = {"type": "pencil", "pos": [15.0, 15.0, 0.0]}
+    dets = [(20.0, 15.0, 2.0), (25.0, 15.0, 2.0)]
+    res = S.simulate(vol, cfg, 200_000, 16384, 5, source=src,
+                     detectors=dets, record_detected=65536)
+    rec = detected_records(res)
+    assert rec.shape[0] > 1000 and int(res.det_rec_overflow) == 0
+    rep = replay_jacobian(vol, cfg, rec, dets, source=src, seed=5,
+                          n_lanes=16384, gate_resolved=True)
+    assert (rep.replayed_det == rep.det).all()
+    assert (rep.gate == rec[:, 3].astype("int32")).all()
+    med = A.jacobian_medium_sums(rep.jacobian, vol)
+    want = res.det_ppath.double().cpu().numpy()
+    assert abs(med - want).max() <= 1e-5 * abs(want).max()

@@ -12,6 +12,14 @@ FMA-contracted in XLA's CPU code (see test_torch_photon.py), and B1's
 HG cancellation can turn that into a different voxel crossing, so
 alive/ivox must agree on >= 99% of lanes; fluence and exitance totals
 (sums over all lanes) agree to 1e-4 relative.
+
+The optional output groups are held the same way, with two detectors
+at and beside the pencil so that backscattered photons are captured:
+``cap_det`` / ``cap_gate`` equal on >= 99% of lanes, the TPSF,
+detector path sums and replay Jacobian totals within 1e-4 relative,
+and the stats block's live-segment column exact on lanes that agree.
+Measured on these inputs: every lane agrees, ``det_w`` totals are
+equal, ``det_ppath`` and ``jac`` totals differ by <= 3.9e-7 relative.
 """
 
 import ast
@@ -26,6 +34,7 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+from repro import detectors as JD  # noqa: E402
 from repro import sources as JS  # noqa: E402
 from repro.core import photon as jph  # noqa: E402
 from repro.core import volume as JV  # noqa: E402
@@ -33,6 +42,7 @@ from repro.kernels.photon_step import ref as jref  # noqa: E402
 from repro.kernels.photon_step.photon_step import \
     photon_step_pallas  # noqa: E402
 from repro_torch.core import photon as tph  # noqa: E402
+from repro_torch import detectors as TD  # noqa: E402
 from repro_torch.core import volume as TV  # noqa: E402
 from repro_torch.kernels.photon_step import ops  # noqa: E402
 from repro_torch.kernels.photon_step import photon_step as tkernel  # noqa: E402
@@ -88,6 +98,72 @@ def test_plain_version_matches_jax_oracle_and_pallas(bench, ntg):
     # a short tmax gate makes both time-gate paths and timed-out weight
     # part of the comparison
     assert float(got[4].sum()) > 0
+
+
+DETS = [{"x": 12.0, "y": 10.0, "radius": 3.0},
+        {"x": 15.0, "y": 10.0, "radius": 2.0}]
+JAC_COLS = 3
+
+
+def _group_args(jv, n_media):
+    """The optional-group inputs, for the port and for JAX."""
+    rng = np.random.default_rng(3)
+    jac_w = rng.uniform(0.1, 1.0, N).astype(np.float32)
+    jac_col = rng.integers(0, JAC_COLS, N).astype(np.int32)
+    t = dict(ppath=torch.zeros(N, n_media),
+             det_geom=TD.det_geometry(TD.as_detectors(DETS)))
+    j = dict(ppath=jnp.zeros((N, n_media)),
+             det_geom=JD.det_geometry(JD.as_detectors(DETS)))
+    tj = dict(jac_w=torch.tensor(jac_w), jac_col=torch.tensor(jac_col),
+              jac_cols=JAC_COLS)
+    jj = dict(jac_w=jnp.asarray(jac_w), jac_col=jnp.asarray(jac_col),
+              jac_cols=JAC_COLS)
+    return t, j, tj, jj
+
+
+def _compare_groups(got, ref, lanes_agree):
+    """Groups after the base outputs: (ppath, det_w, det_ppath, cap_det,
+    cap_gate[, jac][, stats])."""
+    ref = [np.asarray(x) for x in ref]
+    np.testing.assert_allclose(got[0].numpy()[lanes_agree],
+                               ref[0][lanes_agree], rtol=1e-4, atol=1e-3)
+    for i in (1, 2) + ((5,) if len(got) > 6 else ()):
+        a, b = float(got[i].double().sum()), float(ref[i].astype(
+            np.float64).sum())
+        assert abs(a - b) <= 1e-4 * max(abs(b), 1e-6), (i, a, b)
+    assert got[1].shape == ref[1].shape and got[2].shape == ref[2].shape
+    for i in (3, 4):
+        assert got[i].dtype == torch.int32
+        assert (got[i].numpy() == ref[i]).mean() >= 0.99
+    assert (got[3].numpy() >= 0).sum() > 20  # the detectors caught photons
+    stats, rstats = got[-1].numpy(), ref[-1]
+    np.testing.assert_array_equal(stats[lanes_agree, 0],
+                                  rstats[lanes_agree, 0])
+    np.testing.assert_allclose(stats[:, 1].sum(), rstats[:, 1].sum(),
+                               rtol=1e-4)
+
+
+@pytest.mark.parametrize("ntg", [1, 4])
+@pytest.mark.parametrize("bench", ["B1", "B2"])
+def test_plain_version_groups_match_jax_oracle_and_pallas(bench, ntg):
+    jv, tv, cfg, tcfg, jst, tst = _setup(bench, ntg)
+    labels = jv.labels.reshape(-1)
+    t, j, tj, jj = _group_args(jv, jv.media.shape[0])
+    targs = (tv.labels.reshape(-1), tv.media, tst, SHAPE, 1.0, tcfg, K)
+    jargs = (labels, jv.media, jst, SHAPE, 1.0, cfg, K)
+    # every group at once against the oracle
+    got = tref.photon_steps_ref(*targs, **t, record=True, **tj, stats=True)
+    ref = jref.photon_steps_ref(*jargs, **j, record=True, **jj, stats=True)
+    assert len(got) == len(ref) == tspec.output_arity(2, True, JAC_COLS, True)
+    _compare(got[:5], ref[:5])
+    agree = (got[0].alive.numpy() == np.asarray(ref[0].alive)) & (
+        got[0].ivox.numpy() == np.asarray(ref[0].ivox)).all(axis=1)
+    assert got[10].shape == (np.prod(SHAPE) * JAC_COLS,)
+    _compare_groups(got[5:], ref[5:], agree)
+    # detectors and records against the Pallas kernel in interpret mode
+    pal = photon_step_pallas(*jargs, block_lanes=128, interpret=True, **j,
+                             record=True, stats=True)
+    _compare_groups(got[5:10] + got[11:], pal[5:], agree)
 
 
 def test_spec_constants_equal_reference():
@@ -152,13 +228,40 @@ def test_cuda_requested_without_a_card_raises(monkeypatch):
     assert ops.resolve_device("cpu") == torch.device("cpu")
 
 
-def test_optional_groups_raise_until_ported():
-    _, tv, _, tcfg, _, tst = _setup("B1", 1)
+def test_optional_groups_arity_and_invalid_combinations():
+    _, tv, _, tcfg, _, tst = _setup("B2", 2)
     args = (tv.labels.reshape(-1), tv.media, tst, SHAPE, 1.0, tcfg, 1)
-    for kw in ({"stats": True}, {"record": True}, {"jac_cols": 2},
-               {"ppath": torch.zeros(N, 2), "det_geom": torch.zeros(1, 3)}):
-        with pytest.raises(NotImplementedError):
+    n_media = tv.media.shape[0]
+    det = dict(ppath=torch.zeros(N, n_media),
+               det_geom=TD.det_geometry(TD.as_detectors(DETS)))
+    jac = dict(jac_w=torch.ones(N), jac_col=torch.zeros(N, dtype=torch.int32),
+               jac_cols=2)
+    for n_det in (0, 2):
+        for record in ((False, True) if n_det else (False,)):
+            for jac_cols in (0, 2):
+                for stats in (False, True):
+                    kw = dict(record=record, stats=stats)
+                    kw.update(det if n_det else {})
+                    kw.update(jac if jac_cols else {})
+                    outs = ops.photon_steps(*args, **kw)
+                    assert len(outs) == tspec.output_arity(
+                        n_det, record, jac_cols, stats)
+                    if stats:  # always last
+                        assert outs[-1].shape == (N, 2)
+                    if jac_cols:
+                        assert outs[-1 - stats].shape == (
+                            np.prod(SHAPE) * jac_cols,)
+    for kw in ({"ppath": torch.zeros(N, n_media)},
+               {"det_geom": det["det_geom"]},
+               {"record": True},
+               {"jac_w": torch.ones(N), "jac_col": jac["jac_col"]},
+               {"jac_cols": 2},
+               {"jac_w": torch.ones(N), "jac_cols": 2},
+               {"jac_col": jac["jac_col"], "jac_cols": 2}):
+        with pytest.raises(ValueError):
             ops.photon_steps(*args, **kw)
+        with pytest.raises(ValueError):
+            tkernel.photon_step_cuda(*args, **kw)
 
 
 def test_simulate_kernel_matches_reference_ops():

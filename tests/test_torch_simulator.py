@@ -100,10 +100,14 @@ def test_simulate_defaults_to_cuda_and_raises_without_it(monkeypatch):
         TS.simulate(vol, TV.b1_config(), 10, 16)
     with pytest.raises(RuntimeError):
         tlaunch.main(["--photons", "10", "--size", "8"])
-    with pytest.raises(NotImplementedError):
-        TS.simulate(vol, dataclasses.replace(TV.b1_config(),
-                                             collect_stats=True),
-                    10, 16, device="cpu")
+    with pytest.raises(RuntimeError):
+        TS.simulate(vol, TV.b1_config(), 10, 16,
+                    detectors=[(4.0, 4.0, 2.0)], record_detected=4)
+    # the round counters are ported: collect_stats runs on the CPU
+    res = TS.simulate(vol, dataclasses.replace(TV.b1_config(),
+                                               collect_stats=True),
+                      10, 16, device="cpu")
+    assert int(res.stats.relaunched) == 10
     with pytest.raises(ValueError):
         TS.simulate(vol, TV.b1_config(), 10, 16, mode="greedy", device="cpu")
 
@@ -119,6 +123,38 @@ def test_cli_prints_the_reference_lines(capsys):
     assert int(res.n_launched) == 800
     phi = TA.fluence_cw(res, tlaunch.get_bench("B2", 16)[0])
     assert phi.shape == (16, 16, 16) and np.isfinite(phi).all()
+
+
+def test_cli_detection_and_replay_flags_print_the_reference_lines(capsys):
+    argv = ["--bench", "B2", "--photons", "1500", "--size", "20",
+            "--lanes", "256", "--steps-per-round", "4", "--time-gates", "4",
+            "--tmax-ns", "1.0", "--detectors",
+            '[{"x": 14, "y": 10, "radius": 3}, {"x": 6, "y": 6, '
+            '"radius": 2}]', "--save-detected", "4096", "--replay",
+            "--replay-gate-resolved", "--collect-stats", "--device", "cpu"]
+    run = tlaunch.run(argv)
+    out = capsys.readouterr().out
+    for line in ("B2: 1500 photons in ", "energy balance: absorbed=",
+                 "round stats: ", "lane occupancy", "fluence: max=",
+                 "time gates: 4 x 0.250 ns, peak gate ",
+                 "detector 0 (14,10,r=3): weight=",
+                 "detector 1 (6,6,r=2): weight=",
+                 "mean partial pathlengths (mm/medium):",
+                 "detected-photon records: ", "(overflow: 0)",
+                 "replay[cpu]: ", "detector-exact", "  J[det 0]: sum=",
+                 "  J[det 1]: sum=", "  gate-resolved: 4 gates, peak gate "):
+        assert line in out, line
+    res, rep = run.result, run.replay
+    n = int(res.det_rec_n)
+    assert n > 0 and f"{n}/{n} detector-exact" in out
+    assert rep.jacobian.shape == (20, 20, 20, 2, 4)
+    assert int(res.stats.relaunched) == 1500
+    # main returns the forward result, as before
+    assert int(tlaunch.main(argv[:8] + ["--device", "cpu"]).n_launched) == 1500
+    for bad in (["--save-detected", "8"], ["--replay"],
+                ["--replay-gate-resolved"]):
+        with pytest.raises(SystemExit):
+            tlaunch.main(["--device", "cpu"] + bad)
 
 
 def test_analysis_matches_reference_helpers():
