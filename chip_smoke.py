@@ -41,10 +41,17 @@ script exits non-zero and prints no result:
            record replayed at its detector and gate, the Jacobian's
            medium sums equal to det_ppath within 1e-5, the stats'
            escaped weight equal to the result's
+  replay   the replay of the detect run's records again, its launches'
+           inputs kept: every launch of pass A (det+record) and pass B
+           (jac) held against the plain version on its own inputs, at the
+           replay's lane count, as in the groups phase; the kernel timed
+           over all of them, each pass's launches back to back behind
+           spin kernels, and its bound summed from each launch's inputs
   kernels  one entry per kernel variant the paths launch (launches in
-           the main runs, error against the plain version, times and
-           bound; K1's weighted by the main runs' launches of each
-           template instantiation)
+           the main and detect runs, error against the plain version,
+           times and bound at the shapes those runs give the variant;
+           K1's weighted by the main runs' launches of each template
+           instantiation)
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or without the repository's ``src/`` beside it, the script
@@ -53,6 +60,7 @@ exits non-zero.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import math
@@ -63,6 +71,12 @@ import time
 
 import numpy as np
 import torch
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
+try:
+    from repro_torch.kernels.photon_step import photon_step as K
+except ModuleNotFoundError:
+    sys.exit("chip_smoke.py needs the repository's src/ beside it")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 3.35 TB/s, float32 outside the
 # tensor cores 67 TFLOP/s.  That rate counts an FMA as two operations;
@@ -92,7 +106,8 @@ ATOMIC_BYTES_PER_SEGMENT = 4
 # path's product and sum (detectors), the Jacobian's product and its
 # index (replay), the two counter sums (stats); per capture 5 for each
 # disk tested and 2 for each medium of the path sums.
-GROUP_F32_OPS_PER_SEGMENT = {1: 2, 2: 0, 4: 3, 8: 2}
+GROUP_F32_OPS_PER_SEGMENT = {"n_det": 2, "record": 0, "jac_cols": 3,
+                             "stats": 2}
 
 PHOTONS = 10_000_000
 LANES = 262_144
@@ -105,18 +120,21 @@ DETECTORS = [{"x": 40, "y": 30, "radius": 2}, {"x": 45, "y": 30, "radius": 2},
              {"x": 50, "y": 30, "radius": 2}]
 NTG_DETECT, TMAX_DETECT = 50, 5.0
 SAVE_DETECTED = 1 << 20
+SEED = 1234  # the CLI's default, which the detection path keeps
 DETECT_ARGV = ["--bench", "B2", "--photons", str(PHOTONS), "--lanes",
                str(LANES), "--size", str(SIZE), "--steps-per-round",
                str(K_MAIN), "--time-gates", str(NTG_DETECT), "--tmax-ns",
                str(TMAX_DETECT), "--detectors", json.dumps(DETECTORS),
                "--save-detected", str(SAVE_DETECTED), "--replay",
                "--replay-gate-resolved", "--collect-stats"]
-# group bits of the kernel's variants (kernels/photon_step/photon_step.py)
-DET, RECORD, JAC, STATS = 1, 2, 4, 8
+# the group bits of the kernel's variants, as the wrapper sets them
+DET, RECORD, JAC, STATS = (K.GROUP_BITS[g]
+                           for g in ("n_det", "record", "jac_cols", "stats"))
 GROUP_ROWS = {DET: "K2", RECORD: "K3", JAC: "K4", STATS: "K5"}
 # the variants the detection path launches, and where
-PATH_VARIANTS = {DET | RECORD | STATS: "detection forward",
-                 DET | RECORD: "replay pass A", JAC: "replay pass B"}
+FORWARD, PASS_A, PASS_B = DET | RECORD | STATS, DET | RECORD, JAC
+PATH_VARIANTS = {FORWARD: "detection forward", PASS_A: "replay pass A",
+                 PASS_B: "replay pass B"}
 # the variants held against the plain version: each group alone, and
 # the detection path's
 CHECK_VARIANTS = (DET, DET | RECORD, JAC, STATS, DET | RECORD | STATS)
@@ -356,8 +374,8 @@ def group_bound(groups, lanes, live, captures, ntg, n_det, n_media,
         lane_bytes += 8
     hbm = lane_bytes * lanes + grid_bytes
     f32 = (F32_OPS_PER_SEGMENT + sum(
-        ops for bit, ops in GROUP_F32_OPS_PER_SEGMENT.items()
-        if groups & bit)) * live
+        ops for name, ops in GROUP_F32_OPS_PER_SEGMENT.items()
+        if groups & K.GROUP_BITS[name])) * live
     if groups & DET:
         f32 += captures * (5 * n_det + 2 * n_media)
     bound = {"bytes": hbm / HBM_BYTES_PER_S * 1e3,
@@ -382,18 +400,16 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA device "
                  "(torch.cuda.is_available() is false)")
-    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
     from repro_torch.core import analysis as A
     from repro_torch.core import photon as ph
     from repro_torch.core import simulator as S
     from repro_torch.core import volume as V
     from repro_torch.detectors import as_detectors, det_geometry
+    from repro_torch import replay as R
     from repro_torch.kernels.photon_step import ops
-    from repro_torch.kernels.photon_step import photon_step as K
     from repro_torch.kernels.photon_step import spec
     from repro_torch.kernels.photon_step.ref import photon_steps_ref
     from repro_torch.launch import simulate as launch
-    from repro_torch.replay import detected_records
     from repro_torch.sources import Pencil
 
     t_start = time.perf_counter()
@@ -511,7 +527,8 @@ def main() -> None:
              bound_ms=bound[bound_by], bound_by=bound_by,
              l2_atomics=live, l2_atomic_bytes=ATOMIC_BYTES_PER_SEGMENT * live,
              **diffs)
-        return {"ms": ms, "plain_ms": plain_ms, "bound": bound,
+        return {"ms": ms, "host_loop_ms": host_loop_ms,
+                "plain_ms": plain_ms, "bound": bound,
                 "max_abs_err": diffs["max_abs_err"],
                 "max_rel_diff": diffs["state_max_rel"]}
 
@@ -569,6 +586,8 @@ def main() -> None:
             seen = check_groups_see_index_errors(
                 got, want, base, groups, n_det, ntg, n_det * ntg, tol)
             ms = time_cuda(lambda: K.photon_step_cuda(*args, **kw), reps)
+            host_loop_ms = time_cuda(lambda: K.photon_step_cuda(*args, **kw),
+                                     reps, backlog=False)
             plain_ms = time_cuda(lambda: photon_steps_ref(*args, **kw), 2)
             bound = group_bound(groups, lanes, live, captures, ntg, n_det,
                                 n_media, n_det * ntg,
@@ -576,12 +595,13 @@ def main() -> None:
             emit("groups", variant=K.variant_name(groups, cfg),
                  rows=[r for b, r in GROUP_ROWS.items() if groups & b],
                  start=start, lanes=lanes, k=n_steps, ntg=ntg,
-                 tmax_ns=cfg.tmax_ns, n_det=n_det, ms=ms, plain_ms=plain_ms,
+                 tmax_ns=cfg.tmax_ns, n_det=n_det, ms=ms,
+                 host_loop_ms=host_loop_ms, plain_ms=plain_ms,
                  live_segments=live, captures=captures,
                  mutations_seen={k: v[0] for k, v in seen.items()},
                  **bound, **diffs)
             out[groups] = {"variant": K.variant_name(groups, cfg), "ms": ms,
-                           "plain_ms": plain_ms,
+                           "host_loop_ms": host_loop_ms, "plain_ms": plain_ms,
                            "max_abs_err": diffs["max_abs_err"], **bound}
         return out
 
@@ -615,7 +635,7 @@ def main() -> None:
                            "--steps-per-round", str(K_MAIN)])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        n = K.photon_step_cuda.launches
+        n = sum(K.photon_step_cuda.launches_by.values())
         rounds = res.steps // K_MAIN
         bal = A.energy_balance(res)
         check(int(res.n_launched) == PHOTONS, "n_launched != photons")
@@ -661,7 +681,7 @@ def main() -> None:
           and bool(torch.isfinite(res.det_w).all()), "TPSF malformed")
     check(int(res.det_rec_overflow) == 0,
           f"{int(res.det_rec_overflow)} records overflowed")
-    rec = detected_records(res)
+    rec = R.detected_records(res)
     check(rep is not None and rep.n_records == rec.shape[0] > 0,
           "no replay of the records")
     exact_det = int((rep.replayed_det == rep.det).sum())
@@ -703,6 +723,121 @@ def main() -> None:
          lane_occupancy=res.stats.lane_occupancy(),
          launches_by_variant=by_variant)
 
+    # --- replay launches at the replay's own shape ----------------------------
+    # the detect run's records replayed again as replay_jacobian replays
+    # them (batches of at most LANES records, gate-resolved), with every
+    # launch's inputs kept by variant
+    kept = collections.defaultdict(list)
+
+    def keep(*args, **kw):
+        kept[PASS_A if "ppath" in kw else PASS_B].append((args, kw))
+        return K.photon_step_cuda(*args, **kw)
+
+    vol = launch.get_bench("B2", SIZE, dev)[0]
+    cfg_replay = dataclasses.replace(cfg_detect, collect_stats=True)
+    jac_cols = n_det * NTG_DETECT
+    n_lanes = min(LANES, rec.shape[0])
+    replay_fn = R._build_replay_fn(vol.shape, vol.unitinmm, cfg_replay,
+                                   n_lanes, None, geom, jac_cols, step=keep)
+    for first in range(0, rec.shape[0], n_lanes):
+        nb, id_lo, id_hi, col, active = R._batch_arrays(
+            rec, first, n_lanes, True, NTG_DETECT)
+        _, _, _, rdet = replay_fn(
+            vol.labels.reshape(-1), vol.media,
+            torch.tensor(id_lo.astype(np.int64), device=dev),
+            torch.tensor(id_hi.astype(np.int64), device=dev),
+            torch.tensor(col, device=dev), torch.tensor(active, device=dev),
+            SEED)
+        check(bool((rdet[:nb].cpu().numpy() == rec[first:first + nb, 2]
+                    .astype(np.int32)).all()),
+              "the replay again misses a record's detector")
+    K.check_errors(dev)
+
+    def replay_vs_plain(groups, launches):
+        """Every launch of one replay pass against the plain version on
+        its own inputs (as in the groups phase, the comparison's power
+        shown on the first launch with a capture), then the kernel timed
+        over all of them and the bound summed from each one's work."""
+        lanes = launches[0][0][2].w.numel()
+        n_media = vol.media.shape[0]
+        tol = cell_tol(lanes, K_MAIN)
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        plain_ms, bounds, seen = [], [], {}
+        max_abs = cell_rel = 0.0
+        live_total, captures_total = 0.0, 0
+        for i, (args, kw) in enumerate(launches):
+            base = K.photon_step_cuda(*args)
+            got = K.photon_step_cuda(*args, **kw)
+            # live lane-segments, from the stats block of the same launch
+            live = float(K.photon_step_cuda(*args, **kw, stats=True)[-1][
+                :, 0].double().sum())
+            torch.cuda.synchronize()
+            start.record()
+            want = photon_steps_ref(*args, **kw)
+            stop.record()
+            torch.cuda.synchronize()
+            plain_ms.append(start.elapsed_time(stop))
+            diffs, fails = measure_groups(got, want, base, groups, tol)
+            check(not fails, f"replay {K.group_names(groups)} launch {i}: "
+                  + "; ".join(fails))
+            captures = int((want[8] >= 0).sum()) if groups & RECORD else 0
+            if not seen and (captures or not groups & DET):
+                seen = check_groups_see_index_errors(
+                    got, want, base, groups, n_det, NTG_DETECT, jac_cols, tol)
+            max_abs = max(max_abs, diffs["max_abs_err"])
+            cell_rel = max([cell_rel] + [
+                v["cell_max_rel_to_max"] for v in diffs.values()
+                if isinstance(v, dict) and "cell_max_rel_to_max" in v])
+            live_total += live
+            captures_total += captures
+            bounds.append(group_bound(groups, lanes, live, captures,
+                                      NTG_DETECT, n_det, n_media, jac_cols,
+                                      spec.STATE_LANE_BYTES_PORT))
+        check(bool(seen), f"replay {K.group_names(groups)}: no launch "
+              f"to show the comparison's power on")
+
+        def launch_all(part):
+            def go():
+                for args, kw in part:
+                    K.photon_step_cuda(*args, **kw)
+            return go
+
+        # back to back behind a spin kernel, 64 launches at a time so the
+        # launch queue never fills while the spin holds the stream
+        n = len(launches)
+        ms = sum(time_cuda(launch_all(launches[i:i + 64]), 1, warmup=0)
+                 for i in range(0, n, 64)) / n
+        host_loop_ms = time_cuda(launch_all(launches), 1, warmup=0,
+                                 backlog=False) / n
+        mean = {k: sum(b[k] for b in bounds) / n
+                for k in ("bytes_ms", "operations_ms", "bound_ms",
+                          "hbm_bytes", "f32_ops")}
+        out = {"variant": K.variant_name(groups, cfg_detect), "ms": ms,
+               "host_loop_ms": host_loop_ms,
+               "plain_ms": sum(plain_ms) / n, "max_abs_err": max_abs,
+               "bound_ms": mean["bound_ms"],
+               "bound_by": ("bytes" if mean["bytes_ms"] >= mean["operations_ms"]
+                            else "operations")}
+        emit("replay", rows=[r for b, r in GROUP_ROWS.items() if groups & b],
+             lanes=lanes, k=K_MAIN, ntg=NTG_DETECT, jac_cols=jac_cols,
+             launches=n, live_segments=live_total, captures=captures_total,
+             cell_tol=tol, cell_max_rel_to_max=cell_rel,
+             mutations_seen={k: v[0] for k, v in seen.items()},
+             bytes_ms=mean["bytes_ms"], operations_ms=mean["operations_ms"],
+             hbm_bytes_per_launch=mean["hbm_bytes"],
+             f32_ops_per_launch=mean["f32_ops"], **out)
+        return out
+
+    for groups in (PASS_A, PASS_B):
+        name = K.variant_name(groups, cfg_detect)
+        check(len(kept[groups]) == by_variant[name],
+              f"the replay again made {len(kept[groups])} launches of {name}, "
+              f"the detect run {by_variant[name]}")
+        timed_groups[groups] = replay_vs_plain(groups, kept.pop(groups))
+    emit("replay", kernel_share_of_replay_wall=sum(
+        by_variant[timed_groups[g]["variant"]] * timed_groups[g]["ms"]
+        for g in (PASS_A, PASS_B)) / (run.replay_seconds * 1e3))
+
     # --- kernel table ---------------------------------------------------------
     # one kernel source, two instantiations: its times and bound are the
     # mean over the main run's launches of each
@@ -723,13 +858,14 @@ def main() -> None:
         "max_abs_err": max(t["max_abs_err"] for t in timed.values()),
         "max_rel_diff": max(t["max_rel_diff"] for t in timed.values()),
         "ms": per_launch(lambda t: t["ms"]),
-        "ms_per_launch": per_launch(lambda t: t["ms"]),
+        "host_loop_ms": per_launch(lambda t: t["host_loop_ms"]),
         "plain_ms": per_launch(lambda t: t["plain_ms"]),
         "bound_ms": bound[bound_by], "bound_by": bound_by,
         "library_ms": None,
         "instantiations": [
             {"bench": b, "do_reflect": b == "B2", "launches": launches[b],
-             "ms": timed[b]["ms"], "plain_ms": timed[b]["plain_ms"],
+             "ms": timed[b]["ms"], "host_loop_ms": timed[b]["host_loop_ms"],
+             "plain_ms": timed[b]["plain_ms"],
              "bound_ms": max(timed[b]["bound"].values())}
             for b in launches]}] + [{
         "name": "photon_step_" + K.group_names(g).replace("+", "_"),
@@ -740,7 +876,9 @@ def main() -> None:
         "rows": [r for b, r in GROUP_ROWS.items() if g & b],
         "launches": by_variant[timed_groups[g]["variant"]],
         "max_abs_err": timed_groups[g]["max_abs_err"],
-        "ms": timed_groups[g]["ms"], "plain_ms": timed_groups[g]["plain_ms"],
+        "ms": timed_groups[g]["ms"],
+        "host_loop_ms": timed_groups[g]["host_loop_ms"],
+        "plain_ms": timed_groups[g]["plain_ms"],
         "bound_ms": timed_groups[g]["bound_ms"],
         "bound_by": timed_groups[g]["bound_by"], "library_ms": None}
         for g, where in PATH_VARIANTS.items()]}), flush=True)

@@ -90,6 +90,8 @@ struct Groups {
   const float* det_geom;    // DET (n_det, 3): x, y, radius^2
   const float* jac_w;       // JAC (n,)
   const int32_t* jac_col;   // JAC (n,)
+  int* errors;              // JAC: bit 0 set by a jac_col outside
+                            //   [0, jac_cols)
   float* ppath_out;         // DET (n, n_media)
   float* det_w;             // DET (n_det * ntg), zeroed
   float* det_ppath;         // DET (n_det, n_media), zeroed
@@ -176,6 +178,11 @@ __global__ void __launch_bounds__(256) photon_step_kernel(
   if (kJac) {
     jac_w = grp.jac_w[lane];
     jac_col = grp.jac_col[lane];
+    // a column outside the grid adds nothing and flags the launch
+    if ((unsigned)jac_col >= (unsigned)grp.jac_cols) {
+      atomicOr(grp.errors, 1);
+      jac_w = 0.f;
+    }
   }
   float st_live = 0.f, st_dep = 0.f;
 
@@ -449,6 +456,7 @@ cudaError_t launch(const void* const* in, void* const* out, const int* ints,
   if (kJac) {
     grp.jac_w = (const float*)in[i_in++];
     grp.jac_col = (const int32_t*)in[i_in++];
+    grp.errors = (int*)in[i_in++];
   }
   if (kRecord) {
     grp.cap_det = (int32_t*)out[i_out++];
@@ -476,7 +484,8 @@ cudaError_t launch(const void* const* in, void* const* out, const int* ints,
 
 // Plain C entry point, bound with ctypes.
 //   in:  labels, media, pos, dir, ivox, w, s_left, t, rng, alive (10),
-//        then [ppath, det_geom] (DET), [jac_w, jac_col] (JAC)
+//        then [ppath, det_geom] (DET), [jac_w, jac_col, errors] (JAC;
+//        errors is one int32 the kernel ORs 1 into for a bad jac_col)
 //   out: pos, dir, ivox, w, s_left, t, rng, alive, fluence, exitance,
 //        escaped, timed (12), then [ppath, det_w, det_ppath] (DET),
 //        [cap_det, cap_gate] (RECORD), [jac] (JAC), [stats] (STATS)

@@ -16,8 +16,8 @@ with ``ctypes`` through a plain C entry point.  ``build_all`` starts
 every variant's ``nvcc`` at once.  ``photon_step_cuda`` checks its
 inputs, allocates its outputs with ``torch.empty``/``zeros``, launches
 on PyTorch's current stream and raises if the launch fails.
-``photon_step_cuda.launches`` counts its launches, and
-``photon_step_cuda.launches_by`` counts them by ``variant_name``.
+``photon_step_cuda.launches_by`` counts its launches by
+``variant_name``.
 """
 
 from __future__ import annotations
@@ -198,8 +198,9 @@ def photon_step_cuda(labels_flat, media, state: ph.PhotonState, shape,
     simulator checks that once per volume).  ``ppath`` is ``(n,
     n_media)`` float32, ``det_geom`` ``(n_det, 3)`` float32, ``jac_w``
     ``(n,)`` float32 and ``jac_col`` ``(n,)`` int32 in
-    ``[0, jac_cols)``.  Invalid group combinations raise ``ValueError``
-    (``spec.check_groups``).
+    ``[0, jac_cols)``: a lane with a column outside it adds nothing and
+    flags the device, and ``check_errors`` then raises.  Invalid group
+    combinations raise ``ValueError`` (``spec.check_groups``).
     """
     n_det, record, jac_cols = spec.check_groups(ppath, det_geom, record,
                                                 jac_w, jac_col, jac_cols)
@@ -248,7 +249,7 @@ def photon_step_cuda(labels_flat, media, state: ph.PhotonState, shape,
     if jac_cols:
         _check("jac_w", jac_w, torch.float32, (n,), dev)
         _check("jac_col", jac_col, torch.int32, (n,), dev)
-        ins += [jac_w, jac_col]
+        ins += [jac_w, jac_col, _error_word(dev)]
     if record:
         outs += [torch.empty((n,), dtype=torch.int32, device=dev),
                  torch.empty((n,), dtype=torch.int32, device=dev)]
@@ -276,16 +277,39 @@ def photon_step_cuda(labels_flat, media, state: ph.PhotonState, shape,
     if err != 0:
         msg = lib.photon_step_error_string(err).decode()
         raise RuntimeError(f"photon_step kernel launch failed: {msg} ({err})")
-    photon_step_cuda.launches += 1
     photon_step_cuda.launches_by[variant_name(groups, cfg)] += 1
     assert len(outs) == spec.output_arity(n_det, record, jac_cols, stats,
                                           packed_state=False)
     return (new, *outs[len(spec.STATE_FIELDS):])
 
 
+_ERROR_WORDS: dict[torch.device, torch.Tensor] = {}
+
+
+def _error_word(dev: torch.device) -> torch.Tensor:
+    """The device's int32 error flags, which Jacobian launches set."""
+    if dev.index is None:
+        dev = torch.device(dev.type, torch.cuda.current_device())
+    if dev not in _ERROR_WORDS:
+        _ERROR_WORDS[dev] = torch.zeros((1,), dtype=torch.int32, device=dev)
+    return _ERROR_WORDS[dev]
+
+
+def check_errors(device=None) -> None:
+    """Raise ``ValueError`` if a launch on ``device`` (``None``: the
+    current CUDA device) since the last check met a ``jac_col`` outside
+    ``[0, jac_cols)``; the kernel added nothing for such a lane.  One
+    host read; clears the flags."""
+    word = _error_word(torch.device("cuda" if device is None else device))
+    flags = int(word.item())
+    if flags:
+        word.zero_()
+        raise ValueError("a photon-step launch got a jac_col outside "
+                         "[0, jac_cols); those lanes added nothing")
+
+
 def reset_launches() -> None:
     """Set the launch counts to zero."""
-    photon_step_cuda.launches = 0
     photon_step_cuda.launches_by = collections.Counter()
 
 

@@ -44,6 +44,7 @@ from repro_torch.core.volume import SimConfig, Volume
 from repro_torch.detectors import (as_detectors, det_geometry,
                                    validate_detectors)
 from repro_torch.kernels.photon_step.ops import photon_steps, resolve_device
+from repro_torch.kernels.photon_step.photon_step import check_errors
 from repro_torch.sources import as_source
 
 
@@ -77,8 +78,9 @@ def detected_records(result: SimResult) -> np.ndarray:
 
 
 def _build_replay_fn(shape, unitinmm, cfg: SimConfig, n_lanes: int,
-                     source, det_geom, jac_cols: int):
-    """Two-pass replay of one batch of ``n_lanes`` records.
+                     source, det_geom, jac_cols: int, step=photon_steps):
+    """Two-pass replay of one batch of ``n_lanes`` records, each round
+    one call of ``step`` (``ops.photon_steps``'s arguments).
 
     Returns ``fn(labels_flat, media, id_lo, id_hi, jac_col, active,
     seed) -> (jac_flat, w_exit, gate, replayed_det)``, ``jac_flat`` of
@@ -107,8 +109,8 @@ def _build_replay_fn(shape, unitinmm, cfg: SimConfig, n_lanes: int,
             state = ph.launch(pos, direc, w0, rng, active, shape)
             steps = 0
             while steps < cfg.max_steps and bool(state.alive.any()):
-                outs = photon_steps(labels_flat, media, state, shape,
-                                    unitinmm, cfg, K, **groups)
+                outs = step(labels_flat, media, state, shape, unitinmm,
+                            cfg, K, **groups)
                 yield outs
                 state = outs[0]
                 if "ppath" in groups:
@@ -228,6 +230,8 @@ def replay_jacobian(volume: Volume, cfg: SimConfig, records, detectors,
             torch.tensor(col, device=dev), torch.tensor(active, device=dev),
             seed)
         jac += jac_b.cpu().numpy()
+        if dev.type == "cuda":
+            check_errors(dev)
         w_exit[start: start + nb] = w_b[:nb].cpu().numpy()
         gate[start: start + nb] = g_b[:nb].cpu().numpy()
         rdet[start: start + nb] = rd_b[:nb].cpu().numpy()

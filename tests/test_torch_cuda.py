@@ -72,10 +72,11 @@ def test_kernel_matches_plain_version(cuda_device, bench, taylor):
         tmax_ns=0.2, deposit_mode="taylor" if taylor else "exact")
     state = ops.fresh_state(vol, 4096, seed=3, source=SRC)
     args = (vol.labels.reshape(-1), vol.media, state, SHAPE, 1.0, cfg, 24)
-    before = kernel.photon_step_cuda.launches
+    name = kernel.variant_name(0, cfg)
+    before = kernel.photon_step_cuda.launches_by[name]
     got = kernel.photon_step_cuda(*args)
     torch.cuda.synchronize()
-    assert kernel.photon_step_cuda.launches == before + 1
+    assert kernel.photon_step_cuda.launches_by[name] == before + 1
     want = photon_steps_ref(*args)
     assert torch.equal(got[0].rng, want[0].rng)
     same = (got[0].alive == want[0].alive) & (
@@ -143,22 +144,24 @@ def test_simulate_on_card_is_deterministic_and_conserves(cuda_device):
 
 
 DETS = [(12.0, 10.0, 3.0), (15.0, 10.0, 2.0), (9.0, 12.0, 2.0)]
+DET, RECORD, JAC, STATS = (kernel.GROUP_BITS[g]
+                           for g in ("n_det", "record", "jac_cols", "stats"))
 
 
 def _group_kwargs(vol, n, groups, dev):
     gen = torch.Generator().manual_seed(11)
     kw = {}
-    if groups & 1:
+    if groups & DET:
         kw.update(ppath=torch.zeros(n, vol.media.shape[0], device=dev),
                   det_geom=det_geometry(as_detectors(DETS), dev))
-    if groups & 2:
+    if groups & RECORD:
         kw["record"] = True
-    if groups & 4:
+    if groups & JAC:
         kw.update(jac_w=torch.rand(n, generator=gen).to(dev),
                   jac_col=torch.randint(0, 5, (n,), generator=gen,
                                         dtype=torch.int32).to(dev),
                   jac_cols=5)
-    if groups & 8:
+    if groups & STATS:
         kw["stats"] = True
     return kw
 
@@ -178,29 +181,56 @@ def test_groups_match_plain_version_and_leave_state_alone(cuda_device,
     want = photon_steps_ref(*args, **kw)
     torch.cuda.synchronize()
     assert len(got) == len(want) == 5 + sum(
-        k for bit, k in ((1, 3), (2, 2), (4, 1), (8, 1)) if groups & bit)
+        k for bit, k in ((DET, 3), (RECORD, 2), (JAC, 1), (STATS, 1))
+        if groups & bit)
     for x, y in zip(got[0], base[0]):
         assert torch.equal(x, y)  # the groups leave the lane state alone
     assert torch.equal(got[3], base[3]) and torch.equal(got[4], base[4])
     assert torch.equal(got[0].rng, want[0].rng)
     cur = 5
-    if groups & 1:
+    if groups & DET:
         assert torch.equal(got[cur], want[cur])  # ppath, lane by lane
         for a, b in zip(got[cur + 1:cur + 3], want[cur + 1:cur + 3]):
             assert_cells_close(a, b, n * 24)
         assert float(got[cur + 1].sum()) > 0
         cur += 3
-    if groups & 2:
+    if groups & RECORD:
         assert torch.equal(got[cur], want[cur])
         assert torch.equal(got[cur + 1], want[cur + 1])
         cur += 2
-    if groups & 4:
+    if groups & JAC:
         assert_cells_close(got[cur], want[cur], n * 24)
         cur += 1
-    if groups & 8:
+    if groups & STATS:
         assert torch.equal(got[cur], want[cur])
     assert kernel.photon_step_cuda.launches_by[
         kernel.variant_name(groups, cfg)] >= 1
+
+
+@pytest.mark.cuda
+def test_jacobian_column_out_of_range_adds_nothing_and_raises(cuda_device):
+    vol = V.benchmark_b2(SHAPE, cuda_device)
+    cfg = dataclasses.replace(V.b2_config(), n_time_gates=4, tmax_ns=0.2)
+    n = 4096
+    state = ops.fresh_state(vol, n, seed=3, source=SRC)
+    args = (vol.labels.reshape(-1), vol.media, state, SHAPE, 1.0, cfg, 24)
+    kw = _group_kwargs(vol, n, JAC, cuda_device)
+    kernel.check_errors(cuda_device)  # no flag left from earlier launches
+    bad = kw["jac_col"].clone()
+    bad[::7] = kw["jac_cols"]
+    bad[3::7] = -1
+    got = kernel.photon_step_cuda(*args, **dict(kw, jac_col=bad))
+    with pytest.raises(ValueError, match="jac_col"):
+        kernel.check_errors(cuda_device)
+    kernel.check_errors(cuda_device)  # the check cleared the flag
+    # the bad lanes add nothing: the plain version with their weight zeroed
+    ok = (bad >= 0) & (bad < kw["jac_cols"])
+    want = photon_steps_ref(*args, **dict(
+        kw, jac_w=torch.where(ok, kw["jac_w"], 0.0), jac_col=bad.clamp(
+            0, kw["jac_cols"] - 1)))
+    assert_cells_close(got[-1], want[-1], n * 24)
+    kernel.photon_step_cuda(*args, **kw)
+    kernel.check_errors(cuda_device)  # columns in range raise nothing
 
 
 @pytest.mark.cuda

@@ -280,9 +280,13 @@ def test_simulate_kernel_matches_reference_ops():
 
 
 def test_launch_counter_and_build_key_are_static():
-    # the counter is a plain integer on the wrapper; the library name is
-    # keyed by the kernel source and the nvcc flags
-    assert isinstance(tkernel.photon_step_cuda.launches, int)
+    # the counts are plain integers on the wrapper, by variant; the
+    # library name is keyed by the kernel source and the nvcc flags
+    tkernel.reset_launches()
+    assert sum(tkernel.photon_step_cuda.launches_by.values()) == 0
+    cfg = TV.b2_config()
+    groups = tkernel.group_mask(n_det=3, record=True, stats=True)
+    assert tkernel.variant_name(groups, cfg) == "reflect/exact/det+record+stats"
     path = tkernel.library_path()
     assert path.parent == tkernel.BUILD_DIR and path.suffix == ".so"
     assert "--fmad=false" in tkernel.NVCC_FLAGS
