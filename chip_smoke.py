@@ -7,20 +7,27 @@ script exits non-zero and prints no result:
 
   env      torch / CUDA versions and the card (nvidia-smi name, power limit)
   build    nvcc builds the photon-step kernel from csrc/, one library per
-           set of output groups, all started together (seconds)
+           set of output groups, all started together (seconds); the
+           base and detection-forward libraries' SASS instructions by
+           source region (kernels/photon_step/sass.py)
   kernel   K1, the base group, against its plain PyTorch version on the
            card, from fresh pencil photons on 60^3 B1 and B2 (131072
            lanes, K=8; B2 also with 4 time gates and an off-axis pencil),
            and on a mid-run B1 and B2 state at the main path's shape
-           (262144 lanes, K=16): rng bit-equal, alive/ivox equal on >=
-           99.99% of lanes, float state within 1e-5 relative, totals
-           within 1e-5 relative, every fluence / exitance cell and every
-           lane's escaped / timed-out weight within 4 sqrt(lanes K) 2^-24
-           of its array's largest value, and that check failing on
+           (262144 lanes, K=16): the lane state bit-equal on every
+           lane, totals within 1e-5 relative, every fluence / exitance
+           cell and every lane's escaped / timed-out weight within
+           4 sqrt(lanes K) 2^-24 of its array's largest value, and that
+           check failing on
            outputs with deposits moved to a wrong voxel, gate or exitance
            bin; kernel and plain device times by CUDA events behind a
            spin kernel (the mid-run launches also as the host launches
-           them), and the bound of each mid-run launch
+           them), the bound of each mid-run launch, its lane- and
+           warp-segments on each path (alive, scattering, Fresnel) and
+           the least time to issue its SASS; then the launch's edge
+           cases, base and detection forward: every lane dead at launch
+           (only its uniforms drawn), a ragged lane count with half-dead
+           warps, and every lane in one voxel with one direction
   groups   K2-K5, the optional groups (detectors, records, replay
            Jacobian, stats), each variant against the plain version on
            fresh B2 photons (60^3, 131072 lanes, K=8, 4 gates, three
@@ -176,14 +183,19 @@ def time_cuda(fn, reps: int, warmup: int = 1, backlog: bool = True) -> float:
     return start.elapsed_time(stop) / reps
 
 
-# Fluence and exitance are float32 sums of atomics in both versions, in
-# an order that changes from run to run.  Between two orders, a cell of n
-# deposits moves by about sqrt(n) * 2^-24 of its value (a random walk of
-# rounding errors), and no cell takes more deposits than the launch has
-# lane-segments.  Cells are therefore held to CELL_SIGMAS * sqrt(lanes *
-# K) * 2^-24 of the array's largest value; mutation checks show that this
-# still fails a wrong voxel, gate or exitance bin.  Totals are held to
-# 1e-5 relative.
+# The kernel's grids are float32 sums in an order that changes from run
+# to run.  They are held against the exact (float64) sum of the plain
+# version's float32 deposits: its own float32 sum of many equal deposits
+# into one cell drifts one way (the pencil's first cell, where about a
+# third of the photons leave the voxel after exactly one unit of path,
+# came out 4.0e-4 low on 131072 fresh lanes x 8 segments).  Against the
+# exact sum a cell of n deposits is off by about sqrt(n) * 2^-24 of its
+# value (a random walk of rounding errors), and no cell takes more
+# deposits than the launch has lane-segments.  Cells are therefore held
+# to CELL_SIGMAS * sqrt(lanes * K) * 2^-24 of the array's largest value;
+# mutation checks show that this still fails a wrong voxel, gate or
+# exitance bin.  Totals are held to 1e-5 relative.
+EXACT = torch.float64
 CELL_SIGMAS = 4.0
 TOTAL_TOL = 1e-5
 
@@ -234,6 +246,15 @@ def measure(got, want, tol: float, min_equal: float = 0.9999):
     frac = float(same.float().mean())
     if frac < min_equal:
         fails.append(f"alive/ivox agree on only {frac:.6f} of lanes")
+    # every lane's state bit for bit: the same IEEE operations in the
+    # same order on the same device
+    bit = torch.ones_like(gs.alive)
+    for x, y in zip(gs, ws):
+        bit &= (x == y).reshape(x.shape[0], -1).all(dim=1)
+    lanes_bit_equal = int(bit.sum())
+    if lanes_bit_equal != bit.numel():
+        fails.append(f"lane state differs from the plain version on "
+                     f"{bit.numel() - lanes_bit_equal} lanes")
     max_abs = max_rel = 0.0
     for name in ("pos", "dir", "w", "s_left", "t"):
         a, b = getattr(gs, name)[same].double(), getattr(ws, name)[same].double()
@@ -243,8 +264,8 @@ def measure(got, want, tol: float, min_equal: float = 0.9999):
             max_rel = max(max_rel, float((d / b.abs().clamp(min=1.0)).max()))
     if max_rel > 1e-5:
         fails.append(f"float state differs by {max_rel:.3e} relative")
-    out = {"lanes_equal_frac": frac, "state_max_abs": max_abs,
-           "state_max_rel": max_rel}
+    out = {"lanes_equal_frac": frac, "lanes_bit_equal": lanes_bit_equal,
+           "state_max_abs": max_abs, "state_max_rel": max_rel}
     for name, a, b in zip(("fluence", "exitance", "escaped", "timed"),
                           got[1:], want[1:]):
         cells(name, a, b, tol, fails, out,
@@ -388,6 +409,75 @@ def group_bound(groups, lanes, live, captures, ntg, n_det, n_media,
             "bound_by": bound_by}
 
 
+# Regions of csrc/photon_step.cu (its "// --- NAME" markers) by how often
+# a warp runs them: every segment it holds a live lane, every segment one
+# of its lanes scatters, every segment one crosses an index mismatch, and
+# once a launch.
+SEGMENT_REGIONS = ("LOOP", "UNIFORMS", "HOP", "DROP", "BOUNDARY", "ROULETTE",
+                   "DEPOSIT")
+PATH_REGIONS = {"alive": SEGMENT_REGIONS, "scatter": ("SPIN",),
+                "fresnel": ("Fresnel",),
+                "launch": ("BLOCK", "LANE", "WRITE-BACK", "FLUSH")}
+
+
+def path_counts(state, labels, media, shape, cfg, n_steps):
+    """Lane-segments and warp-segments (32 consecutive lanes, as a launch
+    whose lanes are all alive at its start runs them) of one launch on
+    each path, walked with the plain step: alive, scattering (the step
+    ends with no scattering length left), and crossing a wall where the
+    refractive index changes (Fresnel, with reflection on)."""
+    from repro_torch.core import photon as ph
+    lanes, warps = collections.Counter(), collections.Counter()
+    hi = torch.tensor(shape, device=labels.device) - 1
+    walk = state
+    for _ in range(n_steps):
+        res = ph.step(walk, labels, media, shape, 1.0, cfg)
+        alive = walk.alive
+        scatter = alive & (res.state.s_left == 0)
+        _, axis = ph._boundary_distance(walk.pos, walk.dir, walk.ivox)
+        step = torch.sign(walk.dir.gather(1, axis[:, None])).to(torch.int32)
+        nv = walk.ivox + torch.nn.functional.one_hot(axis, 3).to(
+            torch.int32) * step
+        oob = ((nv < 0) | (nv > hi)).any(dim=1)
+
+        def label(v):
+            v = torch.minimum(v.clamp(min=0), hi)
+            return labels[(v[:, 0] * shape[1] + v[:, 1]) * shape[2] + v[:, 2]]
+
+        n_next = media[torch.where(oob, 0, label(nv).long()), 3]
+        n_cur = media[label(walk.ivox).long(), 3]
+        fresnel = alive & ~scatter & ((n_next - n_cur).abs() > 1e-6) \
+            if cfg.do_reflect else torch.zeros_like(alive)
+        for name, m in (("alive", alive), ("scatter", scatter),
+                        ("fresnel", fresnel)):
+            lanes[name] += int(m.sum())
+            warps[name] += int(m.reshape(-1, 32).any(dim=1).sum())
+        walk = res.state
+    n = state.w.numel()
+    lanes["launch"], warps["launch"] = n, -(-n // 32)
+    return dict(lanes), dict(warps)
+
+
+def sass_issue(regions, lanes, warps) -> dict:
+    """Least issue time of a launch from its SASS counts by region: with
+    each warp running every path any of its lanes takes (``warps``), and
+    were the lanes of a path packed into full warps (``lanes``)."""
+    from repro_torch.kernels.photon_step import sass
+
+    def per(counts):
+        return {r: counts[path] for path, rs in PATH_REGIONS.items()
+                for r in rs}
+    hot = {path: sum(regions.get(r, {}).get("hot", 0) for r in rs)
+           for path, rs in PATH_REGIONS.items()}
+    return {"instructions": hot,
+            "per_live_segment": {"crossing": hot["alive"],
+                                 "scatter": hot["alive"] + hot["scatter"],
+                                 "fresnel": hot["alive"] + hot["fresnel"]},
+            "issue_ms_warps": sass.issue_ms(regions, per(warps)),
+            "issue_ms_packed": sass.issue_ms(
+                regions, {r: n / 32 for r, n in per(lanes).items()})}
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -402,15 +492,14 @@ def main() -> None:
                  "(torch.cuda.is_available() is false)")
     from repro_torch.core import analysis as A
     from repro_torch.core import photon as ph
-    from repro_torch.core import simulator as S
     from repro_torch.core import volume as V
     from repro_torch.detectors import as_detectors, det_geometry
     from repro_torch import replay as R
-    from repro_torch.kernels.photon_step import ops
+    from repro_torch.kernels.photon_step import ops, sass
     from repro_torch.kernels.photon_step import spec
     from repro_torch.kernels.photon_step.ref import photon_steps_ref
     from repro_torch.launch import simulate as launch
-    from repro_torch.sources import Pencil
+    from repro_torch.launch.kernel_timing import mid_run_state
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -428,26 +517,38 @@ def main() -> None:
         ptxas[K.group_names(g)] = [
             ln.strip() for ln in log.read_text().splitlines()
             if "registers" in ln or "spill" in ln] if log.exists() else []
+    # SASS instructions by source region of the base and the detection
+    # forward libraries, keyed by template flags ("reflect/taylor")
+    sass_counts = {g: sass.library_counts(K.library_path(g))
+                   for g in (0, DET | RECORD | STATS)}
     emit("build", seconds=seconds, variants=len(K.VALID_GROUPS),
          libraries=[K.library_path(g).name for g in K.VALID_GROUPS],
-         ptxas=ptxas)
+         ptxas=ptxas, sass={K.group_names(g): {
+             inst: {r: c["hot"] for r, c in regions.items()}
+             for inst, regions in counts.items()}
+             for g, counts in sass_counts.items()})
 
     # --- kernel against the plain version -------------------------------------
-    def kernel_vs_plain(vol, cfg, state, n_steps, reps):
+    def kernel_vs_plain(vol, cfg, state, n_steps, reps, mutations=True):
         args = (vol.labels.reshape(-1), vol.media, state, vol.shape,
                 vol.unitinmm, cfg, n_steps)
         got = K.photon_step_cuda(*args)
         again = K.photon_step_cuda(*args)
-        want = photon_steps_ref(*args)
+        want = photon_steps_ref(*args, accumulate=EXACT)
         torch.cuda.synchronize()
         for x, y in zip(got[0], again[0]):
             check(torch.equal(x, y), "two kernel runs differ in lane state")
         tol = cell_tol(state.w.numel(), n_steps)
         diffs = compare(got, want, tol)
-        diffs["mutations_seen"] = check_sees_index_errors(
-            got, want, vol.shape, cfg.n_time_gates, tol)
+        if mutations:
+            diffs["mutations_seen"] = check_sees_index_errors(
+                got, want, vol.shape, cfg.n_time_gates, tol)
         ms = time_cuda(lambda: K.photon_step_cuda(*args), reps)
         plain_ms = time_cuda(lambda: photon_steps_ref(*args), 2)
+        # the plain version's own float32 fluence against the exact sum
+        flu32, flu = photon_steps_ref(*args)[1].double(), want[1].double()
+        diffs["plain_float32_cell_rel_to_exact"] = float(
+            (flu32 - flu).abs().max() / flu.abs().max().clamp(min=1e-30))
         return got, diffs, ms, plain_ms
 
     shape = (SIZE, SIZE, SIZE)
@@ -467,32 +568,9 @@ def main() -> None:
              source=src or "default pencil", ms=ms,
              plain_ms=plain_ms, **diffs)
 
-    # a mid-run state at the main path's shape, for each template
-    # instantiation the main path launches (B1: DO_REFLECT=false, B2: true)
-    def mid_run_state(vol, cfg, **groups):
-        """The lanes after 12 rounds of regeneration and a kernel launch,
-        as the simulator runs them, and regenerated once more; with
-        detectors the per-medium paths are carried too.  Returns
-        ``(state, ppath)``."""
-        src = Pencil()
-        st = ops.fresh_state(vol, LANES, seed=99)._replace(
-            alive=torch.zeros(LANES, dtype=torch.bool, device=dev))
-        pp = (torch.zeros((LANES, vol.media.shape[0]), device=dev)
-              if groups else None)
-        remaining = torch.tensor(PHOTONS, device=dev)
-        launched = torch.zeros(LANES, dtype=torch.int64, device=dev)
-        next_id = (torch.tensor(0, device=dev), torch.tensor(0, device=dev))
-        for i in range(13):
-            st, remaining, launched, next_id, _, *carry = S._regenerate(
-                st, remaining, launched, next_id, None, src, 99, "dynamic",
-                shape, pp)
-            if i == 12:
-                return st, (carry[0] if groups else None)
-            kw = dict(groups, ppath=carry[0]) if groups else {}
-            outs = K.photon_step_cuda(vol.labels.reshape(-1), vol.media, st,
-                                      shape, 1.0, cfg, K_MAIN, **kw)
-            st, pp = outs[0], (outs[5] if groups else None)
-
+    # a mid-run state at the main path's shape (launch.kernel_timing), for
+    # each template instantiation the main path launches (B1:
+    # DO_REFLECT=false, B2: true)
     def mid_run(bench):
         vol, cfg = launch.get_bench(bench, SIZE, dev)
         cfg = dataclasses.replace(cfg, steps_per_round=K_MAIN)
@@ -502,11 +580,12 @@ def main() -> None:
         args = (labels, vol.media, st, shape, 1.0, cfg, K_MAIN)
         host_loop_ms = time_cuda(lambda: K.photon_step_cuda(*args), 20,
                              backlog=False)
-        # live lane-segments of this launch, counted by the plain step
-        live, walk = 0, st
-        for _ in range(K_MAIN):
-            live += int(walk.alive.sum())
-            walk = ph.step(walk, labels, vol.media, shape, 1.0, cfg).state
+        # live lane-segments of this launch and its paths, counted by the
+        # plain step, and the least time to issue its SASS
+        lanes, warps = path_counts(st, labels, vol.media, shape, cfg, K_MAIN)
+        live = lanes["alive"]
+        issue = sass_issue(sass_counts[0][f"{int(cfg.do_reflect)}/0"],
+                           lanes, warps)
         nvox, ntg = SIZE**3, cfg.n_time_gates
         # HBM bytes: lane state in and out (81 B a lane: the int64 rng
         # words take 16 B more each way than uint32 words would), escaped
@@ -526,8 +605,8 @@ def main() -> None:
              bytes_ms=bound["bytes"], operations_ms=bound["operations"],
              bound_ms=bound[bound_by], bound_by=bound_by,
              l2_atomics=live, l2_atomic_bytes=ATOMIC_BYTES_PER_SEGMENT * live,
-             **diffs)
-        return {"ms": ms, "host_loop_ms": host_loop_ms,
+             path_lanes=lanes, path_warps=warps, sass=issue, **diffs)
+        return {"ms": ms, "host_loop_ms": host_loop_ms, "sass": issue,
                 "plain_ms": plain_ms, "bound": bound,
                 "max_abs_err": diffs["max_abs_err"],
                 "max_rel_diff": diffs["state_max_rel"]}
@@ -573,7 +652,7 @@ def main() -> None:
             kw = group_kwargs(vol, state, groups, ntg, ppath)
             got = K.photon_step_cuda(*args, **kw)
             again = K.photon_step_cuda(*args, **kw)
-            want = photon_steps_ref(*args, **kw)
+            want = photon_steps_ref(*args, **kw, accumulate=EXACT)
             torch.cuda.synchronize()
             for x, y in zip(list(got[0]) + list(got[5:]),
                             list(again[0]) + list(again[5:])):
@@ -620,10 +699,57 @@ def main() -> None:
     vol, cfg = launch.get_bench("B2", SIZE, dev)
     cfg = dataclasses.replace(cfg, steps_per_round=K_MAIN,
                               n_time_gates=NTG_DETECT, tmax_ns=TMAX_DETECT)
-    st, pp = mid_run_state(vol, cfg, det_geom=geom, record=True, stats=True)
+    st, pp = mid_run_state(vol, cfg, groups=dict(det_geom=geom, record=True,
+                                                 stats=True))
     timed_groups = groups_vs_plain(vol, cfg, st, pp, K_MAIN, 20,
                                    "after 12 regenerate+kernel rounds")
     cfg_detect = cfg
+
+    # --- the launch's edge cases against the plain version -------------------
+    # every lane dead at launch (each only draws its uniforms), a ragged
+    # lane count with half-dead warps (both on the mid-run detection
+    # state, base and detection forward), and every lane in one voxel
+    # with one direction (fresh B1 pencil photons: the most deposits
+    # into one cell)
+    n_rag = LANES // 2 + 77
+    half = (torch.arange(n_rag, device=dev) % 32) < 16
+    ragged = ph.PhotonState(*(x[:n_rag] for x in st))
+    vol1, cfg1 = launch.get_bench("B1", SIZE, dev)
+    cfg1 = dataclasses.replace(cfg1, steps_per_round=K_MAIN)
+    edge_cases = {
+        "all lanes dead at launch": (
+            vol, cfg, st._replace(alive=torch.zeros_like(st.alive)), pp),
+        "ragged lane count, half-dead warps": (
+            vol, cfg, ragged._replace(alive=ragged.alive & half),
+            pp[:n_rag]),
+        "every lane in one voxel, one direction": (
+            vol1, cfg1, ops.fresh_state(vol1, LANES, seed=7), None)}
+    for what, (v, c, s0, p0) in edge_cases.items():
+        dead = what.startswith("all lanes dead")
+        got, diffs, ms, plain_ms = kernel_vs_plain(v, c, s0, K_MAIN, 10,
+                                                   mutations=not dead)
+        if dead:
+            for name, x, y in zip(got[0]._fields, got[0], s0):
+                check(name == "rng" or torch.equal(x, y),
+                      f"a lane dead at launch changed its {name}")
+            check(not torch.equal(got[0].rng, s0.rng),
+                  "lanes dead at launch drew no uniforms")
+            check(all(float(x.abs().sum()) == 0 for x in got[1:5]),
+                  "lanes dead at launch deposited weight")
+        emit("kernel", case=what, lanes=s0.w.numel(), k=K_MAIN,
+             ntg=c.n_time_gates, ms=ms, plain_ms=plain_ms, **diffs)
+        if p0 is None:
+            continue
+        args = (v.labels.reshape(-1), v.media, s0, shape, 1.0, c, K_MAIN)
+        kw = group_kwargs(v, s0, FORWARD, c.n_time_gates, p0)
+        diffs, fails = measure_groups(
+            K.photon_step_cuda(*args, **kw),
+            photon_steps_ref(*args, **kw, accumulate=EXACT),
+            K.photon_step_cuda(*args), FORWARD,
+            cell_tol(s0.w.numel(), K_MAIN))
+        check(not fails, f"{what}, detection forward: " + "; ".join(fails))
+        emit("groups", case=what, variant=K.variant_name(FORWARD, c),
+             lanes=s0.w.numel(), **diffs)
 
     # --- main path ------------------------------------------------------------
     launches = {}
@@ -773,10 +899,11 @@ def main() -> None:
                 :, 0].double().sum())
             torch.cuda.synchronize()
             start.record()
-            want = photon_steps_ref(*args, **kw)
+            photon_steps_ref(*args, **kw)
             stop.record()
             torch.cuda.synchronize()
             plain_ms.append(start.elapsed_time(stop))
+            want = photon_steps_ref(*args, **kw, accumulate=EXACT)
             diffs, fails = measure_groups(got, want, base, groups, tol)
             check(not fails, f"replay {K.group_names(groups)} launch {i}: "
                   + "; ".join(fails))

@@ -126,7 +126,7 @@ def accumulate_capture(pp, dw, dp, res, gate, det_geom, ntg):
     ``(N, n_media)`` *before* the capture test (a photon escaping in
     this segment is recorded with it), then adds detected weight into
     the flat gate-major TPSF ``dw`` ``(n_det * ntg,)`` and the weighted
-    path sums ``dp`` ``(n_det, n_media)``.  ``res`` is the segment's
+    path sums ``dp`` ``(n_det, n_media)``, in their own dtype.  ``res`` is the segment's
     ``photon.StepResult`` and ``gate`` its per-lane time gate.  Returns
     the new ``(pp, dw, dp)``.
     """
@@ -135,8 +135,8 @@ def accumulate_capture(pp, dw, dp, res, gate, det_geom, ntg):
     pp = pp + torch.where(res.seg_med[:, None] == med_cols,
                           res.seg_len[:, None], torch.zeros_like(pp))
     didx, dwgt = detector_bins(res.esc_pos, res.esc_w, det_geom)
-    dw = dw.index_add(0, didx * ntg + gate, dwgt)
-    dp = dp.index_add(0, didx, dwgt[:, None] * pp)
+    dw = dw.index_add(0, didx * ntg + gate, dwgt.to(dw.dtype))
+    dp = dp.index_add(0, didx, (dwgt[:, None] * pp).to(dp.dtype))
     return pp, dw, dp
 
 

@@ -16,47 +16,65 @@
 //   DET), into a library of its own; groups that are off compile away,
 //   so the base variant is the base kernel alone.
 //
-// What bounds it: per live lane-segment it reads 2 labels (1 B each,
-//   from L2: the 216 KB label grid of a 60^3 volume stays resident in
-//   the 50 MB L2) and 2 media rows, draws 5 xorshift128 uniforms, and
-//   does ~130 float32 operations and ~18 special-function operations
-//   (log, exp, sin, cos, square roots, reciprocals of the IEEE
-//   divisions); the state (81 B a lane) is read and written once per
-//   launch and every deposit is a 4 B atomic.  chip_smoke.py counts
-//   these for its inputs: at 262144 lanes x 16 segments the bytes
-//   (0.018 ms at 3.35 TB/s) and the special-function units (0.017 ms)
-//   bound it about equally, while one launch took 0.25 ms on an H100
-//   80GB HBM3 at 700 W.  Warp divergence (scatter vs wall crossing vs
-//   Fresnel) and atomic contention near the source are the likely
-//   losses.  The groups add little: DET reads and writes the lane's
-//   per-medium path (4 B a medium each way) and updates one entry of it
-//   per live segment in place (L1/L2), and each capture (at most one
-//   per photon) adds 1 + n_media atomics; RECORD writes 8 B a lane;
-//   STATS 8 B a lane; JAC reads 8 B a lane and adds one atomic per live
-//   segment into an nvox x jac_cols grid (130 MB at 60^3 with 150
-//   columns, far beyond L2, so those atomics go to HBM).
+// What bounds it.  The source's own count, which sets the kernel
+//   table's bound in chip_smoke.py, is per live lane-segment ~130
+//   float32 and ~18 special-function operations and, per launch, 81 B
+//   of lane state each way: 0.017 ms for a mid-run launch of 262144
+//   lanes x 16 segments (special functions).  The card issues more:
+//   built without fast math, each IEEE division is a reciprocal, two
+//   refinements and a slow-path test, and log/exp/sin/cos are
+//   polynomials.  sass.py counts the SASS by region (the "// --- NAME"
+//   markers below; a static count, so branches a segment rarely takes
+//   are in it): about 440 instructions on a segment that crosses a wall
+//   and 640 on one that scatters, so issuing a mid-run launch takes
+//   0.06-0.09 ms (chip_smoke.py's estimate from the paths the lanes
+//   take).  What held the launch at 0.22-0.25 ms was neither: compiled
+//   without its fluence and exitance atomics it ran in 0.45 (B1) to
+//   0.75 (detection forward) of the time.  A pencil source puts ~6*10^4
+//   deposits a launch into its hottest cell, and float atomics on one
+//   address serialise in L2.
 //
-// What the design does about it: one thread per lane, 256 threads a
-//   block, a tail-masked grid.  The state lives in registers across the
-//   K segments and is written back once in the reference layout.  The
-//   fluence, exitance, TPSF, path-sum and Jacobian sums use atomicAdd
-//   on zero-initialised float32 buffers in device memory, indexed in
-//   64 bits where a grid can pass 2^31 cells; an add of exactly zero
-//   (dead lane, missed detector, padding lane) is skipped, so only
-//   live segments touch memory.  The per-medium path stays in device
-//   memory rather than registers, so n_media has no compile-time bound.
-//   DO_REFLECT and TAYLOR are template flags so the specialised kernel
-//   carries only its physics.
+// What the design does about it:
+//   - Deposit cache.  Each block keeps kCacheSlots (cell, sum) pairs in
+//     shared memory, direct-mapped by a hash of the cell.  A deposit
+//     whose slot is empty or holds its cell adds there; any other adds
+//     to device memory; at its end the block adds its cached sums to
+//     device memory, so the hottest cell takes one device-memory add a
+//     block rather than one a deposit.  (Warp-level aggregation alone
+//     recovered a third as much.)
+//   - Lanes ordered at launch.  Each block runs its lanes alive at
+//     launch first, so in the tail rounds the dead ones fill whole
+//     warps; a warp whose lanes are all dead draws the remaining
+//     uniforms and leaves the loop.  Lanes that die during the launch
+//     ride along masked, which costs their warp nothing.
+//   - No local memory: the crossing axis is selected by comparison, not
+//     by array index, so the small arrays stay in registers (indexing
+//     them kept a 64-byte stack frame).  One division an axis
+//     whichever way the lane moves (its numerator picked first),
+//     sincosf for the azimuth, and the Fresnel arithmetic only where
+//     the index changes.
+//   - The C entry point zeroes the accumulated outputs itself
+//     (cudaMemsetAsync on the stream), so the wrapper issues one call.
+//   - Kept: one thread per lane, 256 threads a block, the state in
+//     registers for all K segments.  The measurements that decided:
+//     512- or 1024-thread blocks, 512/2048/4096 cache slots, the media
+//     table or the labels in shared memory, the per-medium path in
+//     registers or shared memory, and __launch_bounds__ minima of 6 or
+//     8 blocks were each no faster, or faster mid-run and slower over a
+//     whole run.
 //
-// Parity: the arithmetic follows repro_torch/core/photon.py and
-//   repro_torch/detectors operation by operation.  Build with
+// Parity: the arithmetic of each lane follows repro_torch/core/photon.py
+//   and repro_torch/detectors operation by operation.  Build with
 //   --fmad=false and without fast math: every constant below is a float
-//   literal, and logf/expf/sinf/cosf/sqrtf and IEEE division are what
-//   PyTorch's elementwise CUDA operators call, so the per-lane state
+//   literal, and logf/expf/sincosf/sqrtf and IEEE division give what
+//   PyTorch's elementwise CUDA operators give, so the per-lane state
 //   (and ppath, cap_det, cap_gate and the stats block) matches the
-//   plain version bit for bit where the operation order matches.  No
-//   group writes a variable of the lane state, so the state and the
-//   base outputs are the same with any group on or off.
+//   plain version bit for bit; which thread runs a lane changes
+//   nothing.  Grid cells (fluence, exitance, TPSF, path sums, Jacobian)
+//   are float32 sums in an order that changes from run to run: the
+//   cache changes only that order.  No group writes a variable of the
+//   lane state, so the state and the base outputs are the same with any
+//   group on or off.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -70,6 +88,16 @@ constexpr float kTwoPi = 6.28318548202514648f;  // float32(2 pi)
 constexpr float kCLight = 299.792458f;    // mm/ns
 constexpr float kU24 = 5.9604644775390625e-08f;  // 2^-24
 constexpr float kZExitFace = 0.25f;
+
+// Launch shape: one thread per lane, kThreads a block (the wrapper's
+// launch_plan passes the same number and the block count).
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+// Deposit cache: kCacheSlots (key, sum) pairs in each block's shared
+// memory, direct-mapped by a multiplicative hash of the cell.
+constexpr int kCacheLog2 = 10;
+constexpr int kCacheSlots = 1 << kCacheLog2;
+constexpr int kEmpty = -1;
 
 #ifndef PS_GROUPS
 #define PS_GROUPS 0
@@ -102,6 +130,35 @@ struct Groups {
   int n_det, n_media, jac_cols;
 };
 
+// Inputs, base outputs and scalars of one launch.
+struct Args {
+  const uint8_t* labels;
+  const float* media;
+  const float* pos_in;
+  const float* dir_in;
+  const int32_t* ivox_in;
+  const float* w_in;
+  const float* s_in;
+  const float* t_in;
+  const int64_t* rng_in;
+  const uint8_t* alive_in;
+  float* pos_out;
+  float* dir_out;
+  int32_t* ivox_out;
+  float* w_out;
+  float* s_out;
+  float* t_out;
+  int64_t* rng_out;
+  uint8_t* alive_out;
+  float* fluence;    // (nvox * ntg), zeroed
+  float* exitance;   // (nx * ny), zeroed
+  float* esc_out;
+  float* timed_out;
+  int n, nx, ny, nz, n_steps, ntg, general_exact;
+  float unit, gate_scale, tmax, w_threshold, roulette_m, roulette_p;
+  Groups grp;
+};
+
 struct Rng {
   uint32_t x, y, z, w;
   __device__ __forceinline__ float uniform() {
@@ -128,46 +185,55 @@ __device__ __forceinline__ float signf(float v) {
   return v > 0.f ? 1.f : (v < 0.f ? -1.f : 0.f);
 }
 
-template <bool DO_REFLECT, bool TAYLOR>
-__global__ void __launch_bounds__(256) photon_step_kernel(
-    const uint8_t* __restrict__ labels, const float* __restrict__ media,
-    const float* __restrict__ pos_in, const float* __restrict__ dir_in,
-    const int32_t* __restrict__ ivox_in, const float* __restrict__ w_in,
-    const float* __restrict__ s_in, const float* __restrict__ t_in,
-    const int64_t* __restrict__ rng_in, const uint8_t* __restrict__ alive_in,
-    float* __restrict__ pos_out, float* __restrict__ dir_out,
-    int32_t* __restrict__ ivox_out, float* __restrict__ w_out,
-    float* __restrict__ s_out, float* __restrict__ t_out,
-    int64_t* __restrict__ rng_out, uint8_t* __restrict__ alive_out,
-    float* __restrict__ fluence, float* __restrict__ exitance,
-    float* __restrict__ esc_out, float* __restrict__ timed_out,
-    int n, int nx, int ny, int nz, float unit, int n_steps, int ntg,
-    float gate_scale, float tmax, float w_threshold, float roulette_m,
-    float roulette_p, int general_exact, const Groups grp) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
+// Adds v to cell `key` of the block's deposit cache: the first key to
+// reach an empty slot claims it for the launch; a key whose slot another
+// key holds adds straight to device memory at `miss`.
+__device__ __forceinline__ void cache_add(int* s_key, float* s_val, int key,
+                                          float v, float* miss) {
+  const int slot = (int)(((unsigned)key * 2654435761u) >> (32 - kCacheLog2));
+  int held = *(volatile int*)&s_key[slot];
+  if (held == kEmpty) {
+    held = atomicCAS(&s_key[slot], kEmpty, key);
+    if (held == kEmpty) held = key;
+  }
+  if (held == key) {
+    atomicAdd(&s_val[slot], v);
+  } else {
+    atomicAdd(miss, v);
+  }
+}
 
+// K segments of one lane.  Fluence and exitance deposits go through the
+// block's cache: fluence cell c under key c, exitance bin b under key
+// nvox * ntg + b.
+template <bool DO_REFLECT, bool TAYLOR>
+__device__ __forceinline__ void run_lane(const Args& A, const int lane,
+                                         int* s_key, float* s_val) {
+  // --- LANE: the lane's state in, once a launch ---
+  const Groups& grp = A.grp;
+  const int nx = A.nx, ny = A.ny, nz = A.nz, ntg = A.ntg;
+  const int n_flu = nx * ny * nz * ntg;
   float p[3], d[3];
   int iv[3];
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
-    p[a] = pos_in[3 * lane + a];
-    d[a] = dir_in[3 * lane + a];
-    iv[a] = ivox_in[3 * lane + a];
+    p[a] = A.pos_in[3 * lane + a];
+    d[a] = A.dir_in[3 * lane + a];
+    iv[a] = A.ivox_in[3 * lane + a];
   }
-  float w = w_in[lane], s = s_in[lane], t = t_in[lane];
+  float w = A.w_in[lane], s = A.s_in[lane], t = A.t_in[lane];
   Rng r;
-  r.x = (uint32_t)rng_in[4 * lane + 0];
-  r.y = (uint32_t)rng_in[4 * lane + 1];
-  r.z = (uint32_t)rng_in[4 * lane + 2];
-  r.w = (uint32_t)rng_in[4 * lane + 3];
-  bool alive = alive_in[lane] != 0;
+  r.x = (uint32_t)A.rng_in[4 * lane + 0];
+  r.y = (uint32_t)A.rng_in[4 * lane + 1];
+  r.z = (uint32_t)A.rng_in[4 * lane + 2];
+  r.w = (uint32_t)A.rng_in[4 * lane + 3];
+  bool alive = A.alive_in[lane] != 0;
   float esc_acc = 0.f, timed_acc = 0.f;
 
   // the lane's per-medium path, carried in its row of ppath_out
+  const int nm = grp.n_media;
   float* pp = nullptr;
   if (kDet) {
-    const int nm = grp.n_media;
     pp = grp.ppath_out + (long long)lane * nm;
     for (int m = 0; m < nm; ++m)
       pp[m] = grp.ppath_in[(long long)lane * nm + m];
@@ -186,18 +252,25 @@ __global__ void __launch_bounds__(256) photon_step_kernel(
   }
   float st_live = 0.f, st_dep = 0.f;
 
-  for (int k = 0; k < n_steps; ++k) {
+  for (int k = 0; k < A.n_steps; ++k) {
+    // --- LOOP: the voxel and its medium ---
+    // a dead lane's only effect is its 5 draws a segment: a warp whose
+    // lanes are all dead draws the rest and leaves the loop
+    if (__all_sync(__activemask(), !alive)) {
+      for (int j = 5 * (A.n_steps - k); j > 0; --j) r.uniform();
+      break;
+    }
     const int cx = clampi(iv[0], 0, nx - 1);
     const int cy = clampi(iv[1], 0, ny - 1);
     const int cz = clampi(iv[2], 0, nz - 1);
-    const long long flat = ((long long)cx * ny + cy) * nz + cz;
-    const int label = __ldg(labels + flat);
-    const float mua = __ldg(media + 4 * label + 0) * unit;
-    const float mus = __ldg(media + 4 * label + 1) * unit;
-    const float g = __ldg(media + 4 * label + 2);
-    const float n_cur = __ldg(media + 4 * label + 3);
+    const int flat = (cx * ny + cy) * nz + cz;
+    const int label = __ldg(A.labels + flat);
+    const float mua = __ldg(A.media + 4 * label + 0) * A.unit;
+    const float mus = __ldg(A.media + 4 * label + 1) * A.unit;
+    const float g = __ldg(A.media + 4 * label + 2);
+    const float n_cur = __ldg(A.media + 4 * label + 3);
 
-    // --- the per-step uniforms: always 5, on every lane ---
+    // --- UNIFORMS: always 5 a step, on every lane ---
     const float u_path = r.uniform();
     const float u_cos = r.uniform();
     const float u_phi = r.uniform();
@@ -209,16 +282,12 @@ __global__ void __launch_bounds__(256) photon_step_kernel(
     float dist[3];
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
+      // one division whichever way the lane moves (its numerator
+      // picked first), so a warp with both signs divides once an axis
       const float fv = (float)iv[a];
-      float da;
-      if (d[a] > kDirEps) {
-        da = (fv + 1.f - p[a]) / d[a];
-      } else if (d[a] < -kDirEps) {
-        da = (fv - p[a]) / d[a];
-      } else {
-        da = kInf;
-      }
-      dist[a] = fmaxf(da, 0.f);
+      const float num = d[a] > kDirEps ? (fv + 1.f) - p[a] : fv - p[a];
+      const float q = num / d[a];
+      dist[a] = fmaxf(fabsf(d[a]) > kDirEps ? q : kInf, 0.f);
     }
     const int axis = (dist[0] <= dist[1] && dist[0] <= dist[2])
                          ? 0 : (dist[1] <= dist[2] ? 1 : 2);
@@ -232,7 +301,7 @@ __global__ void __launch_bounds__(256) photon_step_kernel(
 #pragma unroll
     for (int a = 0; a < 3; ++a) np_[a] = p[a] + d[a] * seg;
     s_new = hits_wall ? s_new - seg * mus : 0.f;
-    const float t_new = t + seg * unit * n_cur / kCLight;
+    const float t_new = t + seg * A.unit * n_cur / kCLight;
 
     // --- DROP ---
     const float tau = mua * seg;
@@ -240,7 +309,7 @@ __global__ void __launch_bounds__(256) photon_step_kernel(
     if (TAYLOR) {
       dep = w * fminf(tau, 1.f);
       w_after = w - dep;
-    } else if (general_exact) {
+    } else if (A.general_exact) {
       dep = w - w * expf(-tau);
       w_after = w - dep;
     } else {
@@ -249,16 +318,17 @@ __global__ void __launch_bounds__(256) photon_step_kernel(
     }
 
     // --- BOUNDARY: next voxel ---
-    const float dir_axis = d[axis];
+    // (the crossing axis selects by comparison, not by index, so the
+    // small arrays stay in registers)
+    const float dir_axis = axis == 0 ? d[0] : (axis == 1 ? d[1] : d[2]);
     const int sgn = dir_axis > 0.f ? 1 : (dir_axis < 0.f ? -1 : 0);
-    int nv[3] = {iv[0], iv[1], iv[2]};
-    nv[axis] += sgn;
+    int nv[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) nv[a] = iv[a] + (a == axis ? sgn : 0);
     const bool oob = nv[0] < 0 || nv[0] >= nx || nv[1] < 0 || nv[1] >= ny ||
                      nv[2] < 0 || nv[2] >= nz;
     int next_label = 0;
-    if (!oob) {
-      next_label = __ldg(labels + ((long long)nv[0] * ny + nv[1]) * nz + nv[2]);
-    }
+    if (!oob) next_label = __ldg(A.labels + (nv[0] * ny + nv[1]) * nz + nv[2]);
     const bool crossing = alive && hits_wall;
     const bool is_scatter = alive && !hits_wall;
 
@@ -274,8 +344,8 @@ __global__ void __launch_bounds__(256) photon_step_kernel(
                                 -1.f, 1.f);
       const float sint = sqrtf(fmaxf(1.f - cost * cost, 0.f));
       const float phi = kTwoPi * u_phi;
-      const float cosp = cosf(phi);
-      const float sinp = sinf(phi);
+      float sinp, cosp;
+      sincosf(phi, &sinp, &cosp);
       const float ux = d[0], uy = d[1], uz = d[2];
       float ox, oy, oz;
       if (fabsf(uz) > 0.99999f) {
@@ -293,37 +363,41 @@ __global__ void __launch_bounds__(256) photon_step_kernel(
       nd[1] = oy / norm;
       nd[2] = oz / norm;
     } else if (DO_REFLECT && crossing) {
-      // --- Fresnel reflection / Snell refraction at an index mismatch ---
-      const float n_next = __ldg(media + 4 * next_label + 3);
-      const bool mismatch = fabsf(n_next - n_cur) > 1e-6f;
-      const float cos_i = clampf(fabsf(dir_axis), 0.f, 1.f);
-      const float eta = n_cur / fmaxf(n_next, 1e-6f);
-      const float sin2_t = eta * eta * fmaxf(1.f - cos_i * cos_i, 0.f);
-      const bool tir = sin2_t >= 1.f;
-      const float cos_t = sqrtf(fmaxf(1.f - sin2_t, 0.f));
-      const float rs_num = n_cur * cos_i - n_next * cos_t;
-      const float rs_den = n_cur * cos_i + n_next * cos_t;
-      const float rp_num = n_cur * cos_t - n_next * cos_i;
-      const float rp_den = n_cur * cos_t + n_next * cos_i;
-      const float rs = rs_num / (fabsf(rs_den) < 1e-12f ? 1.f : rs_den);
-      const float rp = rp_num / (fabsf(rp_den) < 1e-12f ? 1.f : rp_den);
-      const float refl_r = clampf(tir ? 1.f : 0.5f * (rs * rs + rp * rp),
-                                  0.f, 1.f);
-      reflects = mismatch && (u_fres < refl_r);
-      if (reflects) {
-        nd[axis] = d[axis] * -1.f;
-      } else if (mismatch) {
-        float tr[3];
-        const float sgnf = (float)sgn;
+      // --- Fresnel reflection / Snell refraction, only where the index
+      // changes: without a mismatch the direction stays as it is ---
+      const float n_next = __ldg(A.media + 4 * next_label + 3);
+      if (fabsf(n_next - n_cur) > 1e-6f) {
+        const float cos_i = clampf(fabsf(dir_axis), 0.f, 1.f);
+        const float eta = n_cur / fmaxf(n_next, 1e-6f);
+        const float sin2_t = eta * eta * fmaxf(1.f - cos_i * cos_i, 0.f);
+        const bool tir = sin2_t >= 1.f;
+        const float cos_t = sqrtf(fmaxf(1.f - sin2_t, 0.f));
+        const float rs_num = n_cur * cos_i - n_next * cos_t;
+        const float rs_den = n_cur * cos_i + n_next * cos_t;
+        const float rp_num = n_cur * cos_t - n_next * cos_i;
+        const float rp_den = n_cur * cos_t + n_next * cos_i;
+        const float rs = rs_num / (fabsf(rs_den) < 1e-12f ? 1.f : rs_den);
+        const float rp = rp_num / (fabsf(rp_den) < 1e-12f ? 1.f : rp_den);
+        const float refl_r = clampf(tir ? 1.f : 0.5f * (rs * rs + rp * rp),
+                                    0.f, 1.f);
+        reflects = u_fres < refl_r;
+        if (reflects) {
 #pragma unroll
-        for (int a = 0; a < 3; ++a) {
-          const float af = a == axis ? 1.f : 0.f;
-          tr[a] = d[a] * (1.f - af) * eta + af * (sgnf * cos_t);
+          for (int a = 0; a < 3; ++a)
+            if (a == axis) nd[a] = d[a] * -1.f;
+        } else {
+          float tr[3];
+          const float sgnf = (float)sgn;
+#pragma unroll
+          for (int a = 0; a < 3; ++a) {
+            const float af = a == axis ? 1.f : 0.f;
+            tr[a] = d[a] * (1.f - af) * eta + af * (sgnf * cos_t);
+          }
+          const float tnorm = fmaxf(
+              sqrtf(tr[0] * tr[0] + tr[1] * tr[1] + tr[2] * tr[2]), 1e-12f);
+#pragma unroll
+          for (int a = 0; a < 3; ++a) nd[a] = tr[a] / tnorm;
         }
-        const float tnorm = fmaxf(
-            sqrtf(tr[0] * tr[0] + tr[1] * tr[1] + tr[2] * tr[2]), 1e-12f);
-#pragma unroll
-        for (int a = 0; a < 3; ++a) nd[a] = tr[a] / tnorm;
       }
     }
 
@@ -332,11 +406,12 @@ __global__ void __launch_bounds__(256) photon_step_kernel(
 
     // --- ROULETTE, then the time gate, then escape zeroing ---
     bool alive_after = alive && !escapes;
-    const bool low_w = alive_after && (w_after < w_threshold);
-    const bool survives = u_roul < roulette_p;
-    float w_final = low_w ? (survives ? w_after * roulette_m : 0.f) : w_after;
+    const bool low_w = alive_after && (w_after < A.w_threshold);
+    const bool survives = u_roul < A.roulette_p;
+    float w_final =
+        low_w ? (survives ? w_after * A.roulette_m : 0.f) : w_after;
     alive_after = alive_after && !(low_w && !survives);
-    const bool gate_kill = alive_after && (t_new > tmax);
+    const bool gate_kill = alive_after && (t_new > A.tmax);
     alive_after = alive_after && !gate_kill;
     const float timed_w = gate_kill ? w_final : 0.f;
     const float esc_w = escapes ? w_after : 0.f;
@@ -346,15 +421,17 @@ __global__ void __launch_bounds__(256) photon_step_kernel(
       st_live = st_live + (alive ? 1.f : 0.f);
       st_dep = st_dep + (alive ? dep : 0.f);
     }
+    // --- DEPOSIT, detector capture, and the state update ---
     if (alive) {
       // deposition (zero deposits add nothing and are skipped); the gate
       // is computed where it is used, so the base variant does no work
       // of the groups
       if (dep != 0.f) {
-        const int gate = clampi((int)floorf(t_new * gate_scale), 0, ntg - 1);
-        atomicAdd(fluence + flat * ntg + gate, dep);
+        const int gate = clampi((int)floorf(t_new * A.gate_scale), 0, ntg - 1);
+        const int cell = flat * ntg + gate;
+        cache_add(s_key, s_val, cell, dep, A.fluence + cell);
       }
-      const float seg_len = seg * unit;
+      const float seg_len = seg * A.unit;
       if (kDet) {
         // the segment's path joins the lane's medium sum before the
         // capture test, so a detected photon carries its last segment
@@ -371,12 +448,12 @@ __global__ void __launch_bounds__(256) photon_step_kernel(
           }
           if (det >= 0) {
             const int gate =
-                clampi((int)floorf(t_new * gate_scale), 0, ntg - 1);
+                clampi((int)floorf(t_new * A.gate_scale), 0, ntg - 1);
             atomicAdd(grp.det_w + (long long)det * ntg + gate, esc_w);
-            for (int m = 0; m < grp.n_media; ++m) {
+            for (int m = 0; m < nm; ++m) {
               const float v = esc_w * pp[m];
               if (v != 0.f)
-                atomicAdd(grp.det_ppath + (long long)det * grp.n_media + m, v);
+                atomicAdd(grp.det_ppath + (long long)det * nm + m, v);
             }
             if (kRecord) {
               cap_det = det;
@@ -388,12 +465,13 @@ __global__ void __launch_bounds__(256) photon_step_kernel(
       if (kJac) {
         const float v = jac_w * seg_len;
         if (v != 0.f)
-          atomicAdd(grp.jac + flat * grp.jac_cols + jac_col, v);
+          atomicAdd(grp.jac + (long long)flat * grp.jac_cols + jac_col, v);
       }
       if (esc_w > 0.f && np_[2] < kZExitFace) {
         const int ex = clampi((int)floorf(np_[0]), 0, nx - 1);
         const int ey = clampi((int)floorf(np_[1]), 0, ny - 1);
-        atomicAdd(exitance + ex * ny + ey, esc_w);
+        const int bin = ex * ny + ey;
+        cache_add(s_key, s_val, n_flu + bin, esc_w, A.exitance + bin);
       }
       esc_acc = esc_acc + esc_w;
       timed_acc = timed_acc + timed_w;
@@ -402,7 +480,10 @@ __global__ void __launch_bounds__(256) photon_step_kernel(
         p[a] = np_[a];
         d[a] = nd[a];
       }
-      if (advances) iv[axis] = nv[axis];
+      if (advances) {
+#pragma unroll
+        for (int a = 0; a < 3; ++a) iv[a] = nv[a];
+      }
       w = w_final;
       s = s_new;
       t = t_new;
@@ -410,22 +491,23 @@ __global__ void __launch_bounds__(256) photon_step_kernel(
     alive = alive_after;
   }
 
+  // --- WRITE-BACK, once a launch ---
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
-    pos_out[3 * lane + a] = p[a];
-    dir_out[3 * lane + a] = d[a];
-    ivox_out[3 * lane + a] = iv[a];
+    A.pos_out[3 * lane + a] = p[a];
+    A.dir_out[3 * lane + a] = d[a];
+    A.ivox_out[3 * lane + a] = iv[a];
   }
-  w_out[lane] = w;
-  s_out[lane] = s;
-  t_out[lane] = t;
-  rng_out[4 * lane + 0] = (int64_t)r.x;
-  rng_out[4 * lane + 1] = (int64_t)r.y;
-  rng_out[4 * lane + 2] = (int64_t)r.z;
-  rng_out[4 * lane + 3] = (int64_t)r.w;
-  alive_out[lane] = alive ? 1 : 0;
-  esc_out[lane] = esc_acc;
-  timed_out[lane] = timed_acc;
+  A.w_out[lane] = w;
+  A.s_out[lane] = s;
+  A.t_out[lane] = t;
+  A.rng_out[4 * lane + 0] = (int64_t)r.x;
+  A.rng_out[4 * lane + 1] = (int64_t)r.y;
+  A.rng_out[4 * lane + 2] = (int64_t)r.z;
+  A.rng_out[4 * lane + 3] = (int64_t)r.w;
+  A.alive_out[lane] = alive ? 1 : 0;
+  A.esc_out[lane] = esc_acc;
+  A.timed_out[lane] = timed_acc;
   if (kRecord) {
     grp.cap_det[lane] = cap_det;
     grp.cap_gate[lane] = cap_gate;
@@ -436,15 +518,126 @@ __global__ void __launch_bounds__(256) photon_step_kernel(
   }
 }
 
+// One block: its lanes reordered so that those alive at launch come
+// first (each keeps its own arithmetic; only the thread that runs it
+// changes), K segments of each, then the block's deposit cache added to
+// device memory.
 template <bool DO_REFLECT, bool TAYLOR>
-cudaError_t launch(const void* const* in, void* const* out, const int* ints,
-                   const float* floats, cudaStream_t stream) {
-  const int n = ints[0];
-  const int threads = 256;
-  const int blocks = (n + threads - 1) / threads;
+__global__ void __launch_bounds__(kThreads)
+    photon_step_kernel(const __grid_constant__ Args A) {
+  // --- BLOCK: the cache emptied, the lanes ordered ---
+  __shared__ int s_key[kCacheSlots];
+  __shared__ float s_val[kCacheSlots];
+  __shared__ int s_order[kThreads];
+  __shared__ int s_warp_live[kWarps];
+  for (int i = threadIdx.x; i < kCacheSlots; i += kThreads) {
+    s_key[i] = kEmpty;
+    s_val[i] = 0.f;
+  }
+  const int tid = threadIdx.x, wid = tid >> 5, lid = tid & 31;
+  const int first = blockIdx.x * kThreads;
+  const bool live = first + tid < A.n && A.alive_in[first + tid] != 0;
+  const unsigned live_bits = __ballot_sync(0xffffffffu, live);
+  if (lid == 0) s_warp_live[wid] = __popc(live_bits);
+  __syncthreads();
+  int live_before = 0, n_live = 0;
+#pragma unroll
+  for (int i = 0; i < kWarps; ++i) {
+    const int c = s_warp_live[i];
+    live_before += i < wid ? c : 0;
+    n_live += c;
+  }
+  // a stable partition: live lanes in lane order, then the rest
+  const int live_below = live_before + __popc(live_bits & ((1u << lid) - 1u));
+  s_order[live ? live_below : n_live + tid - live_below] = tid;
+  __syncthreads();
+  const int lane = first + s_order[tid];
+  if (lane < A.n) run_lane<DO_REFLECT, TAYLOR>(A, lane, s_key, s_val);
+  // --- FLUSH: the block's cached sums into device memory ---
+  __syncthreads();
+  const int n_flu = A.nx * A.ny * A.nz * A.ntg;
+  for (int i = tid; i < kCacheSlots; i += kThreads) {
+    const int key = s_key[i];
+    const float v = s_val[i];
+    if (key != kEmpty && v != 0.f)
+      atomicAdd(key < n_flu ? A.fluence + key : A.exitance + (key - n_flu), v);
+  }
+}
+
+template <bool DO_REFLECT, bool TAYLOR>
+cudaError_t launch(const Args& a, int blocks, cudaStream_t stream) {
+  photon_step_kernel<DO_REFLECT, TAYLOR><<<blocks, kThreads, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C entry point, bound with ctypes.
+//   in:  labels, media, pos, dir, ivox, w, s_left, t, rng, alive (10),
+//        then [ppath, det_geom] (DET), [jac_w, jac_col, errors] (JAC;
+//        errors is one int32 the kernel ORs 1 into for a bad jac_col)
+//   out: pos, dir, ivox, w, s_left, t, rng, alive, fluence, exitance,
+//        escaped, timed (12), then [ppath, det_w, det_ppath] (DET),
+//        [cap_det, cap_gate] (RECORD), [jac] (JAC), [stats] (STATS);
+//        fluence, exitance, det_w, det_ppath and jac are zeroed here,
+//        on the stream, before the launch
+//   ints:   n, nx, ny, nz, n_steps, ntg, general_exact, do_reflect, taylor,
+//           groups, n_det, n_media, jac_cols, threads, blocks
+//   floats: unit, gate_scale, tmax, w_threshold, roulette_m, roulette_p
+// Returns the cudaError_t of the memsets and the launch (0 on success),
+// or cudaErrorInvalidValue when ``groups`` is not the set this library
+// was built for, ``threads`` is not its block size or ``blocks`` do not
+// cover the lanes.
+extern "C" int photon_step_launch(const void* const* in, void* const* out,
+                                  const int* ints, const float* floats,
+                                  void* stream) {
+  const int n = ints[0], groups = ints[9], n_det = ints[10],
+            n_media = ints[11], jac_cols = ints[12], threads = ints[13],
+            blocks = ints[14];
+  if (groups != PS_GROUPS || threads != kThreads ||
+      (long long)blocks * kThreads < n || (n > 0 && blocks <= 0))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const size_t nvox = (size_t)ints[1] * ints[2] * ints[3];
+  Args a = {};
+  a.labels = (const uint8_t*)in[0];
+  a.media = (const float*)in[1];
+  a.pos_in = (const float*)in[2];
+  a.dir_in = (const float*)in[3];
+  a.ivox_in = (const int32_t*)in[4];
+  a.w_in = (const float*)in[5];
+  a.s_in = (const float*)in[6];
+  a.t_in = (const float*)in[7];
+  a.rng_in = (const int64_t*)in[8];
+  a.alive_in = (const uint8_t*)in[9];
+  a.pos_out = (float*)out[0];
+  a.dir_out = (float*)out[1];
+  a.ivox_out = (int32_t*)out[2];
+  a.w_out = (float*)out[3];
+  a.s_out = (float*)out[4];
+  a.t_out = (float*)out[5];
+  a.rng_out = (int64_t*)out[6];
+  a.alive_out = (uint8_t*)out[7];
+  a.fluence = (float*)out[8];
+  a.exitance = (float*)out[9];
+  a.esc_out = (float*)out[10];
+  a.timed_out = (float*)out[11];
+  a.n = n;
+  a.nx = ints[1];
+  a.ny = ints[2];
+  a.nz = ints[3];
+  a.n_steps = ints[4];
+  a.ntg = ints[5];
+  a.general_exact = ints[6];
+  a.unit = floats[0];
+  a.gate_scale = floats[1];
+  a.tmax = floats[2];
+  a.w_threshold = floats[3];
+  a.roulette_m = floats[4];
+  a.roulette_p = floats[5];
   // the optional inputs and outputs follow the base ones, in the order
   // of the output contract (kernels/photon_step/spec.py)
-  Groups grp = {};
+  Groups& grp = a.grp;
   int i_in = 10, i_out = 12;
   if (kDet) {
     grp.ppath_in = (const float*)in[i_in++];
@@ -464,56 +657,40 @@ cudaError_t launch(const void* const* in, void* const* out, const int* ints,
   }
   if (kJac) grp.jac = (float*)out[i_out++];
   if (kStats) grp.stats = (float*)out[i_out++];
-  grp.n_det = ints[10];
-  grp.n_media = ints[11];
-  grp.jac_cols = ints[12];
-  photon_step_kernel<DO_REFLECT, TAYLOR><<<blocks, threads, 0, stream>>>(
-      (const uint8_t*)in[0], (const float*)in[1], (const float*)in[2],
-      (const float*)in[3], (const int32_t*)in[4], (const float*)in[5],
-      (const float*)in[6], (const float*)in[7], (const int64_t*)in[8],
-      (const uint8_t*)in[9], (float*)out[0], (float*)out[1],
-      (int32_t*)out[2], (float*)out[3], (float*)out[4], (float*)out[5],
-      (int64_t*)out[6], (uint8_t*)out[7], (float*)out[8], (float*)out[9],
-      (float*)out[10], (float*)out[11], n, ints[1], ints[2], ints[3],
-      floats[0], ints[4], ints[5], floats[1], floats[2], floats[3],
-      floats[4], floats[5], ints[6], grp);
-  return cudaGetLastError();
-}
+  grp.n_det = n_det;
+  grp.n_media = n_media;
+  grp.jac_cols = jac_cols;
 
-}  // namespace
-
-// Plain C entry point, bound with ctypes.
-//   in:  labels, media, pos, dir, ivox, w, s_left, t, rng, alive (10),
-//        then [ppath, det_geom] (DET), [jac_w, jac_col, errors] (JAC;
-//        errors is one int32 the kernel ORs 1 into for a bad jac_col)
-//   out: pos, dir, ivox, w, s_left, t, rng, alive, fluence, exitance,
-//        escaped, timed (12), then [ppath, det_w, det_ppath] (DET),
-//        [cap_det, cap_gate] (RECORD), [jac] (JAC), [stats] (STATS)
-//   ints:   n, nx, ny, nz, n_steps, ntg, general_exact, do_reflect, taylor,
-//           groups, n_det, n_media, jac_cols
-//   floats: unit, gate_scale, tmax, w_threshold, roulette_m, roulette_p
-// Returns the cudaError_t of the launch (0 on success), or
-// cudaErrorInvalidValue when ``groups`` is not the set this library was
-// built for.
-extern "C" int photon_step_launch(const void* const* in, void* const* out,
-                                  const int* ints, const float* floats,
-                                  void* stream) {
-  if (ints[9] != PS_GROUPS) return (int)cudaErrorInvalidValue;
-  if (ints[0] <= 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
+  const struct { void* p; size_t bytes; } zero[] = {
+      {a.fluence, 4 * nvox * a.ntg},
+      {a.exitance, 4 * (size_t)a.nx * a.ny},
+      {grp.det_w, 4 * (size_t)n_det * a.ntg},
+      {grp.det_ppath, 4 * (size_t)n_det * n_media},
+      {grp.jac, 4 * nvox * jac_cols}};
+  for (const auto& z : zero) {
+    if (z.p == nullptr || z.bytes == 0) continue;
+    const cudaError_t err = cudaMemsetAsync(z.p, 0, z.bytes, s);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (n <= 0) return 0;
   const bool do_reflect = ints[7] != 0, taylor = ints[8] != 0;
   cudaError_t err;
   if (do_reflect) {
-    err = taylor ? launch<true, true>(in, out, ints, floats, s)
-                 : launch<true, false>(in, out, ints, floats, s);
+    err = taylor ? launch<true, true>(a, blocks, s)
+                 : launch<true, false>(a, blocks, s);
   } else {
-    err = taylor ? launch<false, true>(in, out, ints, floats, s)
-                 : launch<false, false>(in, out, ints, floats, s);
+    err = taylor ? launch<false, true>(a, blocks, s)
+                 : launch<false, false>(a, blocks, s);
   }
   return (int)err;
 }
 
 extern "C" int photon_step_groups() { return PS_GROUPS; }
+
+// The kernel's compile-time launch constants, which the wrapper checks
+// against its own: threads a block, deposit-cache slots.
+extern "C" int photon_step_threads() { return kThreads; }
+extern "C" int photon_step_cache_slots() { return kCacheSlots; }
 
 extern "C" const char* photon_step_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

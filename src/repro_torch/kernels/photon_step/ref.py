@@ -25,7 +25,7 @@ def photon_steps_ref(labels_flat, media, state: ph.PhotonState,
                      shape, unitinmm, cfg: SimConfig, n_steps: int,
                      ppath=None, det_geom=None, record=False,
                      jac_w=None, jac_col=None, jac_cols: int = 0,
-                     stats: bool = False):
+                     stats: bool = False, accumulate=torch.float32):
     """Returns ``(new_state, fluence_flat, exitance_flat,
     escaped_per_lane, timed_per_lane)``, then the optional groups in
     this order:
@@ -41,6 +41,14 @@ def photon_steps_ref(labels_flat, media, state: ph.PhotonState,
       of the segment's voxel;
     * with ``stats``: an ``(n, 2)`` float32 block, always last:
       segments each lane entered alive, and its deposited weight.
+
+    ``accumulate`` is the dtype the grids (fluence, exitance, TPSF,
+    path sums, Jacobian) sum the float32 deposits in: float32, as the
+    kernel stores them, or float64, an exact sum of the same deposits.
+    A float32 sum of many equal deposits into one cell drifts by far
+    more than its rounding spread (the pencil's first cell), so the
+    kernel's grids are held against the float64 sum.  Every other
+    output is the same either way.
     """
     n_det, record, jac_cols = spec.check_groups(ppath, det_geom, record,
                                                 jac_w, jac_col, jac_cols)
@@ -50,19 +58,20 @@ def photon_steps_ref(labels_flat, media, state: ph.PhotonState,
     n = state.w.shape[0]
     dev = state.w.device
     f32 = dict(dtype=torch.float32, device=dev)
-    flu = torch.zeros((nvox * ntg,), **f32)
-    exi = torch.zeros((nxy,), **f32)
+    acc = dict(dtype=accumulate, device=dev)
+    flu = torch.zeros((nvox * ntg,), **acc)
+    exi = torch.zeros((nxy,), **acc)
     esc = torch.zeros_like(state.w)
     timed = torch.zeros_like(state.w)
     if n_det:
         pp = ppath
-        dw = torch.zeros((n_det * ntg,), **f32)
-        dp = torch.zeros((n_det, media.shape[0]), **f32)
+        dw = torch.zeros((n_det * ntg,), **acc)
+        dp = torch.zeros((n_det, media.shape[0]), **acc)
     if record:
         capd = torch.full((n,), -1, dtype=torch.int32, device=dev)
         capg = torch.zeros((n,), dtype=torch.int32, device=dev)
     if jac_cols:
-        jac = torch.zeros((nvox * jac_cols,), **f32)
+        jac = torch.zeros((nvox * jac_cols,), **acc)
         jac_col = jac_col.to(torch.int64)
     if stats:
         stbl = torch.zeros((n, 2), **f32)
@@ -70,9 +79,9 @@ def photon_steps_ref(labels_flat, media, state: ph.PhotonState,
     for _ in range(int(n_steps)):
         res = ph.step(st, labels_flat, media, shape, unitinmm, cfg)
         gate = ph.time_gate_bins(res.dep_t, cfg.tmax_ns, ntg)
-        flu.index_add_(0, res.dep_idx * ntg + gate, res.dep_w)
+        flu.index_add_(0, res.dep_idx * ntg + gate, res.dep_w.to(accumulate))
         xy, xw = ph.exitance_bins(res.esc_pos, res.esc_w, shape)
-        exi.index_add_(0, xy, xw)
+        exi.index_add_(0, xy, xw.to(accumulate))
         esc = esc + res.esc_w
         timed = timed + res.timed_w
         if n_det:
@@ -82,7 +91,7 @@ def photon_steps_ref(labels_flat, media, state: ph.PhotonState,
                 capd, capg = update_capture(capd, capg, res, gate, det_geom)
         if jac_cols:
             jac.index_add_(0, res.dep_idx * jac_cols + jac_col,
-                           jac_w * res.seg_len)
+                           (jac_w * res.seg_len).to(accumulate))
         if stats:
             stbl = stbl + torch.stack(
                 [st.alive.to(torch.float32), res.dep_w], dim=1)

@@ -3,15 +3,23 @@
     python -m repro_torch.launch.profile_run --bench B2 --photons 1000000 \\
         --lanes 262144 --steps-per-round 16
 
+The detection forward takes the CLI's flags for it:
+
+    python -m repro_torch.launch.profile_run --bench B2 --photons 1000000 \\
+        --time-gates 50 --tmax-ns 5.0 \\
+        --detectors '[{"x": 40, "y": 30, "radius": 2}]' \\
+        --save-detected 1048576 --collect-stats
+
 Runs the simulator twice untraced (kernel build and warm-up, then a
 timed run) and once under ``torch.profiler`` with CUDA activity, then
 prints one JSON line with the rounds, the untraced and the traced wall
 time, and for each group of device work (the photon-step kernel, every
 other kernel, memory copies and sets) its launches per round and device
-milliseconds.  ``idle_frac`` is
-the share of the traced wall time in which no device work ran, from the
-union of the trace's device intervals; tracing slows the host, so it
-overstates the untraced run's idle share.  ``--trace`` also writes the
+milliseconds, and the untraced run's photon-step launches by kernel
+variant (``photon_step_variants``).  ``idle_frac`` is the share of the
+traced wall time in which no device work ran, from the union of the
+trace's device intervals; tracing slows the host, so it overstates the
+untraced run's idle share.  ``--trace`` also writes the
 Chrome trace.  It needs a CUDA device.
 """
 
@@ -27,6 +35,8 @@ import time
 import torch
 
 from repro_torch.core import simulator as S
+from repro_torch.detectors import as_detectors
+from repro_torch.kernels.photon_step import photon_step as K
 from repro_torch.launch.simulate import get_bench
 
 DEVICE_CATS = {"kernel": "kernel", "gpu_memcpy": "memcpy",
@@ -69,6 +79,12 @@ def main(argv=None) -> dict:
     ap.add_argument("--size", type=int, default=60)
     ap.add_argument("--seed", type=int, default=1234)
     ap.add_argument("--steps-per-round", type=int, default=16)
+    ap.add_argument("--time-gates", type=int, default=1)
+    ap.add_argument("--tmax-ns", type=float, default=None)
+    ap.add_argument("--detectors", default=None,
+                    help="JSON detector disks, as the CLI takes them")
+    ap.add_argument("--save-detected", type=int, default=0, metavar="CAP")
+    ap.add_argument("--collect-stats", action="store_true")
     ap.add_argument("--trace", default=None,
                     help="also write the Chrome trace to this path")
     args = ap.parse_args(argv)
@@ -77,18 +93,27 @@ def main(argv=None) -> dict:
 
     dev = torch.device("cuda")
     vol, cfg = get_bench(args.bench, args.size, dev)
-    cfg = dataclasses.replace(cfg, steps_per_round=args.steps_per_round)
+    cfg = dataclasses.replace(cfg, steps_per_round=args.steps_per_round,
+                              n_time_gates=args.time_gates,
+                              collect_stats=args.collect_stats)
+    if args.tmax_ns is not None:
+        cfg = dataclasses.replace(cfg, tmax_ns=args.tmax_ns)
+    detectors = (as_detectors(json.loads(args.detectors))
+                 if args.detectors else None)
 
     def run():
         res = S.simulate(vol, cfg, args.photons, args.lanes, args.seed,
-                         device=dev)
+                         device=dev, detectors=detectors,
+                         record_detected=args.save_detected)
         torch.cuda.synchronize(dev)
         return res
 
     run()
+    K.reset_launches()
     t0 = time.perf_counter()
     run()
     untraced_ms = (time.perf_counter() - t0) * 1e3
+    variants = dict(K.photon_step_cuda.launches_by)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -114,6 +139,8 @@ def main(argv=None) -> dict:
     busy = busy_us([(a, b) for _, _, a, b in events])
     out = {"bench": args.bench, "photons": args.photons,
            "lanes": args.lanes, "k": cfg.steps_per_round, "rounds": rounds,
+           "ntg": cfg.n_time_gates, "n_det": len(detectors or ()),
+           "photon_step_variants": variants,
            "untraced_wall_ms": untraced_ms, "wall_ms": wall_us / 1e3,
            "device_busy_ms": busy / 1e3,
            "idle_frac": 1.0 - busy / wall_us, "groups": groups}

@@ -16,6 +16,13 @@ changes from run to run: a cell of n deposits moves by about
 sqrt(n) * 2^-24 of its value between two orders, while a deposit into a
 wrong voxel, gate or bin moves cells by far more.
 
+The redesigned launch is held on the cases that exercise it: every lane
+dead at launch (each draws its 5 uniforms a segment and nothing else
+changes), a ragged lane count with half-dead warps, every lane in one
+voxel with one direction (the most deposits into one cell), and a
+media table of six rows, whose per-medium paths the lanes carry.
+There the lane state is bit-equal to the plain version on every lane.
+
 The optional output groups are held the same way: per-lane ``ppath``,
 ``cap_det``, ``cap_gate`` and the stats block bit-equal to the plain
 version, TPSF, detector path sums and Jacobian cell by cell, and the
@@ -251,3 +258,98 @@ def test_replay_on_card_brings_back_every_record(cuda_device):
     med = A.jacobian_medium_sums(rep.jacobian, vol)
     want = res.det_ppath.double().cpu().numpy()
     assert abs(med - want).max() <= 1e-5 * abs(want).max()
+
+
+def _assert_matches_plain(args, kw, n_segments):
+    """Lane state, per-lane weights and per-lane group outputs bit-equal
+    to the plain version on every lane; grids cell by cell against the
+    exact (float64) sum of its deposits."""
+    got = kernel.photon_step_cuda(*args, **kw)
+    want = photon_steps_ref(*args, **kw, accumulate=torch.float64)
+    torch.cuda.synchronize()
+    assert len(got) == len(want)
+    for name, x, y in zip(got[0]._fields, got[0], want[0]):
+        assert torch.equal(x, y), name
+    assert torch.equal(got[3], want[3]) and torch.equal(got[4], want[4])
+    for a, b in zip(got[1:3], want[1:3]):
+        assert_cells_close(a, b, n_segments)
+    if kw:  # ppath, det_w, det_ppath, cap_det, cap_gate, stats
+        assert torch.equal(got[5], want[5])
+        for a, b in zip(got[6:8], want[6:8]):
+            assert_cells_close(a, b, n_segments)
+        for a, b in zip(got[8:], want[8:]):
+            assert torch.equal(a, b)
+    return got
+
+
+def _forward_kwargs(vol, n, dev):
+    return dict(ppath=torch.zeros(n, vol.media.shape[0], device=dev),
+                det_geom=det_geometry(as_detectors(DETS), dev), record=True,
+                stats=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("groups", [0, DET | RECORD | STATS])
+def test_lanes_dead_at_launch_only_draw(cuda_device, groups):
+    vol = V.benchmark_b2(SHAPE, cuda_device)
+    cfg = dataclasses.replace(V.b2_config(), n_time_gates=4, tmax_ns=0.2)
+    n = 4096 + 77
+    state = ops.fresh_state(vol, n, seed=4, source=SRC)
+    state = state._replace(alive=torch.zeros_like(state.alive))
+    kw = _forward_kwargs(vol, n, cuda_device) if groups else {}
+    if kw:
+        kw["ppath"] = torch.rand(n, vol.media.shape[0], device=cuda_device)
+    args = (vol.labels.reshape(-1), vol.media, state, SHAPE, 1.0, cfg, 24)
+    got = _assert_matches_plain(args, kw, n * 24)
+    for name, x, y in zip(got[0]._fields, got[0], state):
+        if name != "rng":
+            assert torch.equal(x, y), name
+    assert not torch.equal(got[0].rng, state.rng)  # 5 x 24 draws a lane
+    for x in got[1:5]:
+        assert float(x.abs().sum()) == 0
+    if kw:
+        assert torch.equal(got[5], kw["ppath"])
+        assert bool((got[8] == -1).all()) and float(got[10].sum()) == 0
+
+
+@pytest.mark.cuda
+def test_ragged_lanes_with_half_dead_warps_match_plain(cuda_device):
+    vol = V.benchmark_b2(SHAPE, cuda_device)
+    cfg = dataclasses.replace(V.b2_config(), n_time_gates=4, tmax_ns=0.2)
+    n = 8192 + 77
+    state = ops.fresh_state(vol, n, seed=6, source=SRC)
+    lane = torch.arange(n, device=cuda_device)
+    state = state._replace(alive=state.alive & (lane % 32 < 16))
+    args = (vol.labels.reshape(-1), vol.media, state, SHAPE, 1.0, cfg, 24)
+    _assert_matches_plain(args, {}, n * 24)
+    _assert_matches_plain(args, _forward_kwargs(vol, n, cuda_device), n * 24)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bench", ["B1", "B2"])
+def test_every_lane_in_one_voxel_matches_plain(cuda_device, bench):
+    # a pencil launches every lane at one point with one direction: the
+    # first segments of all of them deposit into one cell
+    vol = (V.benchmark_b2 if bench == "B2" else V.benchmark_b1)(
+        SHAPE, cuda_device)
+    cfg = V.b2_config() if bench == "B2" else V.b1_config()
+    n = 65536
+    state = ops.fresh_state(vol, n, seed=9, source=SRC)
+    assert bool((state.ivox == state.ivox[:1]).all())
+    args = (vol.labels.reshape(-1), vol.media, state, SHAPE, 1.0, cfg, 16)
+    got = _assert_matches_plain(args, {}, n * 16)
+    assert float(got[1].max()) > 0.01 * float(got[1].sum())
+
+
+@pytest.mark.cuda
+def test_ppath_over_six_media_matches_plain(cuda_device):
+    vol = V.benchmark_b2(SHAPE, cuda_device)
+    media = torch.cat([vol.media] + [vol.media[1:2]] * 3)
+    n = 4096
+    state = ops.fresh_state(vol, n, seed=3, source=SRC)
+    cfg = dataclasses.replace(V.b2_config(), n_time_gates=4, tmax_ns=0.2)
+    kw = dict(_forward_kwargs(vol, n, cuda_device),
+              ppath=torch.zeros(n, media.shape[0], device=cuda_device))
+    args = (vol.labels.reshape(-1), media, state, SHAPE, 1.0, cfg, 24)
+    got = _assert_matches_plain(args, kw, n * 24)
+    assert float(got[6].sum()) > 0
