@@ -15,29 +15,30 @@ script exits non-zero and prints no result:
            lanes, K=8; B2 also with 4 time gates and an off-axis pencil),
            and on a mid-run B1 and B2 state at the main path's shape
            (262144 lanes, K=16): the lane state bit-equal on every
-           lane, totals within 1e-5 relative, every fluence / exitance
-           cell and every lane's escaped / timed-out weight within
-           4 sqrt(lanes K) 2^-24 of its array's largest value, and that
-           check failing on
-           outputs with deposits moved to a wrong voxel, gate or exitance
-           bin; kernel and plain device times by CUDA events behind a
-           spin kernel (the mid-run launches also as the host launches
-           them), the bound of each mid-run launch, its lane- and
-           warp-segments on each path (alive, scattering, Fresnel) and
-           the least time to issue its SASS; then the launch's edge
-           cases, base and detection forward: every lane dead at launch
-           (only its uniforms drawn), a ragged lane count with half-dead
-           warps, and every lane in one voxel with one direction
+           lane, the fixed-point fluence and exitance grids bit-equal
+           (also between two kernel runs), escaped / timed-out weight
+           lane by lane within 4 sqrt(lanes K) 2^-24 of its largest
+           value, and the check failing on outputs with deposits moved
+           to a wrong voxel, gate or exitance bin; kernel and plain
+           device times by CUDA events behind a spin kernel (the mid-run
+           launches also as the host launches them), the bound of each
+           mid-run launch, its lane- and warp-segments on each path
+           (alive, scattering, Fresnel) and the least time to issue its
+           SASS; then the launch's edge cases, base and detection
+           forward: every lane dead at launch (only its uniforms drawn),
+           a ragged lane count with half-dead warps, and every lane in
+           one voxel with one direction
   groups   K2-K5, the optional groups (detectors, records, replay
            Jacobian, stats), each variant against the plain version on
            fresh B2 photons (60^3, 131072 lanes, K=8, 4 gates, three
            detectors) and on a mid-run B2 state at the detection path's
-           shape (262144 lanes, K=16, 50 gates): ppath, records and stats
-           lane by lane bit-equal, TPSF, detector path sums and Jacobian
-           cell by cell within the same limit, the lane state bit-equal
-           with the groups on and off, and the limit failing a detector
-           index swapped, a gate off by one and a Jacobian column off by
-           one; times and bounds as for K1
+           shape (262144 lanes, K=16, 50 gates): ppath, records, stats,
+           TPSF and detector path sums bit-equal, the Jacobian (a float32
+           sum in atomic order) cell by cell within 4 sqrt(lanes K)
+           2^-24 of its largest value, the lane state bit-equal with the
+           groups on and off, and the checks failing a detector index
+           swapped, a gate off by one and a Jacobian column off by one;
+           times and bounds as for K1
   main     repro_torch.launch.simulate for B1 and B2 at 60^3 with 10^7
            photons, 262144 lanes, K=16: exact photon accounting,
            energy-balance residue < 1e-4, the kernel launched at least
@@ -54,11 +55,28 @@ script exits non-zero and prints no result:
            replay's lane count, as in the groups phase; the kernel timed
            over all of them, each pass's launches back to back behind
            spin kernels, and its bound summed from each launch's inputs
+  sources  every source type of the menu (pencil, isotropic, cone,
+           gaussian, disk, planar with a pattern, line as a slit and
+           isotropic) through the CLI on B2 at 60^3 with 10^6 photons:
+           n_launched equal to the photons, residue < 1e-4
+  determinism  the detection forward of the detect run again (10^7
+           photons, 50 gates, 3 detectors, records, stats): every field
+           of the result bit-equal between the two runs
+  scenarios  two fleets of 8 scenarios, each through
+           scenarios.simulate_many as one round loop with one launch a
+           round of 262144 lanes (32768 a scenario): an optode sweep
+           (disk sources stepping towards three detectors, B2 at 60^3,
+           10^6 photons each, 50 gates) and pencil replicates on B1 with
+           disjoint id ranges across 2^32; every scenario bit-equal to
+           its own simulate_one, the fleet's photons/ms batched and
+           sequential, the cache counters and spans from a Tracer, and
+           one mid-run batched launch of each fleet held bit-equal to
+           the plain version, timed, with its bound
   kernels  one entry per kernel variant the paths launch (launches in
-           the main and detect runs, error against the plain version,
-           times and bound at the shapes those runs give the variant;
-           K1's weighted by the main runs' launches of each template
-           instantiation)
+           the main, detect and scenario runs, error against the plain
+           version, times and bound at the shapes those runs give the
+           variant; K1's weighted by the main runs' launches of each
+           template instantiation)
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or without the repository's ``src/`` beside it, the script
@@ -104,10 +122,14 @@ F32_OPS_PER_SEGMENT = 130
 # log, exp, sin, cos, 4 square roots, ~10 reciprocals for the IEEE
 # divisions.
 MUFU_OPS_PER_SEGMENT = 18
-# Each deposit is one 4 B float atomic.  The fluence grid (864 KB at
-# 60^3) stays in the 50 MB L2, so the atomics resolve there and are not
-# HBM traffic: they are reported apart, not in the bytes bound.
-ATOMIC_BYTES_PER_SEGMENT = 4
+# Each deposit is one 8 B integer atomic (64-bit fixed point).  The
+# fluence grid (1.7 MB at 60^3) stays in the 50 MB L2, so the atomics
+# resolve there and are not HBM traffic: they are reported apart, not in
+# the bytes bound.
+ATOMIC_BYTES_PER_SEGMENT = 8
+# Bytes a cell of the fixed-point grids (fluence, exitance, TPSF, path
+# sums): int64.
+FIXED_BYTES = 8
 
 # Extra float32 operations of the optional groups: per live segment the
 # path's product and sum (detectors), the Jacobian's product and its
@@ -118,6 +140,15 @@ GROUP_F32_OPS_PER_SEGMENT = {"n_det": 2, "record": 0, "jac_cols": 3,
 
 PHOTONS = 10_000_000
 LANES = 262_144
+# the sources phase: every source type on B2 at 60^3
+SOURCE_PHOTONS = 1_000_000
+# the scenarios phase: fleets of 8 scenarios of 10^6 photons, 32768
+# lanes each (262144 in a launch); the inputs of the batched launch of
+# round KEEP_ROUND are held against the plain version
+SCENARIOS = 8
+SCENARIO_PHOTONS = 1_000_000
+SCENARIO_LANES = 32_768
+KEEP_ROUND = 12
 K_MAIN = 16
 CMP_LANES, CMP_K = 131_072, 8
 SIZE = 60
@@ -183,18 +214,18 @@ def time_cuda(fn, reps: int, warmup: int = 1, backlog: bool = True) -> float:
     return start.elapsed_time(stop) / reps
 
 
-# The kernel's grids are float32 sums in an order that changes from run
-# to run.  They are held against the exact (float64) sum of the plain
-# version's float32 deposits: its own float32 sum of many equal deposits
-# into one cell drifts one way (the pencil's first cell, where about a
-# third of the photons leave the voxel after exactly one unit of path,
-# came out 4.0e-4 low on 131072 fresh lanes x 8 segments).  Against the
-# exact sum a cell of n deposits is off by about sqrt(n) * 2^-24 of its
-# value (a random walk of rounding errors), and no cell takes more
-# deposits than the launch has lane-segments.  Cells are therefore held
-# to CELL_SIGMAS * sqrt(lanes * K) * 2^-24 of the array's largest value;
-# mutation checks show that this still fails a wrong voxel, gate or
-# exitance bin.  Totals are held to 1e-5 relative.
+# Fluence, exitance, TPSF and detector path sums are int64 fixed point
+# in the kernel and in the plain version, each deposit rounded the same
+# way, so they are held bit for bit.  The replay Jacobian is a float32
+# sum in an order that changes from run to run; it is held against the
+# exact (float64) sum of the plain version's float32 deposits: a cell of
+# n deposits is off by about sqrt(n) * 2^-24 of its value (a random walk
+# of rounding errors), and no cell takes more deposits than the launch
+# has lane-segments, so its cells are held to CELL_SIGMAS * sqrt(lanes *
+# K) * 2^-24 of the array's largest value; mutation checks show that
+# this still fails a wrong column.  Per-lane float outputs are held the
+# same way (they are bit-equal where the lane state is), and totals to
+# 1e-5 relative.
 EXACT = torch.float64
 CELL_SIGMAS = 4.0
 TOTAL_TOL = 1e-5
@@ -204,8 +235,18 @@ def cell_tol(n_lanes: int, n_steps: int) -> float:
     return CELL_SIGMAS * math.sqrt(max(n_lanes * n_steps, 1)) * 2.0**-24
 
 
+def as_float(name, x):
+    """A fixed-point grid (int64) as the float values it holds."""
+    from repro_torch.kernels.photon_step import spec
+    from repro_torch.core.fixed import from_fixed
+    if x.dtype == torch.int64:
+        return from_fixed(x, spec.FIXED_SHIFT[name]).double()
+    return x.double()
+
+
 def cells(name, a, b, tol, fails, out, lanes=None):
-    """Hold an accumulated array against the plain version's: total
+    """Hold an accumulated array against the plain version's.  A
+    fixed-point grid (int64) must be bit-equal.  A float array: total
     within TOTAL_TOL relative, every cell (or, for a per-lane array,
     every lane of the ``lanes`` mask) within ``tol`` of the largest
     value, so a deposit into a wrong cell fails even where the totals
@@ -213,7 +254,10 @@ def cells(name, a, b, tol, fails, out, lanes=None):
     if a.shape != b.shape:
         fails.append(f"{name} shape {tuple(a.shape)} != {tuple(b.shape)}")
         return
-    a, b = a.double(), b.double()
+    if b.dtype == torch.int64 and not torch.equal(a, b):
+        fails.append(f"{name}: fixed-point grid not bit-equal to the plain "
+                     f"version ({int((a != b).sum())} cells differ)")
+    a, b = as_float(name, a), as_float(name, b)
     ta, tb = float(a.sum()), float(b.sum())
     rel = abs(ta - tb) / max(abs(tb), 1e-12)
     if rel > TOTAL_TOL:
@@ -376,16 +420,25 @@ def check_groups_see_index_errors(got, want, base, groups, n_det, ntg,
 
 
 def group_bound(groups, lanes, live, captures, ntg, n_det, n_media,
-                jac_cols, state_lane_bytes) -> dict:
+                jac_cols, state_lane_bytes, scenarios: int = 1,
+                grid_bytes=None) -> dict:
     """Least time of one launch, in ms, from the bytes it must move and
     the operations it must do on these inputs (HBM rate; float32 and
-    special-function rates), as K1's bound counts them."""
+    special-function rates), as K1's bound counts them.  ``lanes`` are
+    all the launch's lanes; a launch of ``scenarios`` scenarios reads
+    their shared labels once and writes each one's grids.  A launch that
+    adds into run totals moves only the cells its deposits reach: its
+    caller passes their bytes as ``grid_bytes`` (the whole grids are
+    counted otherwise)."""
     nvox = SIZE**3
+    grid_override = grid_bytes
     lane_bytes = 2 * state_lane_bytes + 8
-    grid_bytes = nvox + 4 * nvox * ntg + 4 * SIZE * SIZE
+    grid_bytes = (FIXED_BYTES * nvox * ntg + FIXED_BYTES * SIZE * SIZE
+                  + 16 * n_media)
     if groups & DET:   # ppath in and out; geometry in; TPSF, sums out
         lane_bytes += 8 * n_media
-        grid_bytes += 12 * n_det + 4 * n_det * ntg + 4 * n_det * n_media
+        grid_bytes += (12 * n_det + FIXED_BYTES * n_det * ntg
+                       + FIXED_BYTES * n_det * n_media)
     if groups & RECORD:  # cap_det, cap_gate out
         lane_bytes += 8
     if groups & JAC:   # jac_w, jac_col in; the Jacobian out
@@ -393,7 +446,11 @@ def group_bound(groups, lanes, live, captures, ntg, n_det, n_media,
         grid_bytes += 4 * nvox * jac_cols
     if groups & STATS:  # the (n, 2) block out
         lane_bytes += 8
-    hbm = lane_bytes * lanes + grid_bytes
+    if grid_override is not None:
+        grid_bytes = grid_override
+    else:
+        grid_bytes *= scenarios
+    hbm = lane_bytes * lanes + nvox + grid_bytes
     f32 = (F32_OPS_PER_SEGMENT + sum(
         ops for name, ops in GROUP_F32_OPS_PER_SEGMENT.items()
         if groups & K.GROUP_BITS[name])) * live
@@ -498,6 +555,10 @@ def main() -> None:
     from repro_torch.kernels.photon_step import ops, sass
     from repro_torch.kernels.photon_step import spec
     from repro_torch.kernels.photon_step.ref import photon_steps_ref
+    from repro_torch import scenarios as SC
+    from repro_torch import sources as SRC
+    from repro_torch import telemetry as T
+    from repro_torch.core import simulator as S
     from repro_torch.launch import simulate as launch
     from repro_torch.launch.kernel_timing import mid_run_state
 
@@ -543,12 +604,10 @@ def main() -> None:
         if mutations:
             diffs["mutations_seen"] = check_sees_index_errors(
                 got, want, vol.shape, cfg.n_time_gates, tol)
+        for x, y in zip(got[1:3], again[1:3]):
+            check(torch.equal(x, y), "two kernel runs differ in a grid")
         ms = time_cuda(lambda: K.photon_step_cuda(*args), reps)
         plain_ms = time_cuda(lambda: photon_steps_ref(*args), 2)
-        # the plain version's own float32 fluence against the exact sum
-        flu32, flu = photon_steps_ref(*args)[1].double(), want[1].double()
-        diffs["plain_float32_cell_rel_to_exact"] = float(
-            (flu32 - flu).abs().max() / flu.abs().max().clamp(min=1e-30))
         return got, diffs, ms, plain_ms
 
     shape = (SIZE, SIZE, SIZE)
@@ -590,8 +649,9 @@ def main() -> None:
         # HBM bytes: lane state in and out (81 B a lane: the int64 rng
         # words take 16 B more each way than uint32 words would), escaped
         # and timed-out weight out, labels in, fluence and exitance out
+        # (int64 fixed point)
         bytes_moved = (2 * spec.STATE_LANE_BYTES_PORT + 8) * LANES + nvox \
-            + 4 * nvox * ntg + 4 * SIZE * SIZE
+            + FIXED_BYTES * nvox * ntg + FIXED_BYTES * SIZE * SIZE
         bound = {"bytes": bytes_moved / HBM_BYTES_PER_S * 1e3,
                  "operations": max(F32_OPS_PER_SEGMENT * live / F32_OPS_PER_S,
                                    MUFU_OPS_PER_SEGMENT * live
@@ -654,8 +714,9 @@ def main() -> None:
             again = K.photon_step_cuda(*args, **kw)
             want = photon_steps_ref(*args, **kw, accumulate=EXACT)
             torch.cuda.synchronize()
-            for x, y in zip(list(got[0]) + list(got[5:]),
-                            list(again[0]) + list(again[5:])):
+            for x, y in zip(list(got[0]) + list(got[1:3]) + list(got[5:]),
+                            list(again[0]) + list(again[1:3])
+                            + list(again[5:])):
                 if x.dtype != torch.float32 or x.shape[0] == lanes:
                     check(torch.equal(x, y), "two kernel runs differ lane "
                           "by lane")
@@ -796,6 +857,7 @@ def main() -> None:
     wall = time.perf_counter() - t0
     by_variant = dict(K.photon_step_cuda.launches_by)
     res, rep = run.result, run.replay
+    res_detect = res
     bal = A.energy_balance(res)
     check(int(res.n_launched) == PHOTONS, "n_launched != photons")
     check(float(res.launched_w) == PHOTONS, "launched_w != photons")
@@ -965,6 +1027,195 @@ def main() -> None:
         by_variant[timed_groups[g]["variant"]] * timed_groups[g]["ms"]
         for g in (PASS_A, PASS_B)) / (run.replay_seconds * 1e3))
 
+    # --- sources: every source type through the CLI -------------------------
+    for name, src in SRC.demo_menu(SIZE).items():
+        K.reset_launches()
+        t0 = time.perf_counter()
+        res = launch.main(["--bench", "B2", "--photons", str(SOURCE_PHOTONS),
+                           "--lanes", str(LANES), "--size", str(SIZE),
+                           "--steps-per-round", str(K_MAIN), "--source",
+                           json.dumps(SRC.to_dict(src))])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = sum(K.photon_step_cuda.launches_by.values())
+        rounds = res.steps // K_MAIN
+        bal = A.energy_balance(res)
+        check(int(res.n_launched) == SOURCE_PHOTONS,
+              f"{name}: n_launched {int(res.n_launched)} != photons")
+        check(abs(bal["residue_frac"]) < 1e-4,
+              f"{name}: energy residue {bal['residue_frac']:.3e}")
+        check(n >= rounds >= 1, f"{name}: {n} launches for {rounds} rounds")
+        check(bool(torch.isfinite(res.energy).all())
+              and tuple(res.energy.shape) == shape, f"{name}: energy grid")
+        emit("sources", source=name, config=SRC.to_dict(src),
+             photons=SOURCE_PHOTONS, lanes=LANES, k=K_MAIN, seconds=wall,
+             photons_per_ms=SOURCE_PHOTONS / wall / 1e3, rounds=rounds,
+             kernel_launches=n, launched_w=float(res.launched_w),
+             absorbed=bal["absorbed"], escaped=bal["escaped"],
+             residue_frac=bal["residue_frac"])
+
+    # --- determinism: the detection forward again, bit for bit -------------
+    vol_d = launch.get_bench("B2", SIZE, dev)[0]
+    again = S.simulate(vol_d, dataclasses.replace(cfg_detect,
+                                                  collect_stats=True),
+                       PHOTONS, LANES, SEED, device=dev, detectors=DETECTORS,
+                       record_detected=SAVE_DETECTED)
+    fields = []
+    for name, x, y in zip(res_detect._fields, res_detect, again):
+        same = (torch.equal(x, y) if isinstance(x, torch.Tensor)
+                else x == y)
+        check(same, f"two detection forward runs differ in {name}")
+        fields.append(name)
+    emit("determinism", runs=2, photons=PHOTONS, ntg=NTG_DETECT,
+         n_det=n_det, fields_bit_equal=fields,
+         grids_bit_equal_to_plain="every kernel and groups phase launch, "
+                                  "mid-run and edge cases")
+
+    # --- scenarios: two fleets, each one batched round loop ----------------
+    vol_b2, vol_b1 = V.benchmark_b2(shape), V.benchmark_b1(shape)
+    cfg_sweep = dataclasses.replace(V.b2_config(), steps_per_round=K_MAIN,
+                                    n_time_gates=NTG_DETECT,
+                                    tmax_ns=TMAX_DETECT)
+    cfg_rep = dataclasses.replace(V.b1_config(), steps_per_round=K_MAIN)
+    fleets = {
+        # an optode sweep: the disk source steps along x towards three
+        # fixed detectors
+        "optode sweep": ([SC.Scenario(
+            vol_b2, cfg_sweep, SCENARIO_PHOTONS, seed=SEED,
+            source={"type": "disk", "pos": [16.0 + 2.0 * i, 30.0, 0.0],
+                    "radius": 2.0}, detectors=DETECTORS,
+            id_offset=i * SCENARIO_PHOTONS) for i in range(SCENARIOS)], DET),
+        # replicates: disjoint id ranges, the middle ones across 2^32
+        "pencil replicates": ([SC.Scenario(
+            vol_b1, cfg_rep, SCENARIO_PHOTONS, seed=SEED,
+            id_offset=2**32 - SCENARIOS // 2 * SCENARIO_PHOTONS
+            + i * SCENARIO_PHOTONS) for i in range(SCENARIOS)], 0)}
+    tracer = T.Tracer(sinks=[T.InMemorySink()])
+    cache = SC.CompileCache()
+    captured = {}
+    step_fn = S.photon_steps
+
+    def keep_round(*args, **kw):
+        """The simulator's photon-step call, keeping the inputs of one
+        mid-run batched launch (round KEEP_ROUND) of each fleet."""
+        keep_round.calls += 1
+        if keep_round.calls == KEEP_ROUND:
+            captured[keep_round.fleet] = (
+                [a.clone() if isinstance(a, torch.Tensor) else a
+                 for a in args],
+                {k: ([t.clone() for t in v] if k == "totals" else v)
+                 for k, v in kw.items()})
+        return step_fn(*args, **kw)
+
+    scen_rows = {}
+    for fleet_name, (fleet, groups) in fleets.items():
+        keep_round.calls, keep_round.fleet = 0, fleet_name
+        S.photon_steps = keep_round
+        K.reset_launches()
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            many = SC.simulate_many(fleet, n_lanes=SCENARIO_LANES, device=dev,
+                                    cache=cache, tracer=tracer)
+            torch.cuda.synchronize()
+            batched_s = time.perf_counter() - t0
+        finally:
+            S.photon_steps = step_fn
+        batched_launches = dict(K.photon_step_cuda.launches_by)
+        variant = K.variant_name(groups, fleet[0].cfg)
+        rounds = max(r.steps for r in many) // K_MAIN
+        check(batched_launches == {f"{variant}/x{SCENARIOS}": rounds},
+              f"{fleet_name}: batched launches {batched_launches} for "
+              f"{rounds} rounds")
+        K.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        alone = [SC.simulate_one(sc, n_lanes=SCENARIO_LANES, device=dev)
+                 for sc in fleet]
+        torch.cuda.synchronize()
+        sequential_s = time.perf_counter() - t0
+        seq_launches = sum(K.photon_step_cuda.launches_by.values())
+        for i, (got, want) in enumerate(zip(many, alone)):
+            for name, x, y in zip(got._fields, got, want):
+                same = (torch.equal(x, y) if isinstance(x, torch.Tensor)
+                        else x == y)
+                check(same, f"{fleet_name} scenario {i}: {name} batched "
+                      f"differs from its own simulate_one")
+            bal = A.energy_balance(got)
+            check(int(got.n_launched) == SCENARIO_PHOTONS,
+                  f"{fleet_name} scenario {i}: n_launched")
+            check(abs(bal["residue_frac"]) < 1e-4,
+                  f"{fleet_name} scenario {i}: residue "
+                  f"{bal['residue_frac']:.3e}")
+        photons = SCENARIOS * SCENARIO_PHOTONS
+        scen_rows[fleet_name] = {
+            "variant": variant, "groups": groups, "launches": rounds,
+            "batched_s": batched_s, "sequential_s": sequential_s}
+        emit("scenarios", fleet=fleet_name, scenarios=SCENARIOS,
+             photons_each=SCENARIO_PHOTONS, lanes_each=SCENARIO_LANES,
+             lanes_in_launch=SCENARIOS * SCENARIO_LANES, k=K_MAIN,
+             batched_seconds=batched_s, sequential_seconds=sequential_s,
+             batched_photons_per_ms=photons / batched_s / 1e3,
+             sequential_photons_per_ms=photons / sequential_s / 1e3,
+             batched_launches=rounds, sequential_launches=seq_launches,
+             steps=[r.steps for r in many], bit_identical=True,
+             detected_w=[float(r.det_w.double().sum()) for r in many])
+    emit("scenarios", cache=cache.stats(),
+         spans=[(e.name, e.args.get("scenarios"), e.dur)
+                for e in tracer.events],
+         counters=[(e["name"], e["value"]) for e in tracer.sinks[0].events
+                   if e["type"] == "counter"])
+
+    # one mid-run batched launch of each fleet against the plain version
+    for fleet_name, (args, kw) in captured.items():
+        groups = scen_rows[fleet_name]["groups"]
+        lanes = args[2].w.numel()
+        media = args[1]
+        totals = kw.pop("totals")
+        got = K.photon_step_cuda(*args, **kw,
+                                 totals=[t.clone() for t in totals])
+        want = photon_steps_ref(*args, **kw,
+                                totals=[t.clone() for t in totals])
+        base = K.photon_step_cuda(*args)
+        torch.cuda.synchronize()
+        diffs, fails = measure_groups(got, want, base, groups,
+                                      cell_tol(lanes, K_MAIN))
+        check(not fails, f"{fleet_name} batched launch: " + "; ".join(fails))
+        # the launch adds into the run totals: it reads and writes the
+        # cells its deposits reach (media and geometry rows beside)
+        touched = sum(int((a != b).sum()) for a, b in zip(
+            [g for g in got[1:3]] + ([got[6], got[7]] if groups & DET
+                                     else []), totals))
+        moved = 2 * FIXED_BYTES * touched + SCENARIOS * (
+            16 * media.shape[1] + (12 * n_det if groups & DET else 0))
+        # live lane-segments and captures from the plain version's
+        # stats block and records on the same inputs
+        n_media = media.shape[1]
+        work_kw = dict(kw, record=True, stats=True) if groups & DET else \
+            dict(stats=True)
+        work = photon_steps_ref(*args, **work_kw)
+        live = float(work[-1][:, 0].double().sum())
+        captures = int((work[8] >= 0).sum()) if groups & DET else 0
+        scratch = [t.clone() for t in totals]
+        ms = time_cuda(lambda: K.photon_step_cuda(*args, **kw, totals=scratch),
+                       20)
+        host_loop_ms = time_cuda(
+            lambda: K.photon_step_cuda(*args, **kw, totals=scratch), 20,
+            backlog=False)
+        plain_ms = time_cuda(lambda: photon_steps_ref(*args, **kw), 1)
+        bound = group_bound(groups, lanes, live, captures,
+                            args[5].n_time_gates, n_det if groups & DET else 0,
+                            n_media, 0, spec.STATE_LANE_BYTES_PORT,
+                            scenarios=SCENARIOS, grid_bytes=moved)
+        scen_rows[fleet_name].update(
+            ms=ms, host_loop_ms=host_loop_ms, plain_ms=plain_ms,
+            max_abs_err=diffs["max_abs_err"], **bound)
+        emit("scenarios", fleet=fleet_name, launch=f"round {KEEP_ROUND}",
+             variant=f"{scen_rows[fleet_name]['variant']}/x{SCENARIOS}",
+             lanes=lanes, k=K_MAIN, ms=ms, host_loop_ms=host_loop_ms,
+             plain_ms=plain_ms, live_segments=live, captures=captures,
+             cells_touched=touched, **bound, **diffs)
+
     # --- kernel table ---------------------------------------------------------
     # one kernel source, two instantiations: its times and bound are the
     # mean over the main run's launches of each
@@ -1008,7 +1259,19 @@ def main() -> None:
         "plain_ms": timed_groups[g]["plain_ms"],
         "bound_ms": timed_groups[g]["bound_ms"],
         "bound_by": timed_groups[g]["bound_by"], "library_ms": None}
-        for g, where in PATH_VARIANTS.items()]}), flush=True)
+        for g, where in PATH_VARIANTS.items()] + [{
+        "name": "photon_step_" + K.group_names(row["groups"]).replace(
+            "+", "_") + "_batched",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/photon_step/csrc/photon_step.cu",
+        "replaces": "src/repro/kernels/photon_step/photon_step.py:396",
+        "variant": f"{row['variant']}/x{SCENARIOS}",
+        "path": f"scenarios: {fleet_name}", "scenarios": SCENARIOS,
+        "launches": row["launches"], "max_abs_err": row["max_abs_err"],
+        "ms": row["ms"], "host_loop_ms": row["host_loop_ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": None}
+        for fleet_name, row in scen_rows.items()]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -147,9 +147,10 @@ def _flat_index(ivox, shape):
     return (ix * ny + iy) * nz + iz
 
 
-def _lookup_label(labels_flat, shape, ivox):
+def _lookup_label(labels_flat, shape, ivox, base=None):
     flat = _flat_index(ivox, shape)
-    return labels_flat[flat].to(torch.int64), flat
+    at = flat if base is None else flat + base
+    return labels_flat[at].to(torch.int64), flat
 
 
 def _boundary_distance(pos, direc, ivox):
@@ -225,8 +226,14 @@ def _fresnel(n_i, n_t, cos_i):
 
 
 def step(state, labels_flat, media, shape, unitinmm,
-         cfg: SimConfig) -> StepResult:
+         cfg: SimConfig, label_base=None, media_base=None) -> StepResult:
     """Advance every lane by one segment.
+
+    ``label_base`` / ``media_base`` (per-lane int64 offsets, or None)
+    let lanes of several scenarios read their own labels and media rows
+    from stacked ``labels_flat`` / ``media``: lane i reads label
+    ``labels_flat[label_base[i] + voxel]`` and medium row
+    ``media[media_base[i] + label]``.  The arithmetic is the same.
 
     ``cfg.specialize`` selects the specialized step (only the configured
     physics) or the general one (reflection and both deposition formulas
@@ -240,8 +247,8 @@ def step(state, labels_flat, media, shape, unitinmm,
     dev = w.device
     unit = f32(unitinmm)
 
-    label, dep_flat = _lookup_label(labels_flat, shape, ivox)
-    props = media[label]  # (N, 4)
+    label, dep_flat = _lookup_label(labels_flat, shape, ivox, label_base)
+    props = media[label if media_base is None else label + media_base]
     mua = props[:, 0] * unit
     mus = props[:, 1] * unit
     g = props[:, 2]
@@ -298,9 +305,10 @@ def step(state, labels_flat, media, shape, unitinmm,
     oob = ((next_vox[:, 0] < 0) | (next_vox[:, 0] >= nx)
            | (next_vox[:, 1] < 0) | (next_vox[:, 1] >= ny)
            | (next_vox[:, 2] < 0) | (next_vox[:, 2] >= nz))
-    next_label, _ = _lookup_label(labels_flat, shape, next_vox)
+    next_label, _ = _lookup_label(labels_flat, shape, next_vox, label_base)
     next_label = torch.where(oob, torch.zeros_like(next_label), next_label)
-    n_next = media[next_label, 3]
+    n_next = media[next_label if media_base is None
+                   else next_label + media_base, 3]
     mismatch = torch.abs(n_next - n_cur) > f32(1e-6)
 
     if cfg.specialize and not cfg.do_reflect:

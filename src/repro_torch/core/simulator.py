@@ -10,18 +10,30 @@ The paper's two thread-level workload strategies:
 
 The loop runs in fused rounds of ``K = cfg.steps_per_round`` transport
 segments: regeneration runs once per round, then one photon-step call
-advances every lane K segments and returns the round's fluence,
-exitance and escaped / timed-out weight, which are added to the run's
-totals.  On a CUDA device that call is the hand-written kernel, on the
-CPU its plain PyTorch version (``kernels/photon_step/ops.py``).
+advances every lane K segments and adds the round's fluence and
+exitance into the run's totals.  On a CUDA device that call is the
+hand-written kernel, on the CPU its plain PyTorch version
+(``kernels/photon_step/ops.py``).
+
+The round loop runs S scenarios at once (``build_batched_fn``, which
+``repro_torch.scenarios.simulate_many`` uses): lanes are ``(S,
+n_lanes)``, scenario-major, and each scenario has its own media table,
+staged source parameters, seed, photon budget, 64-bit id offset and
+detector geometry; labels are shared or stacked.  One photon-step call
+a round advances every scenario.  ``simulate`` runs the same code with
+S = 1, so a scenario's result is the same bits batched or alone: every
+total that feeds ``SimResult`` is an int64 fixed-point sum
+(``kernels/photon_step/spec.py``), whose value does not depend on the
+order or the shape of the reduction, and converted to float32 once at
+the end.  A scenario whose photons are done freezes: it launches no
+photon and adds nothing, and its ``steps`` and round counters stop.
 
 With ``detectors`` the same call also returns the round's detector
 TPSF and weighted partial pathlengths (the lanes carry their per-medium
 path from round to round), with ``record_detected`` each lane's capture
 of the round, which is appended to a fixed-capacity buffer of
 ``[id_lo, id_hi, det, gate]`` rows, and with ``cfg.collect_stats`` a
-per-lane block of live segments and deposited weight that feeds the
-``RoundStats`` counters.
+per-lane block of live segments that feeds the ``RoundStats`` counters.
 
 Regeneration runs every round, also when no lane relaunches: an
 all-False relaunch mask leaves every value as it was, and skipping it
@@ -34,6 +46,8 @@ distinct RNG streams.
 
 from __future__ import annotations
 
+import dataclasses
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -41,11 +55,15 @@ import torch
 
 from repro_torch.core import photon as ph
 from repro_torch.core import rng as xrng
+from repro_torch.core.fixed import from_fixed
 from repro_torch.core.volume import SimConfig, Volume
 from repro_torch.detectors import (as_detectors, det_geometry,
                                    validate_detectors)
+from repro_torch.kernels.photon_step import spec
 from repro_torch.kernels.photon_step.ops import photon_steps, resolve_device
+from repro_torch.kernels.photon_step.photon_step import check_errors
 from repro_torch.sources import PhotonSource, as_source
+from repro_torch.sources.base import staged_tensors
 from repro_torch.telemetry.stats import RoundStats
 
 MODES = ("dynamic", "static")
@@ -78,37 +96,55 @@ class SimResult(NamedTuple):
     #                          cfg.collect_stats, else None
 
 
+_TOTAL_SCALE = float(2**spec.TOTAL_SHIFT)
+
+
+def _total_rows(x: torch.Tensor, S: int) -> torch.Tensor:
+    """Per-scenario int64 sums of per-lane float32 values ``x`` (``(S *
+    n,)`` or ``(S, n)``) in fixed point of ``2**-TOTAL_SHIFT``: each value
+    rounded once, so the sum is the same in any order and shape."""
+    return torch.round(x * _TOTAL_SCALE).to(torch.int64).view(S, -1).sum(1)
+
+
 def _regenerate(state, remaining, launched_per_lane, next_id, quota,
-                source, seed, mode, shape, ppath=None, lane_ids=None):
+                sample, seeds, mode, shape, ppath=None, lane_ids=None):
     """Relaunch photons in dead lanes according to the workload mode.
 
-    ``next_id`` is the 64-bit global photon id counter as a ``(lo, hi)``
-    pair of 0-d int64 word tensors; it is returned advanced.  Returns
-    ``(state, remaining, launched_per_lane, next_id, launched_weight)``,
-    then, when given, ``ppath`` (detector runs: the per-lane per-medium
-    path, zeroed for relaunched lanes) and ``lane_ids`` (recording runs:
-    the ``(n_lanes, 2)`` int64 ``[lo, hi]`` id of each lane's photon,
-    updated for relaunched lanes).
+    Lanes are ``(S, n)``, scenario-major, in flat ``(S * n, ...)``
+    state; ``remaining`` is ``(S,)``, ``launched_per_lane`` and
+    ``quota`` ``(S, n)`` int64.  ``next_id`` is each scenario's 64-bit
+    global photon id counter as a ``(lo, hi)`` pair of ``(S,)`` int64
+    word tensors; it is returned advanced.  ``sample(ids, seeds)`` turns
+    ``(S, n)`` ids into ``(S, n, ...)`` launch states.  Returns
+    ``(state, remaining, launched_per_lane, next_id, launched_weight)``
+    (the last ``(S,)`` int64 in 2**-TOTAL_SHIFT units), then, when given,
+    ``ppath`` (detector runs: the per-lane per-medium path, zeroed for
+    relaunched lanes) and ``lane_ids`` (recording runs: the ``(S * n,
+    2)`` int64 ``[lo, hi]`` id of each lane's photon, updated for
+    relaunched lanes).
     """
-    dead = ~state.alive
+    S = remaining.shape[0]
+    dead = ~state.alive.view(S, -1)
     if mode == "dynamic":
-        order = torch.cumsum(dead.to(torch.int64), 0)  # 1-based rank
-        relaunch = dead & (order <= remaining)
+        order = torch.cumsum(dead.to(torch.int64), 1)  # 1-based rank
+        relaunch = dead & (order <= remaining[:, None])
     else:  # static pre-assigned quota per lane
         relaunch = dead & (launched_per_lane < quota)
     rel = relaunch.to(torch.int64)
-    n_relaunch = rel.sum()
-    rank = torch.cumsum(rel, 0) - 1  # 0-based among relaunched
+    n_relaunch = rel.sum(1)
+    rank = torch.cumsum(rel, 1) - 1  # 0-based among relaunched
     # masked lanes may compute a garbage id (rank -1); their sample is
     # discarded by the merge
-    ids = xrng.add_id(*next_id, rank)
-    pos, direc, w0, rng = source.sample(ids, seed)
+    ids = xrng.add_id(next_id[0][:, None], next_id[1][:, None], rank)
+    pos, direc, w0, rng = (x.reshape((-1,) + x.shape[2:])
+                           for x in sample(ids, seeds))
+    relaunch = relaunch.reshape(-1)
     fresh = ph.launch(pos, direc, w0, rng, relaunch, shape)
     merged = ph.PhotonState(*(
         torch.where(relaunch[:, None] if new.ndim > 1 else relaunch, new, old)
         for new, old in zip(fresh, state)))
     merged = merged._replace(alive=state.alive | relaunch)
-    w_new = torch.where(relaunch, w0, torch.zeros_like(w0)).sum()
+    w_new = _total_rows(torch.where(relaunch, w0, torch.zeros_like(w0)), S)
     out = (merged, remaining - n_relaunch, launched_per_lane + rel,
            tuple(xrng.add_id(*next_id, n_relaunch)), w_new)
     if ppath is not None:
@@ -116,7 +152,8 @@ def _regenerate(state, remaining, launched_per_lane, next_id, quota,
                                  ppath),)
     if lane_ids is not None:
         out = out + (torch.where(relaunch[:, None],
-                                 torch.stack([ids.lo, ids.hi], dim=1),
+                                 torch.stack([ids.lo, ids.hi],
+                                             dim=-1).reshape(-1, 2),
                                  lane_ids),)
     return out
 
@@ -124,67 +161,59 @@ def _regenerate(state, remaining, launched_per_lane, next_id, quota,
 def check_labels(labels_flat, media) -> None:
     """Every label must index a row of the media table (one host read)."""
     top = int(labels_flat.max()) if labels_flat.numel() else 0
-    if top >= media.shape[0]:
-        raise ValueError(f"label {top} has no row in the {media.shape[0]}-row "
+    if top >= media.shape[-2]:
+        raise ValueError(f"label {top} has no row in the {media.shape[-2]}-row "
                          f"media table")
 
 
 def _append_records(rec, rec_n, overflow, lane_ids, capd, capg,
                     capacity: int):
-    """Append a round's captures to the fixed-capacity record buffer.
+    """Append a round's captures to each scenario's fixed-capacity
+    record buffer.
 
-    Slots come from a prefix sum over the captured lanes, so lanes never
-    collide; masked and over-capacity writes land in the write-off row
-    ``rec[capacity]``.  ``rec_n`` and ``overflow`` are 0-d device
-    tensors, updated in place with ``rec``.
+    ``rec`` is ``(S, capacity + 1, 4)``, ``rec_n`` and ``overflow``
+    ``(S,)``.  Slots come from a prefix sum over each scenario's
+    captured lanes, so lanes never collide; masked and over-capacity
+    writes land in the scenario's write-off row ``rec[s, capacity]``.
+    ``rec``, ``rec_n`` and ``overflow`` are updated in place.
     """
-    captured = capd >= 0
+    S = rec.shape[0]
+    captured = (capd >= 0).view(S, -1)
     cap_i = captured.to(torch.int64)
-    slot = rec_n + torch.cumsum(cap_i, 0) - 1
+    slot = rec_n[:, None] + torch.cumsum(cap_i, 1) - 1
     slot = torch.where(captured & (slot < capacity), slot,
                        torch.full_like(slot, capacity))
+    slot = slot + torch.arange(S, device=slot.device)[:, None] * (capacity + 1)
     vals = torch.stack([lane_ids[:, 0], lane_ids[:, 1],
                         capd.to(torch.int64), capg.to(torch.int64)], dim=1)
-    rec.index_copy_(0, slot, vals)
-    total = rec_n + cap_i.sum()
+    rec.view(-1, 4).index_copy_(0, slot.reshape(-1), vals)
+    total = rec_n + cap_i.sum(1)
     new_n = torch.clamp(total, max=capacity)
     overflow += total - new_n
     rec_n.copy_(new_n)
 
 
-def build_sim_fn(shape: tuple[int, int, int], unitinmm: float,
-                 cfg: SimConfig, n_lanes: int, mode: str = "dynamic",
-                 source: PhotonSource | None = None, device=None,
-                 detectors=None, record_detected: int = 0):
-    """Build the simulation function.
+def build_batched_fn(shape: tuple[int, int, int], unitinmm: float,
+                     cfg: SimConfig, n_lanes: int, mode: str = "dynamic",
+                     sample=None, device=None, n_det: int = 0,
+                     record_detected: int = 0):
+    """Build the round loop of S scenarios at once.
 
-    Returns ``sim_fn(labels_flat, media, n_photons, seed, id_offset=0,
-    id_offset_hi=0) -> SimResult`` running on ``device`` (``None``:
-    CUDA).  ``id_offset`` / ``id_offset_hi`` (the low and high 32-bit
-    words of a 64-bit offset) give this run a disjoint global photon-id
-    range.  ``cfg.n_time_gates`` widens the energy grid to gate-major
-    ``(nvox * ntg,)``.
-
-    ``detectors`` (``repro_torch.detectors`` spec) records, per detector
-    disk on the z=0 face, the TPSF over the time gates and the
-    weight-weighted per-medium partial pathlengths.
-    ``record_detected`` > 0 (needs detectors) also records the global
-    photon id, detector and exit gate of up to that many captures in
-    ``SimResult.det_rec``; once it is full, captures still count in
-    ``det_w`` / ``det_ppath`` and the dropped records are counted in
-    ``det_rec_overflow``.  ``cfg.collect_stats`` returns
-    ``RoundStats`` counters on ``SimResult.stats`` without changing any
-    physics output.
+    Returns ``fn(labels, media, det_geom, n_photons, seeds, id_lo,
+    id_hi) -> list[SimResult]`` on ``device`` (``None``: CUDA): labels
+    ``(nvox,)`` shared or ``(S, nvox)`` stacked uint8, media ``(S,
+    n_media, 4)`` float32, ``det_geom`` ``(S, n_det, 3)`` (or None
+    without detectors), and per scenario the photon budget, seed and
+    the low and high words of its 64-bit id offset (sequences of S
+    ints).  ``sample(ids, seeds)`` gives the launch states of ``(S,
+    n_lanes)`` ids for ``(S, 1)`` int64 seeds, as a source's
+    ``sample_staged`` on stacked staged parameters does.  Each scenario
+    runs ``n_lanes`` lanes; the result of each is the same bits as the
+    scenario alone (S = 1).
     """
     if mode not in MODES:
         raise ValueError(f"unknown workload mode: {mode}")
     dev = resolve_device(device)
-    source = as_source(source)
-    detectors = as_detectors(detectors)
-    n_det = len(detectors)
-    if n_det:
-        validate_detectors(detectors, shape)
-    det_geom = det_geometry(detectors, dev) if n_det else None
     capacity = int(record_detected)
     if capacity < 0:
         raise ValueError(f"record_detected must be >= 0, got {capacity}")
@@ -202,93 +231,102 @@ def build_sim_fn(shape: tuple[int, int, int], unitinmm: float,
         raise ValueError(f"cfg.n_time_gates must be >= 1, got {ntg}")
     collect = bool(cfg.collect_stats)
     n_lanes = int(n_lanes)
+    fw = spec.FIXED_SHIFT
 
-    def sim_fn(labels_flat, media, n_photons, seed, id_offset=0,
-               id_offset_hi=0) -> SimResult:
-        labels_flat = labels_flat.to(dev).contiguous()
+    def fn(labels, media, det_geom, n_photons, seeds, id_lo,
+           id_hi) -> list[SimResult]:
+        S = len(n_photons)
+        labels = labels.to(dev).contiguous()
         media = media.to(device=dev, dtype=torch.float32).contiguous()
-        check_labels(labels_flat, media)
-        n_media = media.shape[0]
-        n_photons = int(n_photons)
-        seed = int(seed) & xrng.MASK32
-
-        def word(v):
-            return torch.tensor(int(v) & xrng.MASK32, dtype=torch.int64,
-                                device=dev)
-
-        id_lo = word(id_offset)
-        next_id = (id_lo, word(id_offset_hi))
-        # static mode: equal shares, the remainder spread over the first
-        # (n_photons mod n_lanes) lanes, so exactly n_photons launch
-        lane_idx = torch.arange(n_lanes, dtype=torch.int64, device=dev)
-        quota = n_photons // n_lanes + (lane_idx < n_photons % n_lanes).to(
-            torch.int64)
+        if media.ndim != 3 or media.shape[0] != S:
+            raise ValueError(f"media must be (S={S}, n_media, 4), got "
+                             f"{tuple(media.shape)}")
+        check_labels(labels, media)
+        n_media = media.shape[1]
+        if n_det:
+            det_geom = det_geom.to(device=dev,
+                                   dtype=torch.float32).contiguous()
+        N = S * n_lanes
         f32 = dict(dtype=torch.float32, device=dev)
         i64 = dict(dtype=torch.int64, device=dev)
+
+        def words(vals):
+            return torch.tensor([int(v) & xrng.MASK32 for v in vals], **i64)
+
+        photons = torch.tensor([int(v) for v in n_photons], **i64)
+        seed_col = words(seeds)[:, None]
+        first_lo = words(id_lo)
+        next_id = (first_lo, words(id_hi))
+        # static mode: equal shares, the remainder spread over the first
+        # (n_photons mod n_lanes) lanes, so exactly n_photons launch
+        lane_idx = torch.arange(n_lanes, **i64)
+        quota = photons[:, None] // n_lanes + (
+            lane_idx[None] < (photons % n_lanes)[:, None]).to(torch.int64)
         state = ph.PhotonState(
-            pos=torch.zeros((n_lanes, 3), **f32),
-            dir=torch.tensor([0.0, 0.0, 1.0], **f32).repeat(n_lanes, 1),
-            ivox=torch.zeros((n_lanes, 3), dtype=torch.int32, device=dev),
-            w=torch.zeros((n_lanes,), **f32),
-            s_left=torch.zeros((n_lanes,), **f32),
-            t=torch.zeros((n_lanes,), **f32),
-            rng=torch.zeros((n_lanes, 4), **i64),
-            alive=torch.zeros((n_lanes,), dtype=torch.bool, device=dev),
+            pos=torch.zeros((N, 3), **f32),
+            dir=torch.tensor([0.0, 0.0, 1.0], **f32).repeat(N, 1),
+            ivox=torch.zeros((N, 3), dtype=torch.int32, device=dev),
+            w=torch.zeros((N,), **f32),
+            s_left=torch.zeros((N,), **f32),
+            t=torch.zeros((N,), **f32),
+            rng=torch.zeros((N, 4), **i64),
+            alive=torch.zeros((N,), dtype=torch.bool, device=dev),
         )
-        # the round totals are updated in place
-        energy = torch.zeros((nvox * ntg,), **f32)
-        exitance = torch.zeros((nxy,), **f32)
-        escaped_w = torch.zeros((), **f32)
-        timed_out_w = torch.zeros((), **f32)
-        launched_w = torch.zeros((), **f32)
-        remaining = torch.tensor(n_photons, **i64)
-        launched = torch.zeros((n_lanes,), **i64)
-        det_w = torch.zeros((n_det * ntg,), **f32)
-        det_ppath = torch.zeros((n_det, n_media), **f32)
-        ppath = torch.zeros((n_lanes, n_media), **f32) if n_det else None
+        # the run's fixed-point totals; the photon-step call adds the
+        # grids into them in place
+        grids = [torch.zeros((S, nvox * ntg), **i64),
+                 torch.zeros((S, nxy), **i64)]
+        if n_det:
+            grids += [torch.zeros((S, n_det * ntg), **i64),
+                      torch.zeros((S, n_det, n_media), **i64)]
+        escaped = torch.zeros((S,), **i64)
+        timed_out = torch.zeros((S,), **i64)
+        launched_w = torch.zeros((S,), **i64)
+        remaining = photons.clone()
+        launched = torch.zeros((S, n_lanes), **i64)
+        ppath = torch.zeros((N, n_media), **f32) if n_det else None
         # one write-off row past the capacity takes masked and
         # overflowing record writes
-        rec = torch.zeros((capacity + 1 if record else 0, 4), **i64)
-        rec_n = torch.zeros((), **i64)
-        rec_overflow = torch.zeros((), **i64)
-        lane_ids = torch.zeros((n_lanes, 2), **i64) if record else None
+        rec = torch.zeros((S, capacity + 1 if record else 0, 4), **i64)
+        rec_n = torch.zeros((S,), **i64)
+        rec_overflow = torch.zeros((S,), **i64)
+        lane_ids = torch.zeros((N, 2), **i64) if record else None
+        rounds = torch.zeros((S,), **i64)
         if collect:
-            counters = {k: torch.zeros((), **i64)
-                        for k in ("regen_rounds", "relaunched")}
-            counters.update({k: torch.zeros((), **f32) for k in (
-                "live_segments", "deposited_w", "detected_w")})
-        steps = rounds = 0
+            counters = {k: torch.zeros((S,), **i64) for k in (
+                "regen_rounds", "relaunched", "live_segments")}
 
+        steps = 0
         while steps < cfg.max_steps:
+            alive = state.alive.view(S, n_lanes)
             if mode == "dynamic":
-                has_work = state.alive.any() | (remaining > 0)
+                has_work = alive.any(1) | (remaining > 0)
             else:
-                has_work = (state.alive | (launched < quota)).any()
-            if not bool(has_work):  # the round's one host read
+                has_work = (alive | (launched < quota)).any(1)
+            if not bool(has_work.any()):  # the round's one host read
                 break
+            # a scenario with no work left is frozen: it relaunches
+            # nothing, its lanes are dead, and its rounds stop here
+            rounds += has_work.to(torch.int64)
             prev_lo = next_id[0]
             state, remaining, launched, next_id, w_new, *extra = _regenerate(
-                state, remaining, launched, next_id, quota, source, seed,
-                mode, shape, ppath, lane_ids)
+                state, remaining, launched, next_id, quota, sample,
+                seed_col, mode, shape, ppath, lane_ids)
             if n_det:
                 ppath = extra.pop(0)
             if record:
                 lane_ids = extra.pop(0)
-            outs = photon_steps(labels_flat, media, state, shape, unitinmm,
+            outs = photon_steps(labels, media, state, shape, unitinmm,
                                 cfg, K, ppath=ppath, det_geom=det_geom,
-                                record=record, stats=collect)
-            state, flu, exi, esc, timed = outs[:5]
-            energy += flu
-            exitance += exi
-            escaped_w += esc.sum()
-            timed_out_w += timed.sum()
+                                record=record, stats=collect, totals=grids)
+            state, _, _, esc, timed = outs[:5]
+            escaped += _total_rows(esc, S)
+            timed_out += _total_rows(timed, S)
             launched_w += w_new
             cur = 5
             if n_det:
-                ppath, dw, dp = outs[cur:cur + 3]
+                ppath = outs[cur]
                 cur += 3
-                det_w += dw
-                det_ppath += dp
             if record:
                 _append_records(rec, rec_n, rec_overflow, lane_ids,
                                 outs[cur], outs[cur + 1], capacity)
@@ -299,51 +337,130 @@ def build_sim_fn(shape: tuple[int, int, int], unitinmm: float,
                 rel = (next_id[0] - prev_lo) & xrng.MASK32
                 counters["regen_rounds"] += (rel > 0).to(torch.int64)
                 counters["relaunched"] += rel
-                block = outs[cur]
-                counters["live_segments"] += block[:, 0].sum()
-                counters["deposited_w"] += block[:, 1].sum()
-                if n_det:
-                    counters["detected_w"] += dw.sum()
+                counters["live_segments"] += outs[cur][:, 0].to(
+                    torch.int64).view(S, n_lanes).sum(1)
             steps += K
-            rounds += 1
 
         # weight still in flight when the max_steps cap fires is retired
         # deterministically, like the time gate
-        capped_w = torch.where(state.alive, state.w,
-                               torch.zeros_like(state.w)).sum()
-        timed_out_w = timed_out_w + capped_w
-        stats = None
+        timed_out += _total_rows(torch.where(
+            state.alive, state.w, torch.zeros_like(state.w)), S)
+        # a fixed-point total past 2**63 - 1 shows a negative value: the
+        # kernel flags what its blocks add from their caches, this checks
+        # every total once (one host read)
+        if bool(torch.stack([t.min() for t in grids + [
+                escaped, timed_out, launched_w]]).lt(0).any()):
+            raise OverflowError("a run total passed the fixed-point range "
+                                "of 2**63 - 1 units")
+        if dev.type == "cuda":
+            check_errors(dev)
+        n_launched = (next_id[0] - first_lo) & xrng.MASK32
+        steps_s = (rounds * K).tolist()
+        tot = lambda x: from_fixed(x, spec.TOTAL_SHIFT)  # noqa: E731
+        energy = from_fixed(grids[0], fw["fluence"])
+        exitance = from_fixed(grids[1], fw["exitance"])
+        if n_det:
+            det_w = from_fixed(grids[2], fw["det_w"]).view(S, n_det, ntg)
+            det_ppath = from_fixed(grids[3], fw["det_ppath"])
+        else:
+            det_w = torch.zeros((S, 0, ntg), **f32)
+            det_ppath = torch.zeros((S, 0, n_media), **f32)
+        esc_f, timed_f, launched_f = tot(escaped), tot(timed_out), \
+            tot(launched_w)
+        stats = [None] * S
         if collect:
-            host = {k: v.item() for k, v in counters.items()}
-            stats = RoundStats(
-                rounds=np.int32(rounds),
-                regen_rounds=np.int32(host["regen_rounds"]),
-                relaunched=np.int32(host["relaunched"]),
-                live_segments=np.float32(host["live_segments"]),
-                lane_segments=np.float32(steps * n_lanes),
-                deposited_w=np.float32(host["deposited_w"]),
-                escaped_w=np.float32(escaped_w.item()),
-                timed_out_w=np.float32(timed_out_w.item()),
-                detected_w=np.float32(host["detected_w"]))
-        energy = (energy.reshape(tuple(shape) + (ntg,)) if ntg > 1
-                  else energy.reshape(tuple(shape)))
-        return SimResult(
-            energy=energy,
-            exitance=exitance.reshape(nx, ny),
-            escaped_w=escaped_w,
-            timed_out_w=timed_out_w,
+            host = {k: v.tolist() for k, v in counters.items()}
+            deposited = from_fixed(grids[0].sum(1), fw["fluence"]).tolist()
+            detected = (from_fixed(grids[2].sum(1), fw["det_w"]).tolist()
+                        if n_det else [0.0] * S)
+            rounds_h = rounds.tolist()
+            esc_h, timed_h = esc_f.tolist(), timed_f.tolist()
+            stats = [RoundStats(
+                rounds=np.int32(rounds_h[i]),
+                regen_rounds=np.int32(host["regen_rounds"][i]),
+                relaunched=np.int32(host["relaunched"][i]),
+                live_segments=np.float32(host["live_segments"][i]),
+                lane_segments=np.float32(steps_s[i] * n_lanes),
+                deposited_w=np.float32(deposited[i]),
+                escaped_w=np.float32(esc_h[i]),
+                timed_out_w=np.float32(timed_h[i]),
+                detected_w=np.float32(detected[i])) for i in range(S)]
+        grid_shape = tuple(shape) + ((ntg,) if ntg > 1 else ())
+        return [SimResult(
+            energy=energy[i].view(grid_shape),
+            exitance=exitance[i].view(nx, ny),
+            escaped_w=esc_f[i],
+            timed_out_w=timed_f[i],
             # launches per run stay < 2**31, so the low-word difference
             # is the exact count even across a 2**32 boundary
-            n_launched=(next_id[0] - id_lo) & xrng.MASK32,
-            launched_w=launched_w,
-            steps=steps,
-            det_w=det_w.reshape(n_det, ntg),
-            det_ppath=det_ppath,
-            det_rec=rec[:capacity],
-            det_rec_n=rec_n,
-            det_rec_overflow=rec_overflow,
-            stats=stats,
-        )
+            n_launched=n_launched[i],
+            launched_w=launched_f[i],
+            steps=steps_s[i],
+            det_w=det_w[i],
+            det_ppath=det_ppath[i],
+            det_rec=rec[i, :capacity],
+            det_rec_n=rec_n[i],
+            det_rec_overflow=rec_overflow[i],
+            stats=stats[i],
+        ) for i in range(S)]
+
+    return fn
+
+
+def source_sampler(source, device):
+    """``sample(ids, seeds)`` of one scenario's source for the round
+    loop: ``sample_staged`` on its staged parameters, or, for a source
+    without ``stage()``, its ``sample`` (one scenario only)."""
+    source = as_source(source)
+    if hasattr(source, "stage"):
+        cls, staged = type(source), staged_tensors(source.stage(), device)
+        return lambda ids, seeds: cls.sample_staged(staged, ids, seeds)
+
+    def sample(ids, seeds):
+        one = source.sample(xrng.PhotonId(ids.lo[0], ids.hi[0]),
+                            int(seeds[0, 0]))
+        return tuple(x[None] for x in one)
+    return sample
+
+
+def build_sim_fn(shape: tuple[int, int, int], unitinmm: float,
+                 cfg: SimConfig, n_lanes: int, mode: str = "dynamic",
+                 source: PhotonSource | None = None, device=None,
+                 detectors=None, record_detected: int = 0):
+    """Build the simulation function of one scenario.
+
+    Returns ``sim_fn(labels_flat, media, n_photons, seed, id_offset=0,
+    id_offset_hi=0) -> SimResult`` running on ``device`` (``None``:
+    CUDA): the round loop of ``build_batched_fn`` with S = 1.
+    ``id_offset`` / ``id_offset_hi`` (the low and high 32-bit words of
+    a 64-bit offset) give this run a disjoint global photon-id range.
+    ``cfg.n_time_gates`` widens the energy grid to ``shape + (ntg,)``.
+
+    ``detectors`` (``repro_torch.detectors`` spec) records, per detector
+    disk on the z=0 face, the TPSF over the time gates and the
+    weight-weighted per-medium partial pathlengths.
+    ``record_detected`` > 0 (needs detectors) also records the global
+    photon id, detector and exit gate of up to that many captures in
+    ``SimResult.det_rec``; once it is full, captures still count in
+    ``det_w`` / ``det_ppath`` and the dropped records are counted in
+    ``det_rec_overflow``.  ``cfg.collect_stats`` returns
+    ``RoundStats`` counters on ``SimResult.stats`` without changing any
+    physics output.
+    """
+    dev = resolve_device(device)
+    detectors = as_detectors(detectors)
+    n_det = len(detectors)
+    if n_det:
+        validate_detectors(detectors, shape)
+    det_geom = det_geometry(detectors, dev)[None] if n_det else None
+    run = build_batched_fn(shape, unitinmm, cfg, n_lanes, mode,
+                           source_sampler(source, dev), dev, n_det,
+                           record_detected)
+
+    def sim_fn(labels_flat, media, n_photons, seed, id_offset=0,
+               id_offset_hi=0) -> SimResult:
+        return run(labels_flat.reshape(-1), media[None], det_geom,
+                   [n_photons], [seed], [id_offset], [id_offset_hi])[0]
 
     return sim_fn
 
@@ -375,3 +492,67 @@ def simulate(volume: Volume, cfg: SimConfig, n_photons: int,
     sim_fn = make_simulator(volume, cfg, n_lanes, mode, source, device,
                             detectors, record_detected)
     return sim_fn(volume.labels.reshape(-1), volume.media, n_photons, seed)
+
+
+# ---------------------------------------------------------------------------
+# (lane count x steps-per-round) autotuning
+# ---------------------------------------------------------------------------
+
+def _synchronize(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def autotune_rounds(volume: Volume, cfg: SimConfig, n_pilot: int = 20_000,
+                    lane_candidates=(1024, 2048, 4096, 8192, 16384),
+                    round_candidates=(1, 4, 8, 16, 32),
+                    seed: int = 7, source=None, repeats: int = 2,
+                    mode: str = "dynamic", device=None,
+                    ) -> tuple[tuple[int, int], dict[tuple[int, int], float]]:
+    """2-D pilot sweep over ``(n_lanes, steps_per_round)`` on ``device``
+    (``None``: CUDA).
+
+    The paper's Opt2 picks the balanced thread number from hardware
+    occupancy; here it is measured, and the fused-round depth K trades
+    regeneration amortization against masked-lane waste, so the two are
+    tuned together.  Each candidate runs once to warm up, then
+    ``repeats`` times, each timed on the host clock to a device
+    synchronisation; the best is kept.  Returns ``((best_lanes,
+    best_k), timings_s)`` with timings keyed by ``(lanes, k)``.
+    """
+    dev = resolve_device(device)
+    volume = volume.to(dev)
+    labels_flat = volume.labels.reshape(-1)
+    timings: dict[tuple[int, int], float] = {}
+    for lanes in lane_candidates:
+        for k in round_candidates:
+            kcfg = dataclasses.replace(cfg, steps_per_round=int(k))
+            sim_fn = make_simulator(volume, kcfg, lanes, mode, source, dev)
+            args = (labels_flat, volume.media, n_pilot, seed)
+            sim_fn(*args)  # warm up
+            _synchronize(dev)
+            best = float("inf")
+            for _ in range(repeats):
+                t0 = time.perf_counter()
+                sim_fn(*args)
+                _synchronize(dev)
+                best = min(best, time.perf_counter() - t0)
+            timings[(lanes, k)] = best
+    best_cfg = min(timings, key=timings.get)
+    return best_cfg, timings
+
+
+def autotune_lanes(volume: Volume, cfg: SimConfig, n_pilot: int = 20_000,
+                   candidates=(1024, 2048, 4096, 8192, 16384),
+                   seed: int = 7, source=None, repeats: int = 2,
+                   mode: str = "dynamic",
+                   device=None) -> tuple[int, dict[int, float]]:
+    """Pick the lane count with the highest pilot throughput: the 1-D
+    slice of :func:`autotune_rounds` at the config's own
+    ``steps_per_round`` (the paper's Opt2).  Returns
+    ``(best_lane_count, timings_s)``."""
+    (best_lanes, _), timings = autotune_rounds(
+        volume, cfg, n_pilot, candidates,
+        round_candidates=(int(cfg.steps_per_round),), seed=seed,
+        source=source, repeats=repeats, mode=mode, device=device)
+    return best_lanes, {lanes: t for (lanes, _), t in timings.items()}

@@ -31,7 +31,9 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch.core.fixed import to_fixed
 from repro_torch.core.photon import Z_EXIT_FACE_VOX
+from repro_torch.kernels.photon_step.spec import FIXED_SHIFT
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,34 +111,53 @@ def detector_bins(esc_pos, esc_w, det_geom):
     detector whose disk holds the exit point, and the weight to credit
     it (0 for lanes that did not leave through the z=0 face or missed
     every disk; their index is 0, so a masked scatter stays in range).
+    ``det_geom`` is ``(n_det, 3)``, or ``(N, n_det, 3)``: each lane's
+    own disks (lanes of several scenarios).
     """
     z_exit = esc_pos[:, 2] < Z_EXIT_FACE_VOX
-    dx = esc_pos[:, None, 0] - det_geom[None, :, 0]   # (N, n_det)
-    dy = esc_pos[:, None, 1] - det_geom[None, :, 1]
-    inside = (dx * dx + dy * dy) <= det_geom[None, :, 2]
+    geom = det_geom if det_geom.ndim == 3 else det_geom[None]
+    dx = esc_pos[:, None, 0] - geom[:, :, 0]   # (N, n_det)
+    dy = esc_pos[:, None, 1] - geom[:, :, 1]
+    inside = (dx * dx + dy * dy) <= geom[:, :, 2]
     hit_any = inside.any(dim=1) & z_exit & (esc_w > 0)
     det_idx = torch.argmax(inside.to(torch.uint8), dim=1)  # first match
     return det_idx, torch.where(hit_any, esc_w, torch.zeros_like(esc_w))
 
 
-def accumulate_capture(pp, dw, dp, res, gate, det_geom, ntg):
+def accumulate_capture(pp, dw, dp, res, gate, det_geom, ntg,
+                       lane_scenario=None):
     """One segment of detector bookkeeping.
 
     Adds the segment's path to the lane's per-medium ``pp``
     ``(N, n_media)`` *before* the capture test (a photon escaping in
     this segment is recorded with it), then adds detected weight into
     the flat gate-major TPSF ``dw`` ``(n_det * ntg,)`` and the weighted
-    path sums ``dp`` ``(n_det, n_media)``, in their own dtype.  ``res`` is the segment's
-    ``photon.StepResult`` and ``gate`` its per-lane time gate.  Returns
-    the new ``(pp, dw, dp)``.
+    path sums ``dp`` ``(n_det, n_media)``.  A float grid sums the
+    float32 values in its dtype; an int64 grid sums them in fixed point
+    (``core.fixed``, the photon-step kernel's grids), in place.  ``res``
+    is the segment's ``photon.StepResult`` and ``gate`` its per-lane
+    time gate.  With ``lane_scenario`` (each lane's scenario) the grids
+    are S scenarios' stacked, ``(S * n_det * ntg,)`` and
+    ``(S * n_det, n_media)``, and ``det_geom`` is per lane.  Returns the
+    new ``(pp, dw, dp)``.
     """
     n_media = pp.shape[1]
     med_cols = torch.arange(n_media, device=pp.device)[None, :]
     pp = pp + torch.where(res.seg_med[:, None] == med_cols,
                           res.seg_len[:, None], torch.zeros_like(pp))
     didx, dwgt = detector_bins(res.esc_pos, res.esc_w, det_geom)
-    dw = dw.index_add(0, didx * ntg + gate, dwgt.to(dw.dtype))
-    dp = dp.index_add(0, didx, (dwgt[:, None] * pp).to(dp.dtype))
+    n_det = det_geom.shape[-2]
+    tpsf_at, sums_at = didx * ntg + gate, didx
+    if lane_scenario is not None:
+        tpsf_at = tpsf_at + lane_scenario * (n_det * ntg)
+        sums_at = sums_at + lane_scenario * n_det
+    weighted = dwgt[:, None] * pp
+    if dw.dtype == torch.int64:
+        dw.index_add_(0, tpsf_at, to_fixed(dwgt, FIXED_SHIFT["det_w"]))
+        dp.index_add_(0, sums_at, to_fixed(weighted, FIXED_SHIFT["det_ppath"]))
+        return pp, dw, dp
+    dw = dw.index_add(0, tpsf_at, dwgt.to(dw.dtype))
+    dp = dp.index_add(0, sums_at, weighted.to(dp.dtype))
     return pp, dw, dp
 
 

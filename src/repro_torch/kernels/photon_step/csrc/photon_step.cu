@@ -54,7 +54,9 @@
 //     sincosf for the azimuth, and the Fresnel arithmetic only where
 //     the index changes.
 //   - The C entry point zeroes the accumulated outputs itself
-//     (cudaMemsetAsync on the stream), so the wrapper issues one call.
+//     (cudaMemsetAsync on the stream), so the wrapper issues one call;
+//     with add_into the fixed-point grids are the caller's run totals,
+//     which the launch adds into (the simulator issues no grid sums).
 //   - Kept: one thread per lane, 256 threads a block, the state in
 //     registers for all K segments.  The measurements that decided:
 //     512- or 1024-thread blocks, 512/2048/4096 cache slots, the media
@@ -63,6 +65,36 @@
 //     8 blocks were each no faster, or faster mid-run and slower over a
 //     whole run.
 //
+// Order-independent sums.  Fluence, exitance, the TPSF (det_w) and the
+//   detector path sums (det_ppath) are 64-bit fixed point: each deposit
+//   is rounded once to a whole number of 2^-s units (__float2ll_rn of
+//   v * 2^s, round to nearest even) and added with integer atomics, in
+//   the shared-memory cache and in device memory alike.  Integer addition
+//   is associative, so a grid is the same whatever order lanes, warps
+//   and blocks add in and whichever key claims a cache slot; the plain
+//   version rounds each deposit the same way, so the kernel's grids are
+//   bit-equal to it.  Per output (kernels/photon_step/spec.py FIXED_SHIFT):
+//     fluence, exitance, det_w  s = 36: a unit of 1.46e-11 weight, at
+//                               most 2^27 = 1.34e8 weight in one cell
+//     det_ppath                 s = 28: a unit of 3.73e-9 weight * mm, at
+//                               most 2^35 = 3.44e10 weight * mm in one sum
+//   A deposit of 2^44 units or more (256 weight; 65536 weight * mm) or a
+//   non-finite one adds nothing and sets bit 2 of the error word, which
+//   photon_step.check_errors() turns into an exception; so does a cached
+//   or detector sum that passes 2^63 - 1 as the block adds it.  Deposits
+//   added straight to device memory do not wait for the old value: a
+//   cell they take past 2^63 - 1 shows a
+//   negative value, which the simulator checks once at the end of a run
+//   (waiting for it would hold the lane for a round trip to L2).
+//   The replay Jacobian (JAC) stays a float32 sum in atomic order.
+//
+// Scenarios.  One launch may advance S scenarios of n lanes each (the
+//   batched executor of repro_torch.scenarios): blockIdx.y is the
+//   scenario, so a block never spans two, and its deposit cache stays
+//   keyed by cell alone.  Each scenario has its own media table,
+//   detector geometry and output grids, at a fixed stride; labels are
+//   shared (stride 0) or stacked (stride nvox).
+//
 // Parity: the arithmetic of each lane follows repro_torch/core/photon.py
 //   and repro_torch/detectors operation by operation.  Build with
 //   --fmad=false and without fast math: every constant below is a float
@@ -70,11 +102,8 @@
 //   PyTorch's elementwise CUDA operators give, so the per-lane state
 //   (and ppath, cap_det, cap_gate and the stats block) matches the
 //   plain version bit for bit; which thread runs a lane changes
-//   nothing.  Grid cells (fluence, exitance, TPSF, path sums, Jacobian)
-//   are float32 sums in an order that changes from run to run: the
-//   cache changes only that order.  No group writes a variable of the
-//   lane state, so the state and the base outputs are the same with any
-//   group on or off.
+//   nothing.  No group writes a variable of the lane state, so the state
+//   and the base outputs are the same with any group on or off.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -99,6 +128,20 @@ constexpr int kCacheLog2 = 10;
 constexpr int kCacheSlots = 1 << kCacheLog2;
 constexpr int kEmpty = -1;
 
+// Fixed point of the order-independent grids: 2^36 units of weight
+// (fluence, exitance, det_w) and 2^28 units of weight * mm (det_ppath).
+constexpr float kWeightScale = 68719476736.0f;  // 2^36
+constexpr float kPathScale = 268435456.0f;      // 2^28
+// One deposit holds fewer than 2^44 units (256 weight, 65536 weight *
+// mm): a block's cached sum of at most 256 lanes x 4095 segments of
+// them stays below 2^64, so its sign shows a pass of 2^63.
+constexpr float kDepositLimit = 17592186044416.0f;  // 2^44
+// Bits of the error word: a jac_col outside [0, jac_cols), and a
+// fixed-point deposit or sum beyond 2^63 - 1 units.
+constexpr int kErrJacCol = 1, kErrOverflow = 2;
+
+typedef unsigned long long u64;
+
 #ifndef PS_GROUPS
 #define PS_GROUPS 0
 #endif
@@ -118,11 +161,9 @@ struct Groups {
   const float* det_geom;    // DET (n_det, 3): x, y, radius^2
   const float* jac_w;       // JAC (n,)
   const int32_t* jac_col;   // JAC (n,)
-  int* errors;              // JAC: bit 0 set by a jac_col outside
-                            //   [0, jac_cols)
   float* ppath_out;         // DET (n, n_media)
-  float* det_w;             // DET (n_det * ntg), zeroed
-  float* det_ppath;         // DET (n_det, n_media), zeroed
+  u64* det_w;               // DET (n_det * ntg), 2^-36 weight units
+  u64* det_ppath;           // DET (n_det, n_media), 2^-28 weight * mm
   int32_t* cap_det;         // RECORD (n,)
   int32_t* cap_gate;        // RECORD (n,)
   float* jac;               // JAC (nvox * jac_cols), zeroed
@@ -132,8 +173,8 @@ struct Groups {
 
 // Inputs, base outputs and scalars of one launch.
 struct Args {
-  const uint8_t* labels;
-  const float* media;
+  const uint8_t* labels;    // (nvox), or (S, nvox) with labels_stride nvox
+  const float* media;       // (S, n_media, 4)
   const float* pos_in;
   const float* dir_in;
   const int32_t* ivox_in;
@@ -150,10 +191,12 @@ struct Args {
   float* t_out;
   int64_t* rng_out;
   uint8_t* alive_out;
-  float* fluence;    // (nvox * ntg), zeroed
-  float* exitance;   // (nx * ny), zeroed
+  u64* fluence;      // (S, nvox * ntg), 2^-36 weight units
+  u64* exitance;     // (S, nx * ny), 2^-36 weight units
   float* esc_out;
   float* timed_out;
+  int* errors;       // kErrJacCol | kErrOverflow, ORed in
+  long long labels_stride;
   int n, nx, ny, nz, n_steps, ntg, general_exact;
   float unit, gate_scale, tmax, w_threshold, roulette_m, roulette_p;
   Groups grp;
@@ -185,34 +228,64 @@ __device__ __forceinline__ float signf(float v) {
   return v > 0.f ? 1.f : (v < 0.f ? -1.f : 0.f);
 }
 
-// Adds v to cell `key` of the block's deposit cache: the first key to
+// v in fixed point (v * scale rounded to nearest even), or 0 with the
+// overflow bit set for a deposit of 2^44 units or more, or not finite.
+__device__ __forceinline__ u64 to_fixed(float v, float scale, int* errors) {
+  const float x = v * scale;
+  if (!(x < kDepositLimit)) {
+    atomicOr(errors, kErrOverflow);
+    return 0ull;
+  }
+  return (u64)__float2ll_rn(x);
+}
+
+// Adds u to *p with an integer atomic and checks the sum: a u or a sum
+// past 2^63 - 1 sets the overflow bit and adds nothing more.  Used where
+// few adds go (the cache flush, detector sums), as it waits for the old
+// value.
+__device__ __forceinline__ void add_fixed(u64* p, u64 u, int* errors) {
+  if ((long long)u < 0) {
+    atomicOr(errors, kErrOverflow);
+    return;
+  }
+  const u64 old = atomicAdd(p, u);
+  if ((long long)(old + u) < 0) atomicOr(errors, kErrOverflow);
+}
+
+// Adds u to cell `key` of the block's deposit cache: the first key to
 // reach an empty slot claims it for the launch; a key whose slot another
-// key holds adds straight to device memory at `miss`.
-__device__ __forceinline__ void cache_add(int* s_key, float* s_val, int key,
-                                          float v, float* miss) {
+// key holds adds straight to device memory at `miss`.  Neither add waits
+// for its old value: a cached sum is checked when the block flushes it,
+// and a grid that took a direct add past 2^63 - 1 shows a negative cell
+// where the simulator reads its totals.
+__device__ __forceinline__ void cache_add(int* s_key, u64* s_val, int key,
+                                          u64 u, u64* miss) {
   const int slot = (int)(((unsigned)key * 2654435761u) >> (32 - kCacheLog2));
   int held = *(volatile int*)&s_key[slot];
   if (held == kEmpty) {
     held = atomicCAS(&s_key[slot], kEmpty, key);
     if (held == kEmpty) held = key;
   }
-  if (held == key) {
-    atomicAdd(&s_val[slot], v);
-  } else {
-    atomicAdd(miss, v);
-  }
+  atomicAdd(held == key ? &s_val[slot] : miss, u);
 }
 
-// K segments of one lane.  Fluence and exitance deposits go through the
-// block's cache: fluence cell c under key c, exitance bin b under key
-// nvox * ntg + b.
+// K segments of one lane of scenario `sc`.  Fluence and exitance
+// deposits go through the block's cache: fluence cell c under key c,
+// exitance bin b under key nvox * ntg + b, both of the block's scenario.
 template <bool DO_REFLECT, bool TAYLOR>
-__device__ __forceinline__ void run_lane(const Args& A, const int lane,
-                                         int* s_key, float* s_val) {
+__device__ __forceinline__ void run_lane(const Args& A, const int sc,
+                                         const long long lane, int* s_key,
+                                         u64* s_val) {
   // --- LANE: the lane's state in, once a launch ---
   const Groups& grp = A.grp;
   const int nx = A.nx, ny = A.ny, nz = A.nz, ntg = A.ntg;
-  const int n_flu = nx * ny * nz * ntg;
+  const int nvox = nx * ny * nz, n_flu = nvox * ntg;
+  const int nm = grp.n_media;
+  // the scenario's labels, media, detector geometry and grids
+  const uint8_t* labels = A.labels + sc * A.labels_stride;
+  const float* media = A.media + (long long)sc * nm * 4;
+  u64* fluence = A.fluence + (long long)sc * n_flu;
+  u64* exitance = A.exitance + (long long)sc * nx * ny;
   float p[3], d[3];
   int iv[3];
 #pragma unroll
@@ -231,13 +304,18 @@ __device__ __forceinline__ void run_lane(const Args& A, const int lane,
   float esc_acc = 0.f, timed_acc = 0.f;
 
   // the lane's per-medium path, carried in its row of ppath_out
-  const int nm = grp.n_media;
   float* pp = nullptr;
+  const float* det_geom = nullptr;
+  u64* det_w = nullptr;
+  u64* det_ppath = nullptr;
   if (kDet) {
-    pp = grp.ppath_out + (long long)lane * nm;
-    for (int m = 0; m < nm; ++m)
-      pp[m] = grp.ppath_in[(long long)lane * nm + m];
+    pp = grp.ppath_out + lane * nm;
+    for (int m = 0; m < nm; ++m) pp[m] = grp.ppath_in[lane * nm + m];
+    det_geom = grp.det_geom + (long long)sc * grp.n_det * 3;
+    det_w = grp.det_w + (long long)sc * grp.n_det * ntg;
+    det_ppath = grp.det_ppath + (long long)sc * grp.n_det * nm;
   }
+  float* jac = nullptr;
   int cap_det = -1, cap_gate = 0;
   float jac_w = 0.f;
   int jac_col = 0;
@@ -246,9 +324,10 @@ __device__ __forceinline__ void run_lane(const Args& A, const int lane,
     jac_col = grp.jac_col[lane];
     // a column outside the grid adds nothing and flags the launch
     if ((unsigned)jac_col >= (unsigned)grp.jac_cols) {
-      atomicOr(grp.errors, 1);
+      atomicOr(A.errors, kErrJacCol);
       jac_w = 0.f;
     }
+    jac = grp.jac + (long long)sc * nvox * grp.jac_cols;
   }
   float st_live = 0.f, st_dep = 0.f;
 
@@ -264,11 +343,11 @@ __device__ __forceinline__ void run_lane(const Args& A, const int lane,
     const int cy = clampi(iv[1], 0, ny - 1);
     const int cz = clampi(iv[2], 0, nz - 1);
     const int flat = (cx * ny + cy) * nz + cz;
-    const int label = __ldg(A.labels + flat);
-    const float mua = __ldg(A.media + 4 * label + 0) * A.unit;
-    const float mus = __ldg(A.media + 4 * label + 1) * A.unit;
-    const float g = __ldg(A.media + 4 * label + 2);
-    const float n_cur = __ldg(A.media + 4 * label + 3);
+    const int label = __ldg(labels + flat);
+    const float mua = __ldg(media + 4 * label + 0) * A.unit;
+    const float mus = __ldg(media + 4 * label + 1) * A.unit;
+    const float g = __ldg(media + 4 * label + 2);
+    const float n_cur = __ldg(media + 4 * label + 3);
 
     // --- UNIFORMS: always 5 a step, on every lane ---
     const float u_path = r.uniform();
@@ -328,7 +407,7 @@ __device__ __forceinline__ void run_lane(const Args& A, const int lane,
     const bool oob = nv[0] < 0 || nv[0] >= nx || nv[1] < 0 || nv[1] >= ny ||
                      nv[2] < 0 || nv[2] >= nz;
     int next_label = 0;
-    if (!oob) next_label = __ldg(A.labels + (nv[0] * ny + nv[1]) * nz + nv[2]);
+    if (!oob) next_label = __ldg(labels + (nv[0] * ny + nv[1]) * nz + nv[2]);
     const bool crossing = alive && hits_wall;
     const bool is_scatter = alive && !hits_wall;
 
@@ -365,7 +444,7 @@ __device__ __forceinline__ void run_lane(const Args& A, const int lane,
     } else if (DO_REFLECT && crossing) {
       // --- Fresnel reflection / Snell refraction, only where the index
       // changes: without a mismatch the direction stays as it is ---
-      const float n_next = __ldg(A.media + 4 * next_label + 3);
+      const float n_next = __ldg(media + 4 * next_label + 3);
       if (fabsf(n_next - n_cur) > 1e-6f) {
         const float cos_i = clampf(fabsf(dir_axis), 0.f, 1.f);
         const float eta = n_cur / fmaxf(n_next, 1e-6f);
@@ -429,7 +508,8 @@ __device__ __forceinline__ void run_lane(const Args& A, const int lane,
       if (dep != 0.f) {
         const int gate = clampi((int)floorf(t_new * A.gate_scale), 0, ntg - 1);
         const int cell = flat * ntg + gate;
-        cache_add(s_key, s_val, cell, dep, A.fluence + cell);
+        cache_add(s_key, s_val, cell, to_fixed(dep, kWeightScale, A.errors),
+                  fluence + cell);
       }
       const float seg_len = seg * A.unit;
       if (kDet) {
@@ -439,9 +519,9 @@ __device__ __forceinline__ void run_lane(const Args& A, const int lane,
         if (esc_w > 0.f && np_[2] < kZExitFace) {
           int det = -1;  // the first disk that holds the exit point
           for (int dd = 0; dd < grp.n_det; ++dd) {
-            const float dx = np_[0] - __ldg(grp.det_geom + 3 * dd + 0);
-            const float dy = np_[1] - __ldg(grp.det_geom + 3 * dd + 1);
-            if (dx * dx + dy * dy <= __ldg(grp.det_geom + 3 * dd + 2)) {
+            const float dx = np_[0] - __ldg(det_geom + 3 * dd + 0);
+            const float dy = np_[1] - __ldg(det_geom + 3 * dd + 1);
+            if (dx * dx + dy * dy <= __ldg(det_geom + 3 * dd + 2)) {
               det = dd;
               break;
             }
@@ -449,11 +529,13 @@ __device__ __forceinline__ void run_lane(const Args& A, const int lane,
           if (det >= 0) {
             const int gate =
                 clampi((int)floorf(t_new * A.gate_scale), 0, ntg - 1);
-            atomicAdd(grp.det_w + (long long)det * ntg + gate, esc_w);
+            add_fixed(det_w + det * ntg + gate,
+                      to_fixed(esc_w, kWeightScale, A.errors), A.errors);
             for (int m = 0; m < nm; ++m) {
               const float v = esc_w * pp[m];
               if (v != 0.f)
-                atomicAdd(grp.det_ppath + (long long)det * nm + m, v);
+                add_fixed(det_ppath + det * nm + m,
+                          to_fixed(v, kPathScale, A.errors), A.errors);
             }
             if (kRecord) {
               cap_det = det;
@@ -465,13 +547,14 @@ __device__ __forceinline__ void run_lane(const Args& A, const int lane,
       if (kJac) {
         const float v = jac_w * seg_len;
         if (v != 0.f)
-          atomicAdd(grp.jac + (long long)flat * grp.jac_cols + jac_col, v);
+          atomicAdd(jac + (long long)flat * grp.jac_cols + jac_col, v);
       }
       if (esc_w > 0.f && np_[2] < kZExitFace) {
         const int ex = clampi((int)floorf(np_[0]), 0, nx - 1);
         const int ey = clampi((int)floorf(np_[1]), 0, ny - 1);
         const int bin = ex * ny + ey;
-        cache_add(s_key, s_val, n_flu + bin, esc_w, A.exitance + bin);
+        cache_add(s_key, s_val, n_flu + bin,
+                  to_fixed(esc_w, kWeightScale, A.errors), exitance + bin);
       }
       esc_acc = esc_acc + esc_w;
       timed_acc = timed_acc + timed_w;
@@ -518,25 +601,27 @@ __device__ __forceinline__ void run_lane(const Args& A, const int lane,
   }
 }
 
-// One block: its lanes reordered so that those alive at launch come
-// first (each keeps its own arithmetic; only the thread that runs it
-// changes), K segments of each, then the block's deposit cache added to
-// device memory.
+// One block, of one scenario (blockIdx.y): its lanes reordered so that
+// those alive at launch come first (each keeps its own arithmetic; only
+// the thread that runs it changes), K segments of each, then the block's
+// deposit cache added to the scenario's grids in device memory.
 template <bool DO_REFLECT, bool TAYLOR>
 __global__ void __launch_bounds__(kThreads)
     photon_step_kernel(const __grid_constant__ Args A) {
   // --- BLOCK: the cache emptied, the lanes ordered ---
   __shared__ int s_key[kCacheSlots];
-  __shared__ float s_val[kCacheSlots];
+  __shared__ u64 s_val[kCacheSlots];
   __shared__ int s_order[kThreads];
   __shared__ int s_warp_live[kWarps];
   for (int i = threadIdx.x; i < kCacheSlots; i += kThreads) {
     s_key[i] = kEmpty;
-    s_val[i] = 0.f;
+    s_val[i] = 0ull;
   }
   const int tid = threadIdx.x, wid = tid >> 5, lid = tid & 31;
-  const int first = blockIdx.x * kThreads;
-  const bool live = first + tid < A.n && A.alive_in[first + tid] != 0;
+  const int sc = blockIdx.y;
+  const long long base = (long long)sc * A.n;  // the scenario's first lane
+  const int first = blockIdx.x * kThreads;     // within the scenario
+  const bool live = first + tid < A.n && A.alive_in[base + first + tid] != 0;
   const unsigned live_bits = __ballot_sync(0xffffffffu, live);
   if (lid == 0) s_warp_live[wid] = __popc(live_bits);
   __syncthreads();
@@ -551,51 +636,63 @@ __global__ void __launch_bounds__(kThreads)
   const int live_below = live_before + __popc(live_bits & ((1u << lid) - 1u));
   s_order[live ? live_below : n_live + tid - live_below] = tid;
   __syncthreads();
-  const int lane = first + s_order[tid];
-  if (lane < A.n) run_lane<DO_REFLECT, TAYLOR>(A, lane, s_key, s_val);
+  const int local = first + s_order[tid];
+  if (local < A.n)
+    run_lane<DO_REFLECT, TAYLOR>(A, sc, base + local, s_key, s_val);
   // --- FLUSH: the block's cached sums into device memory ---
   __syncthreads();
   const int n_flu = A.nx * A.ny * A.nz * A.ntg;
+  u64* fluence = A.fluence + (long long)sc * n_flu;
+  u64* exitance = A.exitance + (long long)sc * A.nx * A.ny;
   for (int i = tid; i < kCacheSlots; i += kThreads) {
     const int key = s_key[i];
-    const float v = s_val[i];
-    if (key != kEmpty && v != 0.f)
-      atomicAdd(key < n_flu ? A.fluence + key : A.exitance + (key - n_flu), v);
+    const u64 u = s_val[i];
+    if (key != kEmpty && u != 0ull)
+      add_fixed(key < n_flu ? fluence + key : exitance + (key - n_flu), u,
+                A.errors);
   }
 }
 
 template <bool DO_REFLECT, bool TAYLOR>
-cudaError_t launch(const Args& a, int blocks, cudaStream_t stream) {
-  photon_step_kernel<DO_REFLECT, TAYLOR><<<blocks, kThreads, 0, stream>>>(a);
+cudaError_t launch(const Args& a, int blocks, int scenarios,
+                   cudaStream_t stream) {
+  photon_step_kernel<DO_REFLECT, TAYLOR>
+      <<<dim3(blocks, scenarios), kThreads, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C entry point, bound with ctypes.
-//   in:  labels, media, pos, dir, ivox, w, s_left, t, rng, alive (10),
-//        then [ppath, det_geom] (DET), [jac_w, jac_col, errors] (JAC;
-//        errors is one int32 the kernel ORs 1 into for a bad jac_col)
+//   in:  labels, media, pos, dir, ivox, w, s_left, t, rng, alive, errors
+//        (11), then [ppath, det_geom] (DET), [jac_w, jac_col] (JAC);
+//        errors is one int32 the kernel ORs its error bits into
 //   out: pos, dir, ivox, w, s_left, t, rng, alive, fluence, exitance,
 //        escaped, timed (12), then [ppath, det_w, det_ppath] (DET),
 //        [cap_det, cap_gate] (RECORD), [jac] (JAC), [stats] (STATS);
-//        fluence, exitance, det_w, det_ppath and jac are zeroed here,
-//        on the stream, before the launch
+//        fluence, exitance, det_w and det_ppath are int64 fixed point,
+//        zeroed here on the stream before the launch unless add_into is
+//        set, when the launch adds into them; jac is always zeroed
 //   ints:   n, nx, ny, nz, n_steps, ntg, general_exact, do_reflect, taylor,
-//           groups, n_det, n_media, jac_cols, threads, blocks
+//           groups, n_det, n_media, jac_cols, scenarios, labels_stride,
+//           add_into, threads, blocks
 //   floats: unit, gate_scale, tmax, w_threshold, roulette_m, roulette_p
 // Returns the cudaError_t of the memsets and the launch (0 on success),
 // or cudaErrorInvalidValue when ``groups`` is not the set this library
-// was built for, ``threads`` is not its block size or ``blocks`` do not
-// cover the lanes.
+// was built for, ``threads`` is not its block size, ``blocks`` do not
+// cover the lanes or ``scenarios`` is outside [1, 65535].  n is the
+// lane count of one scenario and blocks the blocks of one scenario;
+// lane arrays hold scenarios * n lanes, scenario-major.
 extern "C" int photon_step_launch(const void* const* in, void* const* out,
                                   const int* ints, const float* floats,
                                   void* stream) {
   const int n = ints[0], groups = ints[9], n_det = ints[10],
-            n_media = ints[11], jac_cols = ints[12], threads = ints[13],
-            blocks = ints[14];
+            n_media = ints[11], jac_cols = ints[12], scenarios = ints[13],
+            labels_stride = ints[14], add_into = ints[15],
+            threads = ints[16], blocks = ints[17];
   if (groups != PS_GROUPS || threads != kThreads ||
-      (long long)blocks * kThreads < n || (n > 0 && blocks <= 0))
+      (long long)blocks * kThreads < n || (n > 0 && blocks <= 0) ||
+      scenarios < 1 || scenarios > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const size_t nvox = (size_t)ints[1] * ints[2] * ints[3];
@@ -610,6 +707,7 @@ extern "C" int photon_step_launch(const void* const* in, void* const* out,
   a.t_in = (const float*)in[7];
   a.rng_in = (const int64_t*)in[8];
   a.alive_in = (const uint8_t*)in[9];
+  a.errors = (int*)in[10];
   a.pos_out = (float*)out[0];
   a.dir_out = (float*)out[1];
   a.ivox_out = (int32_t*)out[2];
@@ -618,10 +716,11 @@ extern "C" int photon_step_launch(const void* const* in, void* const* out,
   a.t_out = (float*)out[5];
   a.rng_out = (int64_t*)out[6];
   a.alive_out = (uint8_t*)out[7];
-  a.fluence = (float*)out[8];
-  a.exitance = (float*)out[9];
+  a.fluence = (u64*)out[8];
+  a.exitance = (u64*)out[9];
   a.esc_out = (float*)out[10];
   a.timed_out = (float*)out[11];
+  a.labels_stride = labels_stride;
   a.n = n;
   a.nx = ints[1];
   a.ny = ints[2];
@@ -638,18 +737,17 @@ extern "C" int photon_step_launch(const void* const* in, void* const* out,
   // the optional inputs and outputs follow the base ones, in the order
   // of the output contract (kernels/photon_step/spec.py)
   Groups& grp = a.grp;
-  int i_in = 10, i_out = 12;
+  int i_in = 11, i_out = 12;
   if (kDet) {
     grp.ppath_in = (const float*)in[i_in++];
     grp.det_geom = (const float*)in[i_in++];
     grp.ppath_out = (float*)out[i_out++];
-    grp.det_w = (float*)out[i_out++];
-    grp.det_ppath = (float*)out[i_out++];
+    grp.det_w = (u64*)out[i_out++];
+    grp.det_ppath = (u64*)out[i_out++];
   }
   if (kJac) {
     grp.jac_w = (const float*)in[i_in++];
     grp.jac_col = (const int32_t*)in[i_in++];
-    grp.errors = (int*)in[i_in++];
   }
   if (kRecord) {
     grp.cap_det = (int32_t*)out[i_out++];
@@ -661,14 +759,15 @@ extern "C" int photon_step_launch(const void* const* in, void* const* out,
   grp.n_media = n_media;
   grp.jac_cols = jac_cols;
 
-  const struct { void* p; size_t bytes; } zero[] = {
-      {a.fluence, 4 * nvox * a.ntg},
-      {a.exitance, 4 * (size_t)a.nx * a.ny},
-      {grp.det_w, 4 * (size_t)n_det * a.ntg},
-      {grp.det_ppath, 4 * (size_t)n_det * n_media},
-      {grp.jac, 4 * nvox * jac_cols}};
+  const size_t sc = (size_t)scenarios;
+  const struct { void* p; size_t bytes; bool fixed; } zero[] = {
+      {a.fluence, 8 * sc * nvox * a.ntg, true},
+      {a.exitance, 8 * sc * a.nx * a.ny, true},
+      {grp.det_w, 8 * sc * n_det * a.ntg, true},
+      {grp.det_ppath, 8 * sc * n_det * n_media, true},
+      {grp.jac, 4 * sc * nvox * jac_cols, false}};
   for (const auto& z : zero) {
-    if (z.p == nullptr || z.bytes == 0) continue;
+    if (z.p == nullptr || z.bytes == 0 || (z.fixed && add_into)) continue;
     const cudaError_t err = cudaMemsetAsync(z.p, 0, z.bytes, s);
     if (err != cudaSuccess) return (int)err;
   }
@@ -676,11 +775,11 @@ extern "C" int photon_step_launch(const void* const* in, void* const* out,
   const bool do_reflect = ints[7] != 0, taylor = ints[8] != 0;
   cudaError_t err;
   if (do_reflect) {
-    err = taylor ? launch<true, true>(a, blocks, s)
-                 : launch<true, false>(a, blocks, s);
+    err = taylor ? launch<true, true>(a, blocks, scenarios, s)
+                 : launch<true, false>(a, blocks, scenarios, s);
   } else {
-    err = taylor ? launch<false, true>(a, blocks, s)
-                 : launch<false, false>(a, blocks, s);
+    err = taylor ? launch<false, true>(a, blocks, scenarios, s)
+                 : launch<false, false>(a, blocks, scenarios, s);
   }
   return (int)err;
 }

@@ -6,8 +6,12 @@ every output group.  It advances every photon lane ``n_steps`` segments
 with one thread per lane and the state in registers; each block sums
 its fluence and exitance deposits in a cache in shared memory and adds
 the cache to device memory once, and orders its lanes so that those
-alive at launch share warps.  The source file's header says what bounds
-it on the card and what the design does about that.
+alive at launch share warps.  Fluence, exitance, TPSF and detector path
+sums are int64 fixed point (``spec.FIXED_SHIFT``), so they do not
+depend on the order of the adds.  One launch may advance S scenarios
+(``blockIdx.y``), each with its own media, detectors and grids.  The
+source file's header says what bounds it on the card and what the
+design does about that.
 
 The source is compiled with ``nvcc`` for ``sm_90a`` once per set of
 output groups (``PS_GROUPS``, a mask of ``GROUP_BITS``), at first use,
@@ -18,10 +22,13 @@ every variant's ``nvcc`` at once.
 
 ``photon_step_cuda`` checks its inputs and allocates its outputs
 (``prepare``: the kernel zeroes the accumulated ones on the stream
-itself), packs the entry point's arrays (``pack``), launches on
-PyTorch's current stream, and raises if the launch fails.
+itself, or adds into the caller's ``totals``), packs the entry point's
+arrays (``pack``), launches on PyTorch's current stream, and raises if
+the launch fails.  ``check_errors`` raises for what a launch flagged on
+the device (a Jacobian column out of range, a fixed-point overflow).
 ``photon_step_cuda.launches_by`` counts its launches by
-``variant_name``.
+``variant_name``, with ``/xS`` appended for a launch of S > 1
+scenarios.
 """
 
 from __future__ import annotations
@@ -195,6 +202,8 @@ THREADS = 256
 CACHE_SLOTS = 1024
 # The deposit cache keys fluence cells and exitance bins with one int32.
 MAX_CELLS = 2**31
+# Scenarios of one launch ride on blockIdx.y.
+MAX_SCENARIOS = 65535
 
 
 def _check(name, x, dtype, shape, device):
@@ -227,69 +236,101 @@ _STATE_SPECS = (("pos", torch.float32, (3,)), ("dir", torch.float32, (3,)),
                 ("rng", torch.int64, (4,)), ("alive", torch.bool, ()))
 
 
+def _grid_specs(S, batched, nvox, nxy, ntg, n_det, n_media):
+    """``(name, shape)`` of the int64 fixed-point grids of a call."""
+    lead = (S,) if batched else ()
+    specs = [("fluence", lead + (nvox * ntg,)), ("exitance", lead + (nxy,))]
+    if n_det:
+        specs += [("det_w", lead + (n_det * ntg,)),
+                  ("det_ppath", lead + (n_det, n_media))]
+    return specs
+
+
 def prepare(labels_flat, media, state: ph.PhotonState, shape, unitinmm,
             cfg: SimConfig, n_steps: int, ppath=None, det_geom=None,
             record=False, jac_w=None, jac_col=None, jac_cols: int = 0,
-            stats: bool = False):
+            stats: bool = False, totals=None):
     """Check a call's inputs and allocate its outputs on the state's
     device; returns ``(groups, ins, outs, ints, floats)``: the
     tensors, in the order of the C entry point's ``in`` and ``out``
     arrays, and its ``ints`` and ``floats``.  The kernel zeroes the
     accumulated outputs (fluence, exitance, TPSF, path sums, Jacobian)
-    itself, so every output is allocated uninitialised."""
+    itself, so every output is allocated uninitialised; with ``totals``
+    the fixed-point grids are the caller's, which the launch adds into.
+    A ``(S, n_media, 4)`` media table makes it a launch of S scenarios
+    (``ref.photon_steps_ref`` gives the shapes)."""
     n_det, record, jac_cols = spec.check_groups(ppath, det_geom, record,
                                                 jac_w, jac_col, jac_cols)
+    S, batched = spec.scenario_count(media)
     dev = state.w.device
     nx, ny, nz = (int(s) for s in shape)
     nvox, nxy = nx * ny * nz, nx * ny
-    n = state.w.shape[0]
-    n_media = media.shape[0]
+    n_all = state.w.shape[0]
+    n_media = media.shape[-2]
     ntg = int(cfg.n_time_gates)
     n_steps = int(n_steps)
-    if ntg < 1 or n_steps < 0:
-        raise ValueError(f"need n_time_gates >= 1 and n_steps >= 0, got "
-                         f"{ntg} and {n_steps}")
+    if ntg < 1 or not 0 <= n_steps <= spec.MAX_STEPS:
+        raise ValueError(f"need n_time_gates >= 1 and n_steps >= 0 (at "
+                         f"most {spec.MAX_STEPS}), got {ntg} and {n_steps}")
     if nvox * ntg + nxy >= MAX_CELLS:
         raise ValueError(f"fluence grid of {nvox * ntg} cells and {nxy} "
                          f"exitance bins is too large (< 2^31 in all)")
-    specs = [("labels_flat", labels_flat, torch.uint8, (nvox,)),
-             ("media", media, torch.float32, (n_media, 4))]
-    specs += [(name, getattr(state, name), dtype, (n,) + width)
+    if not 1 <= S <= MAX_SCENARIOS or n_all % S:
+        raise ValueError(f"{n_all} lanes do not split into {S} scenarios "
+                         f"(1 to {MAX_SCENARIOS})")
+    n = n_all // S
+    stacked = batched and labels_flat.ndim == 2
+    specs = [("labels_flat", labels_flat, torch.uint8,
+              (S, nvox) if stacked else (nvox,)),
+             ("media", media, torch.float32, tuple(media.shape[:-2]) + (
+                 n_media, 4))]
+    specs += [(name, getattr(state, name), dtype, (n_all,) + width)
               for name, dtype, width in _STATE_SPECS]
     if n_det:
-        specs += [("ppath", ppath, torch.float32, (n, n_media)),
-                  ("det_geom", det_geom, torch.float32, (n_det, 3))]
+        specs += [("ppath", ppath, torch.float32, (n_all, n_media)),
+                  ("det_geom", det_geom, torch.float32,
+                   ((S,) if batched else ()) + (n_det, 3))]
     if jac_cols:
-        specs += [("jac_w", jac_w, torch.float32, (n,)),
-                  ("jac_col", jac_col, torch.int32, (n,))]
+        specs += [("jac_w", jac_w, torch.float32, (n_all,)),
+                  ("jac_col", jac_col, torch.int32, (n_all,))]
+    grids = _grid_specs(S, batched, nvox, nxy, ntg, n_det, n_media)
+    if totals is not None:
+        if len(totals) != len(grids):
+            raise ValueError(f"totals must be the {len(grids)} grids "
+                             f"{[g for g, _ in grids]}")
+        specs += [(f"totals[{name}]", x, torch.int64, shp)
+                  for (name, shp), x in zip(grids, totals)]
     _check_all(specs, dev)
 
     f32 = dict(dtype=torch.float32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
-    ins = [labels_flat, media, *state]
+    fixed = (list(totals) if totals is not None else
+             [torch.empty(shp, dtype=torch.int64, device=dev)
+              for _, shp in grids])
+    lead = (S,) if batched else ()
+    ins = [labels_flat, media, *state, _error_word(dev)]
     outs = [torch.empty_like(x) for x in state]
-    outs += [torch.empty((nvox * ntg,), **f32), torch.empty((nxy,), **f32),
-             torch.empty((n,), **f32), torch.empty((n,), **f32)]
+    outs += fixed[:2] + [torch.empty((n_all,), **f32),
+                         torch.empty((n_all,), **f32)]
     if n_det:
         ins += [ppath, det_geom]
-        outs += [torch.empty((n, n_media), **f32),
-                 torch.empty((n_det * ntg,), **f32),
-                 torch.empty((n_det, n_media), **f32)]
+        outs += [torch.empty((n_all, n_media), **f32)] + fixed[2:]
     if jac_cols:
-        ins += [jac_w, jac_col, _error_word(dev)]
+        ins += [jac_w, jac_col]
     if record:
-        outs += [torch.empty((n,), **i32), torch.empty((n,), **i32)]
+        outs += [torch.empty((n_all,), **i32), torch.empty((n_all,), **i32)]
     if jac_cols:
-        outs += [torch.empty((nvox * jac_cols,), **f32)]
+        outs += [torch.empty(lead + (nvox * jac_cols,), **f32)]
     if stats:
-        outs += [torch.empty((n, 2), **f32)]
+        outs += [torch.empty((n_all, 2), **f32)]
     assert len(outs) == spec.output_arity(n_det, record, jac_cols, stats,
                                           packed_state=False)
     groups = group_mask(n_det, record, jac_cols, stats)
     taylor = cfg.deposit_mode == "taylor"
     ints = (n, nx, ny, nz, n_steps, ntg,
             int(not cfg.specialize and not taylor), int(bool(cfg.do_reflect)),
-            int(taylor), groups, n_det, n_media, jac_cols, THREADS,
+            int(taylor), groups, n_det, n_media, jac_cols, S,
+            nvox if stacked else 0, int(totals is not None), THREADS,
             -(-n // THREADS))
     floats = (float(unitinmm), ph.gate_scale(cfg.tmax_ns, ntg),
               float(cfg.tmax_ns), float(cfg.w_threshold),
@@ -308,9 +349,12 @@ def pack(ins, outs, ints, floats):
 def photon_step_cuda(labels_flat, media, state: ph.PhotonState, shape,
                      unitinmm, cfg: SimConfig, n_steps: int, ppath=None,
                      det_geom=None, record=False, jac_w=None, jac_col=None,
-                     jac_cols: int = 0, stats: bool = False):
+                     jac_cols: int = 0, stats: bool = False, totals=None):
     """Advance all lanes ``n_steps`` segments on the card; returns what
-    ``ref.photon_steps_ref`` returns, output group by output group.
+    ``ref.photon_steps_ref`` returns, output group by output group, the
+    grids bit-equal to it (the Jacobian apart, a float32 sum in atomic
+    order).  ``totals`` and a ``(S, n_media, 4)`` media table (S
+    scenarios) are as there.
 
     Every tensor must be contiguous on one CUDA device, with the dtypes
     of ``photon.PhotonState`` and labels in ``[0, n_media)`` (the
@@ -318,7 +362,8 @@ def photon_step_cuda(labels_flat, media, state: ph.PhotonState, shape,
     n_media)`` float32, ``det_geom`` ``(n_det, 3)`` float32, ``jac_w``
     ``(n,)`` float32 and ``jac_col`` ``(n,)`` int32 in
     ``[0, jac_cols)``: a lane with a column outside it adds nothing and
-    flags the device, and ``check_errors`` then raises.  Invalid group
+    flags the device, and ``check_errors`` then raises; so does a
+    fixed-point deposit or sum beyond its range.  Invalid group
     combinations raise ``ValueError`` (``spec.check_groups``).
     """
     dev = state.w.device
@@ -326,7 +371,7 @@ def photon_step_cuda(labels_flat, media, state: ph.PhotonState, shape,
         raise ValueError(f"photon_step_cuda needs CUDA tensors, got {dev}")
     groups, ins, outs, ints, floats = prepare(
         labels_flat, media, state, shape, unitinmm, cfg, n_steps, ppath,
-        det_geom, record, jac_w, jac_col, jac_cols, stats)
+        det_geom, record, jac_w, jac_col, jac_cols, stats, totals)
     lib = _library(groups)
     arrays = pack(ins, outs, ints, floats)
     ptrs = [a.buffer_info()[0] for a in arrays]
@@ -343,7 +388,9 @@ def photon_step_cuda(labels_flat, media, state: ph.PhotonState, shape,
     if err != 0:
         msg = lib.photon_step_error_string(err).decode()
         raise RuntimeError(f"photon_step kernel launch failed: {msg} ({err})")
-    photon_step_cuda.launches_by[variant_name(groups, cfg)] += 1
+    S = ints[13]
+    photon_step_cuda.launches_by[variant_name(groups, cfg) + (
+        f"/x{S}" if S > 1 else "")] += 1
     return (ph.PhotonState(*outs[:len(spec.STATE_FIELDS)]),
             *outs[len(spec.STATE_FIELDS):])
 
@@ -351,8 +398,12 @@ def photon_step_cuda(labels_flat, media, state: ph.PhotonState, shape,
 _ERROR_WORDS: dict[torch.device, torch.Tensor] = {}
 
 
+# Bits of the error word (csrc/photon_step.cu kErrJacCol, kErrOverflow).
+ERR_JAC_COL, ERR_OVERFLOW = 1, 2
+
+
 def _error_word(dev: torch.device) -> torch.Tensor:
-    """The device's int32 error flags, which Jacobian launches set."""
+    """The device's int32 error flags, which every launch may set."""
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device(dev.type, torch.cuda.current_device())
     if dev not in _ERROR_WORDS:
@@ -361,14 +412,19 @@ def _error_word(dev: torch.device) -> torch.Tensor:
 
 
 def check_errors(device=None) -> None:
-    """Raise ``ValueError`` if a launch on ``device`` (``None``: the
-    current CUDA device) since the last check met a ``jac_col`` outside
-    ``[0, jac_cols)``; the kernel added nothing for such a lane.  One
-    host read; clears the flags."""
+    """Raise if a launch on ``device`` (``None``: the current CUDA
+    device) since the last check flagged an error: ``OverflowError`` for
+    a fixed-point deposit or sum beyond its range (the kernel added
+    nothing for it), ``ValueError`` for a ``jac_col`` outside
+    ``[0, jac_cols)`` (that lane added nothing).  One host read; clears
+    the flags."""
     word = _error_word(torch.device("cuda" if device is None else device))
     flags = int(word.item())
     if flags:
         word.zero_()
+        if flags & ERR_OVERFLOW:
+            raise OverflowError("a photon-step launch met a fixed-point "
+                                "deposit or sum beyond 2**63 - 1 units")
         raise ValueError("a photon-step launch got a jac_col outside "
                          "[0, jac_cols); those lanes added nothing")
 

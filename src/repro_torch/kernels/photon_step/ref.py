@@ -9,6 +9,11 @@ Jacobian and the stats block.  It is the computation of the CUDA kernel
 in ``csrc/photon_step.cu``, one PyTorch operation at a time.  The
 dispatcher (``ops.photon_steps``) runs it for CPU tensors, and
 ``chip_smoke.py`` holds the kernel against it on the card.
+
+Fluence, exitance, TPSF and detector path sums are int64 fixed point
+(``core/fixed.py``): each deposit is rounded once to a whole number of
+units, as the kernel rounds it, and integer sums do not depend on their
+order, so the kernel's grids equal these bit for bit.
 """
 
 from __future__ import annotations
@@ -16,22 +21,31 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import photon as ph
+from repro_torch.core.fixed import to_fixed
 from repro_torch.core.volume import SimConfig
 from repro_torch.detectors import accumulate_capture, update_capture
 from repro_torch.kernels.photon_step import spec
+
+
+def _grid(totals, i, size, dev):
+    """The call's int64 grid ``i``: the caller's total (added into in
+    place) or a fresh zeroed one; returned flat."""
+    if totals is None:
+        return torch.zeros((size,), dtype=torch.int64, device=dev)
+    return totals[i].view(-1)
 
 
 def photon_steps_ref(labels_flat, media, state: ph.PhotonState,
                      shape, unitinmm, cfg: SimConfig, n_steps: int,
                      ppath=None, det_geom=None, record=False,
                      jac_w=None, jac_col=None, jac_cols: int = 0,
-                     stats: bool = False, accumulate=torch.float32):
-    """Returns ``(new_state, fluence_flat, exitance_flat,
-    escaped_per_lane, timed_per_lane)``, then the optional groups in
-    this order:
+                     stats: bool = False, totals=None,
+                     accumulate=torch.float32):
+    """Returns ``(new_state, fluence, exitance, escaped_per_lane,
+    timed_per_lane)``, then the optional groups in this order:
 
     * with detectors (``ppath`` ``(n, n_media)`` and ``det_geom``
-      ``(n_det, 3)``): ``(ppath, det_w_flat, det_ppath)``, the lane's
+      ``(n_det, 3)``): ``(ppath, det_w, det_ppath)``, the lane's
       per-medium path carried on, the gate-major ``(n_det * ntg,)``
       TPSF and the ``(n_det, n_media)`` weighted path sums;
     * with ``record``: per-lane int32 ``(cap_det, cap_gate)`` of the
@@ -42,67 +56,107 @@ def photon_steps_ref(labels_flat, media, state: ph.PhotonState,
     * with ``stats``: an ``(n, 2)`` float32 block, always last:
       segments each lane entered alive, and its deposited weight.
 
-    ``accumulate`` is the dtype the grids (fluence, exitance, TPSF,
-    path sums, Jacobian) sum the float32 deposits in: float32, as the
-    kernel stores them, or float64, an exact sum of the same deposits.
-    A float32 sum of many equal deposits into one cell drifts by far
-    more than its rounding spread (the pencil's first cell), so the
-    kernel's grids are held against the float64 sum.  Every other
-    output is the same either way.
+    Fluence, exitance, TPSF and path sums are int64 fixed point
+    (``core.fixed``; ``from_fixed`` gives float32).  ``totals``
+    (their int64 grids, in that order, as this call returns them) makes
+    the call add into them in place and return them, as the kernel does
+    with ``add_into``.  A ``(S, n_media, 4)`` media table makes the call
+    S scenarios of ``n / S`` lanes each, scenario-major: labels are
+    ``(nvox,)`` shared or ``(S, nvox)``, ``det_geom`` ``(S, n_det, 3)``,
+    and every grid gains a leading scenario axis.
+
+    ``accumulate`` is the dtype the Jacobian, the one float grid, sums
+    its float32 deposits in: float32, as the kernel stores it (in atomic
+    order), or float64, an exact sum to hold the kernel against.
     """
     n_det, record, jac_cols = spec.check_groups(ppath, det_geom, record,
                                                 jac_w, jac_col, jac_cols)
-    nvox = labels_flat.shape[0]
+    S, batched = spec.scenario_count(media)
+    nx, ny, nz = (int(x) for x in shape)
+    nvox, nxy = nx * ny * nz, nx * ny
     ntg = int(cfg.n_time_gates)
-    nxy = shape[0] * shape[1]
-    n = state.w.shape[0]
+    n_flu = nvox * ntg
+    n_media = media.shape[-2]
+    n_all = state.w.shape[0]
+    if n_all % S:
+        raise ValueError(f"{n_all} lanes do not split into {S} scenarios")
     dev = state.w.device
     f32 = dict(dtype=torch.float32, device=dev)
-    acc = dict(dtype=accumulate, device=dev)
-    flu = torch.zeros((nvox * ntg,), **acc)
-    exi = torch.zeros((nxy,), **acc)
+    lane_sc = None
+    label_base = media_base = None
+    if batched:
+        lane_sc = torch.arange(n_all, device=dev) // (n_all // S)
+        media_base = lane_sc * n_media
+        if labels_flat.ndim == 2:
+            label_base = lane_sc * nvox
+    labels = labels_flat.reshape(-1)
+    media_rows = media.reshape(-1, 4)
+
+    def at(index, stride):
+        """A per-lane index into the scenario's part of a flat grid."""
+        return index if lane_sc is None else index + lane_sc * stride
+
+    fw = spec.FIXED_SHIFT
+    flu = _grid(totals, 0, S * n_flu, dev)
+    exi = _grid(totals, 1, S * nxy, dev)
     esc = torch.zeros_like(state.w)
     timed = torch.zeros_like(state.w)
     if n_det:
         pp = ppath
-        dw = torch.zeros((n_det * ntg,), **acc)
-        dp = torch.zeros((n_det, media.shape[0]), **acc)
+        geom = det_geom[lane_sc] if batched else det_geom
+        dw = _grid(totals, 2, S * n_det * ntg, dev)
+        dp = _grid(totals, 3, S * n_det * n_media, dev)
     if record:
-        capd = torch.full((n,), -1, dtype=torch.int32, device=dev)
-        capg = torch.zeros((n,), dtype=torch.int32, device=dev)
+        capd = torch.full((n_all,), -1, dtype=torch.int32, device=dev)
+        capg = torch.zeros((n_all,), dtype=torch.int32, device=dev)
     if jac_cols:
-        jac = torch.zeros((nvox * jac_cols,), **acc)
+        jac = torch.zeros((S * nvox * jac_cols,), dtype=accumulate,
+                          device=dev)
         jac_col = jac_col.to(torch.int64)
     if stats:
-        stbl = torch.zeros((n, 2), **f32)
+        stbl = torch.zeros((n_all, 2), **f32)
     st = state
     for _ in range(int(n_steps)):
-        res = ph.step(st, labels_flat, media, shape, unitinmm, cfg)
+        res = ph.step(st, labels, media_rows, shape, unitinmm, cfg,
+                      label_base, media_base)
         gate = ph.time_gate_bins(res.dep_t, cfg.tmax_ns, ntg)
-        flu.index_add_(0, res.dep_idx * ntg + gate, res.dep_w.to(accumulate))
+        flu.index_add_(0, at(res.dep_idx * ntg + gate, n_flu),
+                       to_fixed(res.dep_w, fw["fluence"]))
         xy, xw = ph.exitance_bins(res.esc_pos, res.esc_w, shape)
-        exi.index_add_(0, xy, xw.to(accumulate))
+        exi.index_add_(0, at(xy, nxy), to_fixed(xw, fw["exitance"]))
         esc = esc + res.esc_w
         timed = timed + res.timed_w
         if n_det:
-            pp, dw, dp = accumulate_capture(pp, dw, dp, res, gate,
-                                            det_geom, ntg)
+            pp, _, _ = accumulate_capture(pp, dw, dp.view(-1, n_media), res,
+                                          gate, geom, ntg, lane_sc)
             if record:
-                capd, capg = update_capture(capd, capg, res, gate, det_geom)
+                capd, capg = update_capture(capd, capg, res, gate, geom)
         if jac_cols:
-            jac.index_add_(0, res.dep_idx * jac_cols + jac_col,
+            jac.index_add_(0, at(res.dep_idx * jac_cols + jac_col,
+                                 nvox * jac_cols),
                            (jac_w * res.seg_len).to(accumulate))
         if stats:
             stbl = stbl + torch.stack(
                 [st.alive.to(torch.float32), res.dep_w], dim=1)
         st = res.state
-    out = (st, flu, exi, esc, timed)
+    grids = [flu, exi] + ([dw, dp] if n_det else [])
+    if any(bool((g < 0).any()) for g in grids):
+        raise OverflowError("a fixed-point grid sum passed 2**63 - 1 units")
+
+    def shaped(x, *tail):
+        return x.view(S, *tail) if batched else x.view(*tail)
+
+    out = (st, shaped(flu, n_flu), shaped(exi, nxy), esc, timed)
+    if totals is not None:
+        out = (st, *totals[:2], esc, timed)
     if n_det:
-        out = out + (pp, dw, dp)
+        dwp = ((shaped(dw, n_det * ntg), shaped(dp, n_det, n_media))
+               if totals is None else tuple(totals[2:4]))
+        out = out + (pp,) + dwp
     if record:
         out = out + (capd, capg)
     if jac_cols:
-        out = out + (jac,)
+        out = out + (shaped(jac, nvox * jac_cols),)
     if stats:
         out = out + (stbl,)
     assert len(out) == spec.output_arity(n_det, record, jac_cols, stats)

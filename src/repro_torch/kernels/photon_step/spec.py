@@ -34,6 +34,28 @@ CORE_PARAMS = ("labels_flat", "media", "state", "shape", "unitinmm",
 EXT_PARAMS = ("ppath", "det_geom", "record", "jac_w", "jac_col",
               "jac_cols", "stats")
 
+# Order-independent sums.  Fluence, exitance, the TPSF and the detector
+# path sums are int64 fixed point: each deposit is rounded once (to
+# nearest, ties to even) to a whole number of 2**-shift units, and the
+# integer sums give the same bits in any order.  Range and resolution:
+#   fluence, exitance, det_w  2**-36 = 1.46e-11 weight a unit, at most
+#                             2**27 = 1.34e8 weight in one cell
+#   det_ppath                 2**-28 = 3.73e-9 weight * mm a unit, at
+#                             most 2**35 = 3.44e10 weight * mm in one sum
+# A deposit of DEPOSIT_LIMIT units or more (256 weight, 65536 weight *
+# mm), or a sum past 2**63 - 1 units, raises: the kernel flags its error
+# word (``photon_step.check_errors``), the plain version raises at once,
+# and the simulator checks the sign of every total at the end of a run.
+# A launch runs at most MAX_STEPS segments, so a block's cached sum of
+# 256 lanes' deposits stays below 2**64 and its sign shows an overflow.
+FIXED_SHIFT = {"fluence": 36, "exitance": 36, "det_w": 36, "det_ppath": 28}
+DEPOSIT_LIMIT = 2.0**44
+MAX_STEPS = 4095
+# The simulator's per-scenario run totals (escaped, timed-out, launched
+# and capped weight) are int64 sums of per-lane values in 2**-24 units:
+# a resolution of 6.0e-8 weight and a range of 2**39 = 5.5e11 weight.
+TOTAL_SHIFT = 24
+
 # Bytes per lane of photon state in the reference layout: pos/dir (3 f32
 # each), ivox (3 i32), w/s_left/t (f32), rng (4 u32), alive (i8).  The
 # port carries rng as 4 int64 words, 16 bytes more (STATE_LANE_BYTES_PORT).
@@ -60,7 +82,8 @@ def output_arity(n_det: int = 0, record: bool = False, jac_cols: int = 0,
 def check_groups(ppath=None, det_geom=None, record=False, jac_w=None,
                  jac_col=None, jac_cols: int = 0) -> tuple[int, bool, int]:
     """Check which optional output groups a call asks for; returns
-    ``(n_det, record, jac_cols)``.
+    ``(n_det, record, jac_cols)``.  ``det_geom`` is ``(n_det, 3)``, or
+    ``(S, n_det, 3)`` for a launch of S scenarios.
 
     Raises ``ValueError`` as the reference does: ``ppath`` and
     ``det_geom`` go together, ``jac_w``, ``jac_col`` and ``jac_cols > 0``
@@ -73,7 +96,16 @@ def check_groups(ppath=None, det_geom=None, record=False, jac_w=None,
             (jac_w is None) != (jac_col is None):
         raise ValueError("jac_w, jac_col and jac_cols > 0 must be given "
                          "together")
-    n_det = 0 if det_geom is None else int(det_geom.shape[0])
+    n_det = 0 if det_geom is None else int(det_geom.shape[-2])
     if record and not n_det:
         raise ValueError("record=True requires detectors (det_geom)")
     return n_det, bool(record), jac_cols
+
+
+def scenario_count(media) -> tuple[int, bool]:
+    """``(S, batched)`` of a call: a ``(S, n_media, 4)`` media table
+    makes it a launch of S scenarios, a ``(n_media, 4)`` one a launch of
+    one scenario with unbatched output grids."""
+    if media.ndim == 3:
+        return int(media.shape[0]), True
+    return 1, False

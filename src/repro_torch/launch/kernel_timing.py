@@ -8,7 +8,9 @@ regeneration and kernel launches as the simulator runs them, and B2
 with 50 time gates and three detectors for the detection forward
 (det+record+stats).  For each it prints one JSON line: the device ms of
 a launch (CUDA events around ``--reps`` launches queued behind a spin
-kernel), the ms a launch of the loop as the host issues it, and the
+kernel; where the wrapper takes ``totals``, also adding into run totals
+as the simulator launches it, ``device_ms_add_into``), the ms a launch
+of the loop as the host issues it, and the
 wrapper's host µs a call (median and quartiles over 25 loops of 40
 calls, each queued behind a spin kernel so that the device never holds
 the host back).  It needs a CUDA device.
@@ -22,12 +24,13 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import inspect
 import json
 import time
 
 import torch
 
-from repro_torch.core import simulator as S
+from repro_torch.core import photon as ph
 from repro_torch.detectors import as_detectors, det_geometry
 from repro_torch.kernels.photon_step import ops
 from repro_torch.kernels.photon_step import photon_step as K
@@ -43,12 +46,32 @@ DETECTORS = [{"x": 40, "y": 30, "radius": 2}, {"x": 45, "y": 30, "radius": 2},
 SPIN_CYCLES = 200_000_000
 
 
+def _relaunch(st, remaining, next_lo, src, seed, shape, pp=None):
+    """Dynamic regeneration of one scenario, as the simulator runs it:
+    dead lanes, in lane order, take the next ``remaining`` photon ids
+    (below 2**32 here).  Returns ``(state, remaining, next_lo, pp)``."""
+    dead = ~st.alive
+    relaunch = dead & (torch.cumsum(dead.to(torch.int64), 0) <= remaining)
+    rel = relaunch.to(torch.int64)
+    ids = next_lo + torch.cumsum(rel, 0) - 1
+    fresh = ph.launch(*src.sample(ids, seed), relaunch, shape)
+    st = ph.PhotonState(*(
+        torch.where(relaunch[:, None] if new.ndim > 1 else relaunch, new, old)
+        for new, old in zip(fresh, st)))._replace(alive=st.alive | relaunch)
+    if pp is not None:
+        pp = torch.where(relaunch[:, None], torch.zeros_like(pp), pp)
+    n = rel.sum()
+    return st, remaining - n, next_lo + n, pp
+
+
 def mid_run_state(vol, cfg, lanes: int = LANES, photons: int = PHOTONS,
                   n_steps: int = K_STEPS, groups=None):
     """The lanes after 12 rounds of regeneration and a kernel launch, as
     the simulator runs them, and regenerated once more; with
     ``groups`` (the detector keywords of ``photon_step_cuda``) the
-    per-medium paths are carried too.  Returns ``(state, ppath)``."""
+    per-medium paths are carried too.  Returns ``(state, ppath)``.
+    Uses only entry points that earlier checkouts of the port have too,
+    so one file times both."""
     dev, shape = vol.device, vol.shape
     src = Pencil()
     st = ops.fresh_state(vol, lanes, seed=99)._replace(
@@ -56,15 +79,13 @@ def mid_run_state(vol, cfg, lanes: int = LANES, photons: int = PHOTONS,
     pp = (torch.zeros((lanes, vol.media.shape[0]), device=dev)
           if groups else None)
     remaining = torch.tensor(photons, device=dev)
-    launched = torch.zeros(lanes, dtype=torch.int64, device=dev)
-    next_id = (torch.tensor(0, device=dev), torch.tensor(0, device=dev))
+    next_lo = torch.tensor(0, device=dev)
     for i in range(13):
-        st, remaining, launched, next_id, _, *carry = S._regenerate(
-            st, remaining, launched, next_id, None, src, 99, "dynamic",
-            shape, pp)
+        st, remaining, next_lo, pp = _relaunch(st, remaining, next_lo, src,
+                                               99, shape, pp)
         if i == 12:
-            return st, (carry[0] if groups else None)
-        kw = dict(groups, ppath=carry[0]) if groups else {}
+            return st, pp
+        kw = dict(groups, ppath=pp) if groups else {}
         outs = K.photon_step_cuda(vol.labels.reshape(-1), vol.media, st,
                                   shape, 1.0, cfg, n_steps, **kw)
         st, pp = outs[0], (outs[5] if groups else None)
@@ -149,6 +170,18 @@ def main(argv=None) -> list[dict]:
                "host_us": hosts[len(hosts) // 2],
                "host_us_quartiles": [hosts[q], hosts[-1 - q]],
                "device": torch.cuda.get_device_name(0)}
+        if "totals" in inspect.signature(K.photon_step_cuda).parameters:
+            # as the simulator launches it: adding into the run's
+            # fixed-point totals, with no grid zeroed
+            first = call()
+            totals = [torch.zeros_like(first[i]) for i in (
+                (1, 2, 6, 7) if kw else (1, 2))]
+
+            def call_into():
+                return K.photon_step_cuda(
+                    vol.labels.reshape(-1), vol.media, st, vol.shape, 1.0,
+                    cfg, K_STEPS, totals=totals, **kw)
+            out["device_ms_add_into"] = device_ms(call_into, args.reps)
         print(json.dumps(out), flush=True)
         results.append(out)
     return results

@@ -13,6 +13,17 @@ absorption Jacobians, with round counters:
       --save-detected 1048576 --replay --replay-gate-resolved \
       --collect-stats
 
+Any registered source (``--source``), a lane-count pilot sweep
+(``--autotune``), and a fleet of scenarios batched into one round loop
+(``--scenarios``, one kernel launch a round for each group of
+scenarios of one shape), with the span timeline and metrics written
+out:
+
+  PYTHONPATH=src python -m repro_torch.launch.simulate --scenarios \
+      '[{"bench": "B2", "size": 60, "photons": 1000000, "source":
+         {"type": "disk", "pos": [20, 30, 0], "radius": 3}}, ...]' \
+      --lanes 32768 --trace-out trace.json --metrics-out metrics.jsonl
+
 Runs on the CUDA device by default, where each fused round (forward,
 and both replay passes) is one launch of the CUDA photon-step kernel;
 ``--device cpu`` runs the plain PyTorch version instead.
@@ -29,6 +40,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import scenarios as SC
+from repro_torch import telemetry as T
 from repro_torch.core import analysis as A
 from repro_torch.core import simulator as S
 from repro_torch.core import volume as V
@@ -49,12 +62,75 @@ def get_bench(name: str, size: int, device="cpu"):
 
 class Run(NamedTuple):
     """What one CLI run computed, with its host-clock seconds (each
-    ended by a device synchronisation)."""
+    ended by a device synchronisation); with ``--scenarios``, the
+    scenarios' results in ``scenarios`` and no ``result``."""
 
-    result: S.SimResult
+    result: S.SimResult | None
     replay: ReplayResult | None
     seconds: float
     replay_seconds: float | None
+    scenarios: list | None = None
+
+
+def _synchronize(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _close(tracer, sinks, trace_out) -> None:
+    if tracer is None:
+        return
+    if trace_out:
+        path = tracer.save_chrome_trace(trace_out)
+        print(f"trace timeline: {path} "
+              f"({len(tracer.events)} spans; open in chrome://tracing)")
+    for sink in sinks:
+        sink.close()
+
+
+def _run_scenarios(args, ap, dev, tracer, sinks) -> Run:
+    """--scenarios: the fleet through ``scenarios.simulate_many``."""
+    spec = args.scenarios
+    if spec.startswith("@"):
+        with open(spec[1:]) as f:
+            spec = f.read()
+    entries = json.loads(spec)
+    if not isinstance(entries, list) or not entries:
+        ap.error("--scenarios expects a non-empty JSON list of scenario "
+                 "dicts (or @file.json holding one)")
+    scenarios = [SC.Scenario.from_dict(e) for e in entries]
+    cache = SC.default_cache()
+    t0 = time.perf_counter()
+    results = SC.simulate_many(scenarios, n_lanes=args.lanes, device=dev,
+                               cache=cache, tracer=tracer)
+    _synchronize(dev)
+    dt = time.perf_counter() - t0
+
+    total_photons = sum(sc.n_photons for sc in scenarios)
+    keys = {SC.group_key(sc, args.lanes, device=dev) for sc in scenarios}
+    print(f"scenarios: {len(scenarios)} in {dt:.2f}s "
+          f"({len(scenarios)/dt:.2f} scenarios/s, "
+          f"{total_photons/dt/1e3:.2f} photons/ms total), "
+          f"{len(keys)} config shape(s)")
+    st = cache.stats()
+    print(f"compile cache: {st['hits']} hits / {st['misses']} misses "
+          f"(hit rate {st['hit_rate']:.2f}), {st['entries']} entries, "
+          f"{st['evictions']} evictions")
+    for i, (sc, res) in enumerate(zip(scenarios, results)):
+        bal = A.energy_balance(res)
+        line = (f"  scenario {i}: {sc.n_photons} photons seed={sc.seed} "
+                f"absorbed={bal['absorbed']:.1f} "
+                f"escaped={bal['escaped']:.1f} "
+                f"residue={bal['residue_frac']:.2e}")
+        if sc.detectors:
+            line += f" det_w={float(res.det_w.double().sum()):.3f}"
+        print(line)
+    if tracer is not None:
+        engine = "kernel" if dev.type == "cuda" else "plain"
+        tracer.counter("scenarios_per_s", len(scenarios) / dt, engine=engine)
+        tracer.counter("photons_per_s", total_photons / dt, engine=engine)
+    _close(tracer, sinks, args.trace_out)
+    return Run(None, None, dt, None, results)
 
 
 def run(argv=None) -> Run:
@@ -100,6 +176,30 @@ def run(argv=None) -> Run:
                          "relaunches, retired weight) onto "
                          "SimResult.stats; physics outputs stay "
                          "bit-identical")
+    ap.add_argument("--source", default=None,
+                    help="JSON source spec (repro_torch.sources), e.g. "
+                         '\'{"type": "disk", "pos": [30, 30, 0], '
+                         '"radius": 5}\'; default: pencil beam')
+    ap.add_argument("--autotune", action="store_true",
+                    help="Opt2: pilot-sweep the lane count (at the chosen "
+                         "steps-per-round) and run with the fastest")
+    ap.add_argument("--scenarios", default=None, metavar="JSON",
+                    help="batched multi-scenario run (repro_torch."
+                         "scenarios): a JSON list of scenario dicts (or "
+                         "@file.json), each with keys bench/size/photons/"
+                         "seed/source/detectors/time_gates/"
+                         "steps_per_round/tmax_ns/do_reflect/id_offset.  "
+                         "Scenarios of one config shape run as one batch, "
+                         "one kernel launch a round; results are bit-"
+                         "identical to sequential runs")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="stream structured telemetry events (spans, "
+                         "counters) as JSON lines to PATH")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write the host-side span timeline as Chrome "
+                         "trace_event JSON to PATH (chrome://tracing or "
+                         "Perfetto; per-device photons/s feeds "
+                         "telemetry.fit_device_models)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cuda: the CUDA kernel (default); cpu: the plain "
                          "PyTorch version")
@@ -110,8 +210,20 @@ def run(argv=None) -> Run:
         ap.error("--replay requires --save-detected")
     if args.replay_gate_resolved and not args.replay:
         ap.error("--replay-gate-resolved requires --replay")
+    if args.scenarios:
+        for flag in ("autotune", "save_detected", "replay", "source",
+                     "detectors", "collect_stats"):
+            if getattr(args, flag):
+                ap.error(f"--scenarios is incompatible with "
+                         f"--{flag.replace('_', '-')} (scenario dicts "
+                         f"carry their own per-scenario config)")
 
     dev = resolve_device(args.device)
+    sinks = [T.JsonlSink(args.metrics_out)] if args.metrics_out else []
+    tracer = T.Tracer(sinks=sinks) if (args.trace_out or sinks) else None
+    if args.scenarios:
+        return _run_scenarios(args, ap, dev, tracer, sinks)
+    source = json.loads(args.source) if args.source else None
     detectors = as_detectors(
         json.loads(args.detectors)) if args.detectors else None
     vol, cfg = get_bench(args.bench, args.size, dev)
@@ -121,12 +233,24 @@ def run(argv=None) -> Run:
     if args.tmax_ns is not None:
         cfg = dataclasses.replace(cfg, tmax_ns=args.tmax_ns)
 
+    lanes = args.lanes
+    if args.autotune:
+        lanes, timings = S.autotune_lanes(vol, cfg,
+                                          n_pilot=args.photons // 10,
+                                          source=source, device=dev)
+        print("autotune:", {k: round(v, 3) for k, v in timings.items()},
+              "-> lanes =", lanes)
+
+    engine = "kernel" if dev.type == "cuda" else "plain"
     t0 = time.perf_counter()
-    res = S.simulate(vol, cfg, args.photons, args.lanes, args.seed,
+    span = tracer.span("simulate", device=dev, engine=engine,
+                       photons=args.photons) if tracer else None
+    res = S.simulate(vol, cfg, args.photons, lanes, args.seed, source=source,
                      device=dev, detectors=detectors,
                      record_detected=args.save_detected)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    if span is not None:
+        span.end()
+    _synchronize(dev)
     dt = fwd_seconds = time.perf_counter() - t0
 
     bal = A.energy_balance(res)
@@ -150,6 +274,10 @@ def run(argv=None) -> Run:
               f"{sd['lane_occupancy']:.1%} "
               f"({sd['live_segments']:.3g}/{sd['lane_segments']:.3g} "
               f"lane-segments live)")
+        if tracer is not None:
+            for k, v in sd.items():
+                tracer.counter(f"round_stats.{k}", v, bench=args.bench,
+                               engine=engine)
     phi = A.fluence_cw(res, vol)
     print(f"fluence: max={float(phi.max()):.3e} "
           f"nonzero voxels={int((phi > 0).sum())}")
@@ -178,10 +306,10 @@ def run(argv=None) -> Run:
                   f"raise --save-detected")
         if args.replay and recs.shape[0]:
             t0 = time.perf_counter()
-            rep = replay_jacobian(vol, cfg, recs, detectors, seed=args.seed,
-                                  n_lanes=args.lanes,
+            rep = replay_jacobian(vol, cfg, recs, detectors, source=source,
+                                  seed=args.seed, n_lanes=lanes,
                                   gate_resolved=args.replay_gate_resolved,
-                                  device=dev)
+                                  device=dev, tracer=tracer)
             dt = time.perf_counter() - t0
             ok = int((rep.replayed_det == rep.det).sum())
             print(f"replay[{dev.type}]: {rep.n_records} photons "
@@ -199,13 +327,24 @@ def run(argv=None) -> Run:
                 per_gate = jac.sum(axis=(0, 1, 2, 3))
                 print(f"  gate-resolved: {jac.shape[-1]} gates, "
                       f"peak gate {int(per_gate.argmax())}")
+            _finish(tracer, sinks, args, fwd_seconds, engine)
             return Run(res, rep, fwd_seconds, dt)
+    _finish(tracer, sinks, args, fwd_seconds, engine)
     return Run(res, None, fwd_seconds, None)
 
 
-def main(argv=None) -> S.SimResult:
-    """Run the CLI; returns the forward ``SimResult``."""
-    return run(argv).result
+def _finish(tracer, sinks, args, fwd_seconds, engine) -> None:
+    if tracer is not None:
+        tracer.counter("photons_per_s", args.photons / fwd_seconds,
+                       bench=args.bench, engine=engine)
+    _close(tracer, sinks, args.trace_out)
+
+
+def main(argv=None):
+    """Run the CLI; returns the forward ``SimResult``, or with
+    ``--scenarios`` the list of the scenarios' results."""
+    out = run(argv)
+    return out.scenarios if out.scenarios is not None else out.result
 
 
 if __name__ == "__main__":

@@ -176,14 +176,14 @@ def replay_jacobian(volume: Volume, cfg: SimConfig, records, detectors,
     ``(nvox, n_det, ntg)`` keyed by each record's exit gate; its
     gate-sum is the ungated Jacobian.  Records run in batches of
     ``n_lanes`` lanes, and the Jacobian is summed on the host in
-    float64.  ``mesh`` (a sharded replay) and ``tracer`` (spans) are
-    not ported yet and raise ``NotImplementedError``.
+    float64.  ``tracer`` (a ``repro_torch.telemetry.Tracer``) records
+    one ``replay_batch`` span per batch, tagged with its record count
+    and ended after a device synchronisation.  ``mesh`` (a sharded
+    replay) is not ported yet and raises ``NotImplementedError``.
     """
     if mesh is not None:
         raise NotImplementedError("replay over a device mesh is not "
                                   "ported yet")
-    if tracer is not None:
-        raise NotImplementedError("replay tracing is not ported yet")
     if isinstance(records, SimResult):
         records = detected_records(records)
     records = np.asarray(records, np.uint32).reshape(-1, 4)
@@ -223,12 +223,19 @@ def replay_jacobian(volume: Volume, cfg: SimConfig, records, detectors,
     for start in range(0, n_rec, n_lanes):
         nb, id_lo, id_hi, col, active = _batch_arrays(
             records, start, n_lanes, gate_resolved, ntg)
+        span = None
+        if tracer is not None:
+            span = tracer.span("replay_batch", device=dev,
+                               engine="kernel" if dev.type == "cuda"
+                               else "plain", records=nb, batch_start=start)
         jac_b, w_b, g_b, rd_b = fn(
             labels_flat, media,
             torch.tensor(id_lo.astype(np.int64), device=dev),
             torch.tensor(id_hi.astype(np.int64), device=dev),
             torch.tensor(col, device=dev), torch.tensor(active, device=dev),
             seed)
+        if span is not None:
+            span.end()
         jac += jac_b.cpu().numpy()
         if dev.type == "cuda":
             check_errors(dev)

@@ -17,6 +17,15 @@ Launch-time randomness comes from a launch stream seeded from
 seeded from ``(seed, photon_id)``, so the choice of source never changes
 a trajectory given its launch state.  Each source type consumes a fixed
 number of launch-stream uniforms per photon (``N_DRAWS``).
+
+Every registered source splits ``sample`` into ``stage()``, the host
+derivations over its fields in float64 (unit vectors, frames, trig)
+rounded once to float32 numpy arrays, and ``sample_staged(staged, ids,
+seed)``, which reads only the staged dict and works on a leading
+scenario axis: staged values ``(S, ...)``, ids ``(S, n)``, seed an int
+or an ``(S, 1)`` word tensor, results ``(S, n, ...)``.  ``sample`` is
+``sample_staged`` of the staged dict with S = 1, so a batch of
+scenarios (``repro_torch.scenarios``) runs the same operations as one.
 """
 
 from __future__ import annotations
@@ -52,10 +61,148 @@ def flight_stream(seed, photon_ids) -> torch.Tensor:
     return xrng.seed_state(seed, photon_ids)
 
 
-def unit(v) -> torch.Tensor:
-    """Normalize a static 3-vector in float64, return float32 (CPU)."""
+def unit(v) -> np.ndarray:
+    """Normalize a static 3-vector in float64, return float32."""
     d = np.asarray(v, np.float64)
-    return torch.as_tensor((d / np.linalg.norm(d)).astype(np.float32))
+    return (d / np.linalg.norm(d)).astype(np.float32)
+
+
+def orthonormal_frame(axis) -> tuple[np.ndarray, np.ndarray]:
+    """Two unit float32 vectors spanning the plane perpendicular to a
+    static axis (derived in float64)."""
+    a = np.asarray(axis, np.float64)
+    a = a / np.linalg.norm(a)
+    h = np.array([0.0, 0.0, 1.0]) if abs(a[2]) < 0.9 else np.array(
+        [1.0, 0.0, 0.0])
+    e1 = np.cross(h, a)
+    e1 = e1 / np.linalg.norm(e1)
+    e2 = np.cross(a, e1)
+    return e1.astype(np.float32), e2.astype(np.float32)
+
+
+# float32(2 pi), the constant every launch-angle formula multiplies by
+TWO_PI = float(np.float32(2.0 * np.pi))
+
+
+def vec(p: torch.Tensor) -> torch.Tensor:
+    """A staged ``(S, 3)`` vector as ``(S, 1, 3)``, to broadcast over a
+    scenario's lanes."""
+    return p[:, None, :]
+
+
+def col(p: torch.Tensor) -> torch.Tensor:
+    """A staged ``(S,)`` scalar as ``(S, 1)``."""
+    return p[:, None]
+
+
+def isotropic_direction(u_cos, u_phi) -> torch.Tensor:
+    """Unit directions uniform over the sphere from two launch uniforms
+    (``(..., 3)``); shared by every isotropically emitting source."""
+    cost = 2.0 * u_cos - 1.0
+    sint = torch.sqrt(torch.clamp(1.0 - cost * cost, min=0.0))
+    phi = TWO_PI * u_phi
+    return torch.stack([sint * torch.cos(phi), sint * torch.sin(phi), cost],
+                       dim=-1)
+
+
+def radial_offset(pos, r, u_phi, e1, e2) -> torch.Tensor:
+    """Offset ``(S, n, 3)`` positions by radius ``r`` ``(S, n)`` at
+    azimuth ``2 pi u_phi`` in the plane of the staged ``(S, 3)`` frame
+    ``(e1, e2)``; shared by every radial beam profile (disk, Gaussian)."""
+    phi = TWO_PI * u_phi
+    return (pos + (r * torch.cos(phi))[..., None] * vec(e1)
+            + (r * torch.sin(phi))[..., None] * vec(e2))
+
+
+def direction_from_axis(cost, phi, axis, e1, e2) -> torch.Tensor:
+    """Unit directions at polar cosine ``cost`` / azimuth ``phi``
+    (``(S, n)``) around a staged ``(S, 3)`` axis with perpendicular
+    frame ``(e1, e2)``."""
+    cost = torch.clamp(cost, -1.0, 1.0)
+    sint = torch.sqrt(torch.clamp(1.0 - cost * cost, min=0.0))
+    d = ((sint * torch.cos(phi))[..., None] * vec(e1)
+         + (sint * torch.sin(phi))[..., None] * vec(e2)
+         + cost[..., None] * vec(axis))
+    dx, dy, dz = d.unbind(-1)
+    norm = torch.sqrt(dx * dx + dy * dy + dz * dz)[..., None]
+    return d / torch.clamp(norm, min=1e-12)
+
+
+def ones(ids) -> torch.Tensor:
+    """Unit launch weights, one per id of an ``(S, n)`` id array."""
+    return torch.ones(ids.lo.shape, dtype=torch.float32, device=ids.lo.device)
+
+
+def lanes(p: torch.Tensor, ids) -> torch.Tensor:
+    """A staged ``(S, 3)`` vector broadcast to every lane: ``(S, n, 3)``."""
+    return vec(p).expand(ids.lo.shape + (3,))
+
+
+# ---------------------------------------------------------------------------
+# staged launch parameters (scenario batching)
+# ---------------------------------------------------------------------------
+
+def staged_tensors(staged: dict, device, batch: bool = True) -> dict:
+    """A staged dict's numpy values as float32 tensors on ``device``,
+    with a leading scenario axis of 1 unless they have one (``batch``
+    False)."""
+    out = {}
+    for k, v in staged.items():
+        t = torch.as_tensor(np.asarray(v, np.float32), device=device)
+        out[k] = t[None] if batch else t
+    return out
+
+
+def sample_one(source_cls, staged: dict, photon_ids, seed):
+    """``sample`` of one scenario through ``sample_staged``: ids
+    ``(n,)``, results ``(n, ...)``."""
+    ids = xrng.as_photon_id(photon_ids)
+    ids = xrng.PhotonId(ids.lo[None], ids.hi[None])
+    out = source_cls.sample_staged(staged_tensors(staged, ids.lo.device),
+                                   ids, seed)
+    return tuple(x[0] for x in out)
+
+
+class StagedSource:
+    """A source class bound to staged launch parameters.
+
+    ``sample(ids, seed)`` runs the class's ``sample_staged`` on the
+    staged dict (numpy values, as ``stage()`` gives them), the same
+    operations as the source it was staged from.  Hashable by identity,
+    so ``as_source`` passes it through.
+    """
+
+    __slots__ = ("source_cls", "staged")
+
+    def __init__(self, source_cls: type, staged: dict):
+        self.source_cls = source_cls
+        self.staged = dict(staged)
+
+    def sample(self, photon_ids, seed):
+        return sample_one(self.source_cls, self.staged, photon_ids, seed)
+
+
+def stage_source(source) -> tuple[type, dict]:
+    """Coerce and stage: returns ``(source class, staged dict)``, the
+    dict's values float32 numpy arrays."""
+    src = as_source(source)
+    if isinstance(src, StagedSource):
+        return src.source_cls, dict(src.staged)
+    if not hasattr(src, "stage"):
+        raise TypeError(
+            f"source {type(src).__qualname__} does not support staged "
+            f"launch parameters (needs stage()/sample_staged(); required "
+            f"for simulate_many batching)")
+    return type(src), src.stage()
+
+
+def staged_structure(source) -> tuple:
+    """Hashable structural signature of a source's staged params:
+    ``(type_name, ((param, shape), ...))``.  Two sources batch into one
+    launch exactly when it matches."""
+    cls, staged = stage_source(source)
+    return (cls.type_name,
+            tuple((k, tuple(np.shape(staged[k]))) for k in sorted(staged)))
 
 
 # ---------------------------------------------------------------------------

@@ -9,7 +9,9 @@ more than 1e-3 voxel^2 from every r^2, and on >= 99.9% of all lanes, edge
 points included (measured over seeds 1-4: all 4000 lanes agree, the ~200
 edge points among them).  The sums of
 ``accumulate_capture`` (float32 scatter-adds in another order) are held
-to 1e-6 relative; per-lane paths and capture records are equal.
+to 1e-6 relative; per-lane paths and capture records are equal.  Into
+int64 grids it adds the same deposits in fixed point, each rounded once,
+so those sums are within half a unit a deposit of the float ones.
 """
 
 import types
@@ -23,6 +25,8 @@ import numpy as np  # noqa: E402
 
 from repro import detectors as JD  # noqa: E402
 from repro_torch import detectors as TD  # noqa: E402
+from repro_torch.core.fixed import from_fixed  # noqa: E402
+from repro_torch.kernels.photon_step.spec import FIXED_SHIFT  # noqa: E402
 
 SPEC = [{"x": 10.0, "y": 10.0, "radius": 3.0},
         {"x": 12.5, "y": 9.0, "radius": 2.0},   # overlaps detector 0
@@ -130,6 +134,17 @@ def test_accumulate_and_update_capture_match_reference():
     np.testing.assert_allclose(tdw.numpy(), np.asarray(jdw), rtol=1e-6)
     np.testing.assert_allclose(tdp.numpy(), np.asarray(jdp), rtol=1e-6)
     assert float(tdw.sum()) > 0
+    # int64 grids take the same deposits in fixed point, in place: within
+    # half a unit a deposit of the float sums
+    fdw = torch.zeros(n_det * ntg, dtype=torch.int64)
+    fdp = torch.zeros(n_det, n_media, dtype=torch.int64)
+    fpp, fdw2, fdp2 = TD.accumulate_capture(
+        torch.tensor(pp), fdw, fdp, t, torch.tensor(gate), tgeom, ntg)
+    assert fdw2 is fdw and fdp2 is fdp and torch.equal(fpp, tpp)
+    for fixed, flt, name in ((fdw, tdw, "det_w"), (fdp, tdp, "det_ppath")):
+        shift = FIXED_SHIFT[name]
+        err = (from_fixed(fixed, shift).double() - flt.double()).abs().max()
+        assert float(err) <= N * 2.0**-shift + 1e-6 * float(flt.abs().max())
     capd0 = torch.full((N,), -1, dtype=torch.int32)
     capg0 = torch.zeros(N, dtype=torch.int32)
     tcd, tcg = TD.update_capture(capd0, capg0, t, torch.tensor(gate), tgeom)

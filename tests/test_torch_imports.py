@@ -47,6 +47,13 @@ def test_scan_sees_the_whole_port():
                  "src/repro_torch/replay/__init__.py",
                  "src/repro_torch/detectors/__init__.py",
                  "src/repro_torch/telemetry/stats.py",
+                 "src/repro_torch/telemetry/trace.py",
+                 "src/repro_torch/telemetry/sinks.py",
+                 "src/repro_torch/telemetry/__init__.py",
+                 "src/repro_torch/core/loadbalance.py",
+                 "src/repro_torch/scenarios/__init__.py",
+                 "src/repro_torch/sources/types.py",
+                 "src/repro_torch/sources/base.py",
                  "chip_smoke.py"):
         assert must in names
 

@@ -99,12 +99,12 @@ def test_prepare_orders_arguments_as_the_entry_point_documents():
             "ivox": (torch.int32, (N, 3)), "w": (torch.float32, (N,)),
             "s_left": (torch.float32, (N,)), "t": (torch.float32, (N,)),
             "rng": (torch.int64, (N, 4)), "alive": (torch.bool, (N,)),
-            "fluence": (torch.float32, (nvox * ntg,)),
-            "exitance": (torch.float32, (SHAPE[0] * SHAPE[1],)),
+            "fluence": (torch.int64, (nvox * ntg,)),
+            "exitance": (torch.int64, (SHAPE[0] * SHAPE[1],)),
             "escaped": (torch.float32, (N,)), "timed": (torch.float32, (N,)),
             "ppath": (torch.float32, (N, n_media)),
-            "det_w": (torch.float32, (ntg,)),
-            "det_ppath": (torch.float32, (1, n_media)),
+            "det_w": (torch.int64, (ntg,)),
+            "det_ppath": (torch.int64, (1, n_media)),
             "cap_det": (torch.int32, (N,)), "cap_gate": (torch.int32, (N,)),
             "jac": (torch.float32, (nvox * 3,)),
             "stats": (torch.float32, (N, 2))}
@@ -116,8 +116,8 @@ def test_prepare_orders_arguments_as_the_entry_point_documents():
     assert named == {
         "n": N, "nx": 12, "ny": 10, "nz": 8, "n_steps": 7, "ntg": 4,
         "general_exact": 0, "do_reflect": 1, "taylor": 0, "groups": 15,
-        "n_det": 1, "n_media": n_media, "jac_cols": 3,
-        "threads": K.THREADS, "blocks": 2}
+        "n_det": 1, "n_media": n_media, "jac_cols": 3, "scenarios": 1,
+        "labels_stride": 0, "add_into": 0, "threads": K.THREADS, "blocks": 2}
     assert contract["floats"] == ["unit", "gate_scale", "tmax",
                                   "w_threshold", "roulette_m", "roulette_p"]
     assert floats[0] == 0.5 and floats[2] == cfg.tmax_ns
@@ -143,7 +143,7 @@ def test_prepare_sizes_ppath_by_the_media_table(n_media):
     _, _, _, kw, args = _call(groups=("det",), n_media=n_media)
     _, ins, outs, ints, _ = K.prepare(*args, **kw)
     assert ints[11] == n_media
-    assert ins[10].shape == outs[12].shape == (N, n_media)
+    assert ins[11].shape == outs[12].shape == (N, n_media)
     assert outs[14].shape == (1, n_media)
 
 
@@ -190,16 +190,20 @@ def test_plain_version_sums_its_grids_exactly_on_request():
     f32 = photon_steps_ref(*args, **kw)
     f64 = photon_steps_ref(*args, **kw, accumulate=torch.float64)
     again = photon_steps_ref(*args, **kw, accumulate=torch.float32)
-    grids = {1, 2, 6, 7, 10}  # fluence, exitance, TPSF, path sums, Jacobian
+    fixed = {1, 2, 6, 7}  # fluence, exitance, TPSF, path sums
     for i, (a, b, c) in enumerate(zip(f32, f64, again)):
         if i == 0:
             for x, y, z in zip(a, b, c):
                 assert torch.equal(x, y) and torch.equal(x, z)
-        elif i in grids:
+        elif i in fixed:
+            # int64 fixed point whatever the Jacobian sums in
+            assert a.dtype == torch.int64
+            assert torch.equal(a, b) and torch.equal(a, c)
+            assert i != 1 or int(a.sum()) > 0
+        elif i == 10:  # the Jacobian, the one float grid
             assert b.dtype == torch.float64 and a.dtype == torch.float32
             assert torch.equal(a, c)
             torch.testing.assert_close(a.double(), b, rtol=1e-5, atol=1e-6)
-            assert i != 1 or float(b.sum()) > 0
         else:
             assert torch.equal(a, b) and torch.equal(a, c)
 

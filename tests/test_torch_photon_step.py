@@ -11,7 +11,9 @@ are bit-equal.  The float state is IEEE float32 in the port and
 FMA-contracted in XLA's CPU code (see test_torch_photon.py), and B1's
 HG cancellation can turn that into a different voxel crossing, so
 alive/ivox must agree on >= 99% of lanes; fluence and exitance totals
-(sums over all lanes) agree to 1e-4 relative.
+(sums over all lanes) agree to 1e-4 relative.  The port's grids are
+int64 fixed point (``spec.FIXED_SHIFT``), compared as the float32
+values ``core.fixed.from_fixed`` gives.
 
 The optional output groups are held the same way, with two detectors
 at and beside the pencil so that backscattered photons are captured:
@@ -42,6 +44,7 @@ from repro.kernels.photon_step import ref as jref  # noqa: E402
 from repro.kernels.photon_step.photon_step import \
     photon_step_pallas  # noqa: E402
 from repro_torch.core import photon as tph  # noqa: E402
+from repro_torch.core.fixed import from_fixed  # noqa: E402
 from repro_torch import detectors as TD  # noqa: E402
 from repro_torch.core import volume as TV  # noqa: E402
 from repro_torch.kernels.photon_step import ops  # noqa: E402
@@ -68,8 +71,20 @@ def _setup(bench, ntg):
     return jv, tv, cfg, TV.SimConfig(**dataclasses.asdict(cfg)), jst, tst
 
 
+def _float_grids(got):
+    """The port's fixed-point fluence, exitance, TPSF and path sums as
+    float32, by their positions in a call's outputs."""
+    got = list(got)
+    for i, name in ((1, "fluence"), (2, "exitance"), (6, "det_w"),
+                    (7, "det_ppath")):
+        if i < len(got) and (i < 5 or len(got) > 7) and \
+                got[i].dtype == torch.int64:
+            got[i] = from_fixed(got[i], tspec.FIXED_SHIFT[name])
+    return got
+
+
 def _compare(got, ref):
-    st, flu, exi, esc, timed = got
+    st, flu, exi, esc, timed = _float_grids(got)
     rst, rflu, rexi, resc, rtimed = (np.asarray(x) if i else x
                                      for i, x in enumerate(ref))
     g = tph.state_to_numpy(st)
@@ -152,7 +167,8 @@ def test_plain_version_groups_match_jax_oracle_and_pallas(bench, ntg):
     targs = (tv.labels.reshape(-1), tv.media, tst, SHAPE, 1.0, tcfg, K)
     jargs = (labels, jv.media, jst, SHAPE, 1.0, cfg, K)
     # every group at once against the oracle
-    got = tref.photon_steps_ref(*targs, **t, record=True, **tj, stats=True)
+    got = _float_grids(tref.photon_steps_ref(*targs, **t, record=True, **tj,
+                                             stats=True))
     ref = jref.photon_steps_ref(*jargs, **j, record=True, **jj, stats=True)
     assert len(got) == len(ref) == tspec.output_arity(2, True, JAC_COLS, True)
     _compare(got[:5], ref[:5])

@@ -150,8 +150,17 @@ def test_replay_input_validation(b2_forward):
                         device="cpu")
     with pytest.raises(NotImplementedError):
         replay_jacobian(vol, cfg, rec, DETS, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError):
-        replay_jacobian(vol, cfg, rec, DETS, device="cpu", tracer=object())
+    # a tracer gets one span a batch, tagged with the batch's records
+    from repro_torch.telemetry import InMemorySink, Tracer
+    tracer = Tracer(sinks=[InMemorySink()])
+    part = rec[:100]
+    traced = replay_jacobian(vol, cfg, part, DETS, device="cpu", n_lanes=64,
+                             tracer=tracer)
+    spans = [e for e in tracer.events if e.name == "replay_batch"]
+    assert [e.args["records"] for e in spans] == [64, part.shape[0] - 64]
+    assert [e.args["batch_start"] for e in spans] == [0, 64]
+    assert traced.n_records == part.shape[0] and all(
+        e.device == "cpu:0" and e.dur > 0 for e in spans)
     # no records: an empty, well-formed result
     empty = replay_jacobian(vol, cfg, rec[:0], DETS, device="cpu")
     assert empty.n_records == 0 and float(empty.jacobian.sum()) == 0.0

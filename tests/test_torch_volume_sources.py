@@ -86,7 +86,8 @@ def test_pencil_sample_bit_equal(src):
 
 
 def test_source_registry_and_dict_round_trip():
-    assert TS.available_sources() == ("pencil",)
+    assert TS.available_sources() == JS.available_sources() == (
+        "cone", "disk", "gaussian", "isotropic", "line", "pencil", "planar")
     assert TS.LAUNCH_STREAM_SALT == JS.LAUNCH_STREAM_SALT
     p = TS.Pencil(pos=(1.0, 2.0, 0.0), dir=(0.0, 1.0, 1.0))
     d = TS.to_dict(p)
@@ -98,7 +99,7 @@ def test_source_registry_and_dict_round_trip():
     assert TS.as_source(TV.Source(pos=(1.0, 2.0, 0.0),
                                   dir=(0.0, 1.0, 1.0))) == p
     with pytest.raises(KeyError):
-        TS.from_dict({"type": "disk"})
+        TS.from_dict({"type": "laser"})
     with pytest.raises(TypeError):
         TS.as_source(42)
 
