@@ -33,12 +33,11 @@ script exits non-zero and prints no result:
            fresh B2 photons (60^3, 131072 lanes, K=8, 4 gates, three
            detectors) and on a mid-run B2 state at the detection path's
            shape (262144 lanes, K=16, 50 gates): ppath, records, stats,
-           TPSF and detector path sums bit-equal, the Jacobian (a float32
-           sum in atomic order) cell by cell within 4 sqrt(lanes K)
-           2^-24 of its largest value, the lane state bit-equal with the
-           groups on and off, and the checks failing a detector index
-           swapped, a gate off by one and a Jacobian column off by one;
-           times and bounds as for K1
+           TPSF, detector path sums and the Jacobian (all fixed point)
+           bit-equal, the lane state bit-equal with the groups on and
+           off, and the checks failing a detector index swapped, a gate
+           off by one and a Jacobian column off by one; times and bounds
+           as for K1
   main     repro_torch.launch.simulate for B1 and B2 at 60^3 with 10^7
            photons, 262144 lanes, K=16: exact photon accounting,
            energy-balance residue < 1e-4, the kernel launched at least
@@ -49,12 +48,18 @@ script exits non-zero and prints no result:
            record replayed at its detector and gate, the Jacobian's
            medium sums equal to det_ppath within 1e-5, the stats'
            escaped weight equal to the result's
-  replay   the replay of the detect run's records again, its launches'
-           inputs kept: every launch of pass A (det+record) and pass B
-           (jac) held against the plain version on its own inputs, at the
-           replay's lane count, as in the groups phase; the kernel timed
-           over all of them, each pass's launches back to back behind
-           spin kernels, and its bound summed from each launch's inputs
+  replay   the detect run's records replayed again, each pass in a few
+           launches of up to 4095 segments, and in rounds of K=16 (the
+           launch schedule of the parent design) in turns: walls,
+           records/ms and launches a pass; every output bit-equal
+           between all of them and the detect run's replay; the largest
+           Jacobian cell and the smallest deposit against the fixed-point
+           range; the launches of pass A (det+record) and pass B (jac)
+           timed at the replay's lane count, with their bounds from the
+           Jacobian cells they reach; and a replay of a subset of the
+           records (the longest trajectories among them) held launch by
+           launch against the plain version on its own inputs, as in the
+           groups phase
   sources  every source type of the menu (pencil, isotropic, cone,
            gaussian, disk, planar with a pattern, line as a slit and
            isotropic) through the CLI on B2 at 60^3 with 10^6 photons:
@@ -150,6 +155,9 @@ SCENARIO_PHOTONS = 1_000_000
 SCENARIO_LANES = 32_768
 KEEP_ROUND = 12
 K_MAIN = 16
+# the replay's subset held against the plain version: its longest
+# trajectories and an even spread of the rest
+SUBSET_LONGEST, SUBSET_SPREAD = 1024, 3072
 CMP_LANES, CMP_K = 131_072, 8
 SIZE = 60
 # the detection path: 50 gates of 0.1 ns, 2 mm disks 10, 15 and 20 mm
@@ -169,13 +177,15 @@ DETECT_ARGV = ["--bench", "B2", "--photons", str(PHOTONS), "--lanes",
 DET, RECORD, JAC, STATS = (K.GROUP_BITS[g]
                            for g in ("n_det", "record", "jac_cols", "stats"))
 GROUP_ROWS = {DET: "K2", RECORD: "K3", JAC: "K4", STATS: "K5"}
-# the variants the detection path launches, and where
-FORWARD, PASS_A, PASS_B = DET | RECORD | STATS, DET | RECORD, JAC
+# the variants the detection path launches, and where (the replay's
+# without fluence and exitance deposits)
+FORWARD, PASS_A, PASS_B = (DET | RECORD | STATS, K.NOBASE | DET | RECORD,
+                           K.NOBASE | JAC)
 PATH_VARIANTS = {FORWARD: "detection forward", PASS_A: "replay pass A",
                  PASS_B: "replay pass B"}
 # the variants held against the plain version: each group alone, and
 # the detection path's
-CHECK_VARIANTS = (DET, DET | RECORD, JAC, STATS, DET | RECORD | STATS)
+CHECK_VARIANTS = (DET, DET | RECORD, JAC, STATS, FORWARD, PASS_A, PASS_B)
 
 
 def emit(phase: str, **fields) -> None:
@@ -214,19 +224,13 @@ def time_cuda(fn, reps: int, warmup: int = 1, backlog: bool = True) -> float:
     return start.elapsed_time(stop) / reps
 
 
-# Fluence, exitance, TPSF and detector path sums are int64 fixed point
-# in the kernel and in the plain version, each deposit rounded the same
-# way, so they are held bit for bit.  The replay Jacobian is a float32
-# sum in an order that changes from run to run; it is held against the
-# exact (float64) sum of the plain version's float32 deposits: a cell of
-# n deposits is off by about sqrt(n) * 2^-24 of its value (a random walk
-# of rounding errors), and no cell takes more deposits than the launch
-# has lane-segments, so its cells are held to CELL_SIGMAS * sqrt(lanes *
-# K) * 2^-24 of the array's largest value; mutation checks show that
-# this still fails a wrong column.  Per-lane float outputs are held the
-# same way (they are bit-equal where the lane state is), and totals to
-# 1e-5 relative.
-EXACT = torch.float64
+# Fluence, exitance, TPSF, detector path sums and the replay Jacobian
+# are int64 fixed point in the kernel and in the plain version, each
+# deposit rounded the same way, so they are held bit for bit.  Per-lane
+# float outputs (escaped and timed-out weight) are held lane by lane to
+# CELL_SIGMAS * sqrt(lanes * K) * 2^-24 of the array's largest value
+# (they are bit-equal where the lane state is), and totals to 1e-5
+# relative.
 CELL_SIGMAS = 4.0
 TOTAL_TOL = 1e-5
 
@@ -312,6 +316,8 @@ def measure(got, want, tol: float, min_equal: float = 0.9999):
            "state_max_abs": max_abs, "state_max_rel": max_rel}
     for name, a, b in zip(("fluence", "exitance", "escaped", "timed"),
                           got[1:], want[1:]):
+        if a is None and b is None:  # a variant without base grids
+            continue
         cells(name, a, b, tol, fails, out,
               same if name in ("escaped", "timed") else None)
         max_abs = max(max_abs, out.get(name, {}).get("cell_max_abs", 0.0))
@@ -427,7 +433,8 @@ def group_bound(groups, lanes, live, captures, ntg, n_det, n_media,
     special-function rates), as K1's bound counts them.  ``lanes`` are
     all the launch's lanes; a launch of ``scenarios`` scenarios reads
     their shared labels once and writes each one's grids.  A launch that
-    adds into run totals moves only the cells its deposits reach: its
+    adds into run totals moves only the cells its deposits reach, and
+    a replay launch only those of the grids the replay reads: its
     caller passes their bytes as ``grid_bytes`` (the whole grids are
     counted otherwise)."""
     nvox = SIZE**3
@@ -443,7 +450,7 @@ def group_bound(groups, lanes, live, captures, ntg, n_det, n_media,
         lane_bytes += 8
     if groups & JAC:   # jac_w, jac_col in; the Jacobian out
         lane_bytes += 8
-        grid_bytes += 4 * nvox * jac_cols
+        grid_bytes += FIXED_BYTES * nvox * jac_cols
     if groups & STATS:  # the (n, 2) block out
         lane_bytes += 8
     if grid_override is not None:
@@ -595,7 +602,7 @@ def main() -> None:
                 vol.unitinmm, cfg, n_steps)
         got = K.photon_step_cuda(*args)
         again = K.photon_step_cuda(*args)
-        want = photon_steps_ref(*args, accumulate=EXACT)
+        want = photon_steps_ref(*args)
         torch.cuda.synchronize()
         for x, y in zip(got[0], again[0]):
             check(torch.equal(x, y), "two kernel runs differ in lane state")
@@ -692,6 +699,8 @@ def main() -> None:
                       jac_cols=n_det * ntg)
         if groups & STATS:
             kw["stats"] = True
+        if groups & K.NOBASE:
+            kw["base_grids"] = False
         return kw
 
     def groups_vs_plain(vol, cfg, state, ppath, n_steps, reps, start):
@@ -712,12 +721,13 @@ def main() -> None:
             kw = group_kwargs(vol, state, groups, ntg, ppath)
             got = K.photon_step_cuda(*args, **kw)
             again = K.photon_step_cuda(*args, **kw)
-            want = photon_steps_ref(*args, **kw, accumulate=EXACT)
+            want = photon_steps_ref(*args, **kw)
             torch.cuda.synchronize()
             for x, y in zip(list(got[0]) + list(got[1:3]) + list(got[5:]),
                             list(again[0]) + list(again[1:3])
                             + list(again[5:])):
-                if x.dtype != torch.float32 or x.shape[0] == lanes:
+                if x is not None and (x.dtype != torch.float32
+                                      or x.shape[0] == lanes):
                     check(torch.equal(x, y), "two kernel runs differ lane "
                           "by lane")
             diffs, fails = measure_groups(got, want, base, groups, tol)
@@ -805,7 +815,7 @@ def main() -> None:
         kw = group_kwargs(v, s0, FORWARD, c.n_time_gates, p0)
         diffs, fails = measure_groups(
             K.photon_step_cuda(*args, **kw),
-            photon_steps_ref(*args, **kw, accumulate=EXACT),
+            photon_steps_ref(*args, **kw),
             K.photon_step_cuda(*args), FORWARD,
             cell_tol(s0.w.numel(), K_MAIN))
         check(not fails, f"{what}, detection forward: " + "; ".join(fails))
@@ -911,121 +921,222 @@ def main() -> None:
          lane_occupancy=res.stats.lane_occupancy(),
          launches_by_variant=by_variant)
 
-    # --- replay launches at the replay's own shape ----------------------------
-    # the detect run's records replayed again as replay_jacobian replays
-    # them (batches of at most LANES records, gate-resolved), with every
-    # launch's inputs kept by variant
-    kept = collections.defaultdict(list)
-
-    def keep(*args, **kw):
-        kept[PASS_A if "ppath" in kw else PASS_B].append((args, kw))
-        return K.photon_step_cuda(*args, **kw)
-
+    # --- replay: whole trajectories in a few launches -------------------------
+    # the detect run's records replayed again in launches of up to 4095
+    # segments (the default) and in rounds of K_MAIN (the launch schedule
+    # of the parent design), in turns; every output bit-equal between all
+    # of them and the detect run's replay
     vol = launch.get_bench("B2", SIZE, dev)[0]
-    cfg_replay = dataclasses.replace(cfg_detect, collect_stats=True)
+    labels = vol.labels.reshape(-1)
     jac_cols = n_det * NTG_DETECT
-    n_lanes = min(LANES, rec.shape[0])
-    replay_fn = R._build_replay_fn(vol.shape, vol.unitinmm, cfg_replay,
-                                   n_lanes, None, geom, jac_cols, step=keep)
-    for first in range(0, rec.shape[0], n_lanes):
-        nb, id_lo, id_hi, col, active = R._batch_arrays(
-            rec, first, n_lanes, True, NTG_DETECT)
-        _, _, _, rdet = replay_fn(
-            vol.labels.reshape(-1), vol.media,
-            torch.tensor(id_lo.astype(np.int64), device=dev),
-            torch.tensor(id_hi.astype(np.int64), device=dev),
-            torch.tensor(col, device=dev), torch.tensor(active, device=dev),
-            SEED)
-        check(bool((rdet[:nb].cpu().numpy() == rec[first:first + nb, 2]
-                    .astype(np.int32)).all()),
-              "the replay again misses a record's detector")
-    K.check_errors(dev)
+    nvox, n_media = SIZE**3, vol.media.shape[0]
+    pass_names = {g: K.variant_name(g, cfg_detect) for g in (PASS_A, PASS_B)}
+    rounds_label = f"rounds of {K_MAIN}"
+    schedules = {"long launches": None, rounds_label: K_MAIN}
 
-    def replay_vs_plain(groups, launches):
-        """Every launch of one replay pass against the plain version on
-        its own inputs (as in the groups phase, the comparison's power
-        shown on the first launch with a capture), then the kernel timed
-        over all of them and the bound summed from each one's work."""
-        lanes = launches[0][0][2].w.numel()
-        n_media = vol.media.shape[0]
-        tol = cell_tol(lanes, K_MAIN)
-        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        plain_ms, bounds, seen = [], [], {}
-        max_abs = cell_rel = 0.0
-        live_total, captures_total = 0.0, 0
-        for i, (args, kw) in enumerate(launches):
+    def replay_again(label):
+        K.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = R.replay_jacobian(vol, cfg_detect, rec, DETECTORS, seed=SEED,
+                                  n_lanes=LANES, gate_resolved=True,
+                                  steps_per_launch=schedules[label])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for name, a, b in zip(rep._fields, rep, again):
+            check(np.array_equal(a, b), f"replay in {label}: {name} differs "
+                  f"from the detect run's replay")
+        n = K.photon_step_cuda.launches_by
+        return {"seconds": wall, "records_per_ms": rec.shape[0] / wall / 1e3,
+                "launches": {K.group_names(g): n[pass_names[g]]
+                             for g in (PASS_A, PASS_B)}}
+
+    replays = collections.defaultdict(list)
+    for label in (rounds_label, "long launches", "long launches",
+                  rounds_label):
+        replays[label].append(replay_again(label))
+    for g in (PASS_A, PASS_B):
+        check(1 <= by_variant[pass_names[g]] <= 4,
+              f"{by_variant[pass_names[g]]} launches of {pass_names[g]} in "
+              f"the detect run's replay")
+    # the fixed-point range: the largest cell against 2^63 - 1 units
+    jac_units = rep.jacobian * 2.0**spec.FIXED_SHIFT["jac"]
+    check(bool((jac_units == np.rint(jac_units)).all()),
+          "the Jacobian is not a whole number of fixed-point units")
+    largest = float(jac_units.max())
+
+    def zeros(*size):
+        return torch.zeros(size, dtype=torch.int64, device=dev)
+
+    def scratch_for(groups):
+        """Zeroed int64 totals of a replay launch, as the replay gives
+        them: the pass's grids, no fluence or exitance."""
+        return ([zeros(n_det * NTG_DETECT), zeros(n_det, n_media)]
+                if groups & DET else [zeros(nvox * jac_cols)])
+
+    def replay_kept(records):
+        """One replay of ``records`` as replay_jacobian runs it (batches
+        of at most LANES lanes), each launch's inputs kept by pass
+        (without the totals it added into) with its batch's first
+        record."""
+        kept = collections.defaultdict(list)
+        batch = [0]
+
+        def keep(*args, **kw):
+            kept[PASS_A if "ppath" in kw else PASS_B].append(
+                (args, {k: v for k, v in kw.items() if k != "totals"},
+                 batch[0]))
+            return K.photon_step_cuda(*args, **kw)
+
+        n = min(LANES, records.shape[0])
+        fn = R._build_replay_fn(vol.shape, vol.unitinmm, cfg_detect, n, None,
+                                geom, jac_cols, step=keep)
+        jac, scratch = zeros(nvox * jac_cols), scratch_for(PASS_A)
+        for first in range(0, records.shape[0], n):
+            batch[0] = first
+            _, id_lo, id_hi, col, active = R._batch_arrays(
+                records, first, n, True, NTG_DETECT)
+            fn(labels, vol.media, *(torch.tensor(x, device=dev) for x in (
+                id_lo.astype(np.int64), id_hi.astype(np.int64), col,
+                active)), SEED, jac, scratch)
+        return kept
+
+    # every launch of one replay at the replay's own lane count: its live
+    # lane-segments (stats block), captures and the Jacobian or detector
+    # cells it reaches (its own grids), its bound, and its time as the
+    # replay launches it (adding into totals, zeroing nothing)
+    kept = replay_kept(rec)
+    K.check_errors(dev)
+    # live segments of each record's lane, over its batch's launches
+    segments = torch.zeros(rec.shape[0], dtype=torch.float64, device=dev)
+    for groups in (PASS_A, PASS_B):
+        pass_launches = kept[groups]
+        check(len(pass_launches) == by_variant[pass_names[groups]],
+              f"the replay again made {len(pass_launches)} launches of "
+              f"{pass_names[groups]}, the detect run "
+              f"{by_variant[pass_names[groups]]}")
+        bounds, lives = [], 0.0
+        for args, kw, first in pass_launches:
+            # (the stats group has no variant without base grids)
+            outs = K.photon_step_cuda(*args, **dict(kw, base_grids=True),
+                                      stats=True)
+            live = outs[-1][:, 0].double()
+            if groups == PASS_A:
+                nb = min(live.numel(), rec.shape[0] - first)
+                segments[first:first + nb] += live[:nb]
+            grids = outs[6:8] if groups & DET else outs[-2:-1]
+            touched = sum(int((x != 0).sum()) for x in grids)
+            captures = int((outs[8] >= 0).sum()) if groups & DET else 0
+            moved = 2 * FIXED_BYTES * touched + 16 * n_media + (
+                12 * n_det if groups & DET else 0)
+            lives += float(live.sum())
+            bounds.append(group_bound(
+                groups, args[2].w.numel(), float(live.sum()), captures,
+                NTG_DETECT, n_det, n_media, jac_cols,
+                spec.STATE_LANE_BYTES_PORT, grid_bytes=moved)
+                | {"cells_touched": touched})
+        scratch = scratch_for(groups)
+
+        def go(pass_launches=pass_launches, scratch=scratch):
+            for args, kw, _ in pass_launches:
+                K.photon_step_cuda(*args, **kw, totals=scratch)
+        n = len(pass_launches)
+        ms = time_cuda(go, 3) / n
+        host_loop_ms = time_cuda(go, 3, backlog=False) / n
+        mean = {k: sum(b[k] for b in bounds) / n
+                for k in ("bytes_ms", "operations_ms", "hbm_bytes", "f32_ops",
+                          "cells_touched")}
+        timed_groups[groups] = {
+            "variant": pass_names[groups], "ms": ms,
+            "host_loop_ms": host_loop_ms,
+            "bound_ms": max(mean["bytes_ms"], mean["operations_ms"]),
+            "bound_by": ("bytes" if mean["bytes_ms"] >= mean["operations_ms"]
+                         else "operations"),
+            "lanes": int(pass_launches[0][0][2].w.numel()),
+            "steps_per_launch": [int(a[6]) for a, _, _ in pass_launches],
+            "live_segments": lives, **mean}
+    longest_lane = float(segments.max())
+
+    # a subset of the records, their longest trajectories among them, so
+    # that lanes live across a launch boundary: every launch of its
+    # replay held against the plain version on its own inputs, as in the
+    # groups phase, and the range of the Jacobian's deposits walked with
+    # the plain step
+    order = torch.argsort(segments, descending=True).cpu().numpy()
+    pick = np.union1d(order[:SUBSET_LONGEST], np.arange(
+        0, rec.shape[0], max(rec.shape[0] // SUBSET_SPREAD, 1)))
+    sub = rec[pick]
+    kept_sub = replay_kept(sub)
+    K.check_errors(dev)
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    deposits = {"smallest": math.inf, "largest": 0.0, "count": 0}
+    for groups in (PASS_A, PASS_B):
+        plain_ms, sub_ms, seen, max_abs = [], [], {}, 0.0
+        for i, (args, kw, _) in enumerate(kept_sub[groups]):
+            lanes, n_steps = args[2].w.numel(), int(args[6])
+            tol = cell_tol(lanes, n_steps)
             base = K.photon_step_cuda(*args)
             got = K.photon_step_cuda(*args, **kw)
-            # live lane-segments, from the stats block of the same launch
-            live = float(K.photon_step_cuda(*args, **kw, stats=True)[-1][
-                :, 0].double().sum())
             torch.cuda.synchronize()
             start.record()
-            photon_steps_ref(*args, **kw)
+            want = photon_steps_ref(*args, **kw)
             stop.record()
             torch.cuda.synchronize()
             plain_ms.append(start.elapsed_time(stop))
-            want = photon_steps_ref(*args, **kw, accumulate=EXACT)
+            scratch = scratch_for(groups)
+            sub_ms.append(time_cuda(lambda: K.photon_step_cuda(
+                *args, **kw, totals=scratch), 3))
             diffs, fails = measure_groups(got, want, base, groups, tol)
-            check(not fails, f"replay {K.group_names(groups)} launch {i}: "
-                  + "; ".join(fails))
-            captures = int((want[8] >= 0).sum()) if groups & RECORD else 0
-            if not seen and (captures or not groups & DET):
+            check(not fails, f"replay {K.group_names(groups)} launch {i} of "
+                  f"the subset: " + "; ".join(fails))
+            max_abs = max(max_abs, diffs["max_abs_err"])
+            if not seen and (not groups & DET or int((want[8] >= 0).sum())):
                 seen = check_groups_see_index_errors(
                     got, want, base, groups, n_det, NTG_DETECT, jac_cols, tol)
-            max_abs = max(max_abs, diffs["max_abs_err"])
-            cell_rel = max([cell_rel] + [
-                v["cell_max_rel_to_max"] for v in diffs.values()
-                if isinstance(v, dict) and "cell_max_rel_to_max" in v])
-            live_total += live
-            captures_total += captures
-            bounds.append(group_bound(groups, lanes, live, captures,
-                                      NTG_DETECT, n_det, n_media, jac_cols,
-                                      spec.STATE_LANE_BYTES_PORT))
-        check(bool(seen), f"replay {K.group_names(groups)}: no launch "
-              f"to show the comparison's power on")
-
-        def launch_all(part):
-            def go():
-                for args, kw in part:
-                    K.photon_step_cuda(*args, **kw)
-            return go
-
-        # back to back behind a spin kernel, 64 launches at a time so the
-        # launch queue never fills while the spin holds the stream
-        n = len(launches)
-        ms = sum(time_cuda(launch_all(launches[i:i + 64]), 1, warmup=0)
-                 for i in range(0, n, 64)) / n
-        host_loop_ms = time_cuda(launch_all(launches), 1, warmup=0,
-                                 backlog=False) / n
-        mean = {k: sum(b[k] for b in bounds) / n
-                for k in ("bytes_ms", "operations_ms", "bound_ms",
-                          "hbm_bytes", "f32_ops")}
-        out = {"variant": K.variant_name(groups, cfg_detect), "ms": ms,
-               "host_loop_ms": host_loop_ms,
-               "plain_ms": sum(plain_ms) / n, "max_abs_err": max_abs,
-               "bound_ms": mean["bound_ms"],
-               "bound_by": ("bytes" if mean["bytes_ms"] >= mean["operations_ms"]
-                            else "operations")}
-        emit("replay", rows=[r for b, r in GROUP_ROWS.items() if groups & b],
-             lanes=lanes, k=K_MAIN, ntg=NTG_DETECT, jac_cols=jac_cols,
-             launches=n, live_segments=live_total, captures=captures_total,
-             cell_tol=tol, cell_max_rel_to_max=cell_rel,
-             mutations_seen={k: v[0] for k, v in seen.items()},
-             bytes_ms=mean["bytes_ms"], operations_ms=mean["operations_ms"],
-             hbm_bytes_per_launch=mean["hbm_bytes"],
-             f32_ops_per_launch=mean["f32_ops"], **out)
-        return out
-
-    for groups in (PASS_A, PASS_B):
-        name = K.variant_name(groups, cfg_detect)
-        check(len(kept[groups]) == by_variant[name],
-              f"the replay again made {len(kept[groups])} launches of {name}, "
-              f"the detect run {by_variant[name]}")
-        timed_groups[groups] = replay_vs_plain(groups, kept.pop(groups))
-    emit("replay", kernel_share_of_replay_wall=sum(
-        by_variant[timed_groups[g]["variant"]] * timed_groups[g]["ms"]
-        for g in (PASS_A, PASS_B)) / (run.replay_seconds * 1e3))
+            if groups & JAC:
+                walk = args[2]
+                for _ in range(n_steps):
+                    if not bool(walk.alive.any()):
+                        break
+                    res = ph.step(walk, args[0], args[1], args[3], args[4],
+                                  args[5])
+                    v = kw["jac_w"] * res.seg_len
+                    v = v[v > 0]
+                    if v.numel():
+                        deposits["smallest"] = min(deposits["smallest"],
+                                                   float(v.min()))
+                        deposits["largest"] = max(deposits["largest"],
+                                                  float(v.max()))
+                        deposits["count"] += v.numel()
+                    walk = res.state
+        check(bool(seen), f"replay {K.group_names(groups)}: no launch of the "
+              f"subset to show the comparison's power on")
+        n = len(kept_sub[groups])
+        timed_groups[groups].update(
+            plain_ms=sum(plain_ms) / n, max_abs_err=max_abs,
+            plain_lanes=int(sub.shape[0]), ms_at_plain_lanes=sum(sub_ms) / n,
+            plain_launches=n, mutations_seen=list(seen))
+    # a deposit below one unit rounds to 0 or 1 unit; one of 2^44 units
+    # or more, or a cell near 2^63, would be out of range
+    unit = 2.0**-spec.FIXED_SHIFT["jac"]
+    check(deposits["largest"] < spec.DEPOSIT_LIMIT * unit
+          and largest < 2.0**62, f"Jacobian deposits or cells near the "
+          f"fixed-point range: {deposits}, largest cell {largest} units")
+    emit("replay", records=int(rec.shape[0]), replays=replays,
+         every_output_bit_equal=True,
+         launches={K.group_names(g): by_variant[pass_names[g]]
+                   for g in (PASS_A, PASS_B)},
+         jacobian_unit=unit, largest_cell_units=largest,
+         largest_cell_weight_mm=largest * unit,
+         headroom_bits=63 - math.log2(max(largest, 1.0)),
+         subset_deposits={**deposits,
+                          "smallest_units": deposits["smallest"] / unit},
+         subset_lanes=int(sub.shape[0]), **{
+             K.group_names(g): timed_groups[g] for g in (PASS_A, PASS_B)},
+         longest_lane_segments=longest_lane,
+         kernel_share_of_replay_wall=sum(
+             by_variant[pass_names[g]] * timed_groups[g]["ms"]
+             for g in (PASS_A, PASS_B)) / (run.replay_seconds * 1e3))
 
     # --- sources: every source type through the CLI -------------------------
     for name, src in SRC.demo_menu(SIZE).items():
@@ -1258,7 +1369,10 @@ def main() -> None:
         "host_loop_ms": timed_groups[g]["host_loop_ms"],
         "plain_ms": timed_groups[g]["plain_ms"],
         "bound_ms": timed_groups[g]["bound_ms"],
-        "bound_by": timed_groups[g]["bound_by"], "library_ms": None}
+        "bound_by": timed_groups[g]["bound_by"], "library_ms": None, **{
+            k: timed_groups[g][k] for k in (
+                "lanes", "steps_per_launch", "cells_touched", "plain_lanes",
+                "ms_at_plain_lanes") if k in timed_groups[g]}}
         for g, where in PATH_VARIANTS.items()] + [{
         "name": "photon_step_" + K.group_names(row["groups"]).replace(
             "+", "_") + "_batched",

@@ -21,8 +21,10 @@ of such words.  A zero high word contributes nothing, so ids below
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 MASK32 = 0xFFFFFFFF
@@ -126,3 +128,49 @@ def next_uniform(state: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     state, bits = next_u32(state)
     r = (bits >> 8).to(torch.float32)
     return state, (r + 0.5) * _U24_SCALE
+
+
+def _step_bits(v: int) -> int:
+    """One xorshift128 step on a state packed into a 128-bit int, word
+    ``k`` of ``(x, y, z, w)`` at bits ``32k .. 32k + 31``."""
+    x, y, z, w = ((v >> (32 * k)) & MASK32 for k in range(4))
+    t = x ^ ((x << 11) & MASK32)
+    t = t ^ (t >> 8)
+    neww = (w ^ (w >> 19)) ^ t
+    return y | (z << 32) | (w << 64) | (neww << 96)
+
+
+@functools.cache
+def _skip_matrix(log2_n: int) -> np.ndarray:
+    """The (128, 128) 0/1 matrix over GF(2) of ``2**log2_n`` xorshift128
+    steps: the step is linear in the state's bits, so ``2**k`` of them
+    are its ``2**k``-th power (``k`` squarings)."""
+    if log2_n == 0:
+        cols = [_step_bits(1 << j) for j in range(128)]
+        return np.array([[(c >> i) & 1 for c in cols] for i in range(128)],
+                        dtype=np.int64)
+    half = _skip_matrix(log2_n - 1)
+    return (half @ half) % 2
+
+
+def skip(state: torch.Tensor, n: int) -> torch.Tensor:
+    """The ``(..., 4)`` state after ``n`` calls of :func:`next_u32`,
+    computed at once (one matrix a set bit of ``n``): what a lane that
+    only draws, as a dead lane does, holds after ``n`` draws."""
+    n = int(n)
+    if n == 0:
+        return state
+    shifts = torch.arange(32, device=state.device)
+    bits = ((state[..., :, None] >> shifts) & 1).reshape(
+        *state.shape[:-1], 128).to(torch.float64)
+    k = 0
+    while n:
+        if n & 1:
+            m = torch.as_tensor(_skip_matrix(k), dtype=torch.float64,
+                                device=state.device)
+            # sums of at most 128 ones: exact in float64
+            bits = (bits @ m.T) % 2
+        n >>= 1
+        k += 1
+    return (bits.to(torch.int64).reshape(*state.shape, 32)
+            << shifts).sum(dim=-1)

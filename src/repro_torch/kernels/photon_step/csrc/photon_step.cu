@@ -13,8 +13,9 @@
 //     STATS     (n, 2) segments entered alive, deposit     (stats)
 //   The source is compiled once per valid set of groups, with
 //   -DPS_GROUPS=<mask> (1 DET, 2 RECORD, 4 JAC, 8 STATS; RECORD needs
-//   DET), into a library of its own; groups that are off compile away,
-//   so the base variant is the base kernel alone.
+//   DET; 16 NOBASE, the replay's variants, compiles the fluence and
+//   exitance deposits away), into a library of its own; groups that are
+//   off compile away, so the base variant is the base kernel alone.
 //
 // What bounds it.  The source's own count, which sets the kernel
 //   table's bound in chip_smoke.py, is per live lane-segment ~130
@@ -65,28 +66,45 @@
 //     8 blocks were each no faster, or faster mid-run and slower over a
 //     whole run.
 //
-// Order-independent sums.  Fluence, exitance, the TPSF (det_w) and the
-//   detector path sums (det_ppath) are 64-bit fixed point: each deposit
-//   is rounded once to a whole number of 2^-s units (__float2ll_rn of
-//   v * 2^s, round to nearest even) and added with integer atomics, in
-//   the shared-memory cache and in device memory alike.  Integer addition
-//   is associative, so a grid is the same whatever order lanes, warps
-//   and blocks add in and whichever key claims a cache slot; the plain
-//   version rounds each deposit the same way, so the kernel's grids are
-//   bit-equal to it.  Per output (kernels/photon_step/spec.py FIXED_SHIFT):
+// Order-independent sums.  Fluence, exitance, the TPSF (det_w), the
+//   detector path sums (det_ppath) and the replay Jacobian (jac) are
+//   64-bit fixed point: each deposit is rounded once to a whole number
+//   of 2^-s units (__float2ll_rn of v * 2^s, round to nearest even) and
+//   added with integer atomics, in the shared-memory cache and in device
+//   memory alike.  Integer addition is associative, so a grid is the
+//   same whatever order lanes, warps and blocks add in and whichever key
+//   claims a cache slot; the plain version rounds each deposit the same
+//   way, so the kernel's grids are bit-equal to it.  Per output
+//   (kernels/photon_step/spec.py FIXED_SHIFT):
 //     fluence, exitance, det_w  s = 36: a unit of 1.46e-11 weight, at
 //                               most 2^27 = 1.34e8 weight in one cell
 //     det_ppath                 s = 28: a unit of 3.73e-9 weight * mm, at
 //                               most 2^35 = 3.44e10 weight * mm in one sum
-//   A deposit of 2^44 units or more (256 weight; 65536 weight * mm) or a
-//   non-finite one adds nothing and sets bit 2 of the error word, which
+//     jac                       s = 36: a unit of 1.46e-11 weight * mm, at
+//                               most 2^27 = 1.34e8 weight * mm in one cell
+//   A deposit of 2^44 units or more (256 weight, or weight * mm for the
+//   Jacobian; 65536 weight * mm for the path sums) or a non-finite one
+//   adds nothing and sets bit 2 of the error word, which
 //   photon_step.check_errors() turns into an exception; so does a cached
 //   or detector sum that passes 2^63 - 1 as the block adds it.  Deposits
 //   added straight to device memory do not wait for the old value: a
-//   cell they take past 2^63 - 1 shows a
-//   negative value, which the simulator checks once at the end of a run
-//   (waiting for it would hold the lane for a round trip to L2).
-//   The replay Jacobian (JAC) stays a float32 sum in atomic order.
+//   cell they take past 2^63 - 1 shows a negative value, which the
+//   simulator and the replay check once at the end of a run (waiting for
+//   it would hold the lane for a round trip to L2).
+//
+// Replay launches.  The replay (repro_torch.replay) runs the DET+RECORD
+//   and the JAC variants on a few ten thousand lanes whose trajectories
+//   are long: a pass is a few launches of up to 4095 segments, not one
+//   launch a round.  Such a launch is bound by its longest lane, a chain
+//   of dependent segments on one warp, while the rest of the card idles
+//   in its tail.  So the replay's variants (NOBASE) make no fluence or
+//   exitance deposits, which the replay never reads (measured 10% of a
+//   launch); their launches add into the caller's totals (add_into) and
+//   zero nothing; the Jacobian's deposits go straight to device memory
+//   with integer atomics that do not wait (through the block's cache
+//   they took 5% longer: neighbouring lanes mostly carry other Jacobian
+//   columns), and the caller keeps one int64 Jacobian on the device for
+//   the whole replay.
 //
 // Scenarios.  One launch may advance S scenarios of n lanes each (the
 //   batched executor of repro_torch.scenarios): blockIdx.y is the
@@ -129,9 +147,11 @@ constexpr int kCacheSlots = 1 << kCacheLog2;
 constexpr int kEmpty = -1;
 
 // Fixed point of the order-independent grids: 2^36 units of weight
-// (fluence, exitance, det_w) and 2^28 units of weight * mm (det_ppath).
+// (fluence, exitance, det_w), 2^28 units of weight * mm (det_ppath) and
+// 2^36 units of weight * mm (jac).
 constexpr float kWeightScale = 68719476736.0f;  // 2^36
 constexpr float kPathScale = 268435456.0f;      // 2^28
+constexpr float kJacScale = 68719476736.0f;     // 2^36, weight * mm
 // One deposit holds fewer than 2^44 units (256 weight, 65536 weight *
 // mm): a block's cached sum of at most 256 lanes x 4095 segments of
 // them stays below 2^64, so its sign shows a pass of 2^63.
@@ -146,12 +166,14 @@ typedef unsigned long long u64;
 #define PS_GROUPS 0
 #endif
 constexpr int kGroupDet = 1, kGroupRecord = 2, kGroupJac = 4,
-              kGroupStats = 8;
+              kGroupStats = 8, kGroupNoBase = 16;
 constexpr bool kDet = (PS_GROUPS & kGroupDet) != 0;
 constexpr bool kRecord = (PS_GROUPS & kGroupRecord) != 0;
 constexpr bool kJac = (PS_GROUPS & kGroupJac) != 0;
 constexpr bool kStats = (PS_GROUPS & kGroupStats) != 0;
-static_assert(PS_GROUPS >= 0 && PS_GROUPS < 16, "PS_GROUPS is a 4-bit mask");
+// fluence and exitance deposits (the base grids), which NOBASE drops
+constexpr bool kBaseGrids = (PS_GROUPS & kGroupNoBase) == 0;
+static_assert(PS_GROUPS >= 0 && PS_GROUPS < 32, "PS_GROUPS is a 5-bit mask");
 static_assert(!kRecord || kDet, "the RECORD group needs the DET group");
 
 // Pointers and sizes of the optional groups; members of a group that is
@@ -166,7 +188,7 @@ struct Groups {
   u64* det_ppath;           // DET (n_det, n_media), 2^-28 weight * mm
   int32_t* cap_det;         // RECORD (n,)
   int32_t* cap_gate;        // RECORD (n,)
-  float* jac;               // JAC (nvox * jac_cols), zeroed
+  u64* jac;                 // JAC (nvox * jac_cols), 2^-36 weight * mm
   float* stats;             // STATS (n, 2)
   int n_det, n_media, jac_cols;
 };
@@ -315,7 +337,7 @@ __device__ __forceinline__ void run_lane(const Args& A, const int sc,
     det_w = grp.det_w + (long long)sc * grp.n_det * ntg;
     det_ppath = grp.det_ppath + (long long)sc * grp.n_det * nm;
   }
-  float* jac = nullptr;
+  u64* jac = nullptr;
   int cap_det = -1, cap_gate = 0;
   float jac_w = 0.f;
   int jac_col = 0;
@@ -505,7 +527,7 @@ __device__ __forceinline__ void run_lane(const Args& A, const int sc,
       // deposition (zero deposits add nothing and are skipped); the gate
       // is computed where it is used, so the base variant does no work
       // of the groups
-      if (dep != 0.f) {
+      if (kBaseGrids && dep != 0.f) {
         const int gate = clampi((int)floorf(t_new * A.gate_scale), 0, ntg - 1);
         const int cell = flat * ntg + gate;
         cache_add(s_key, s_val, cell, to_fixed(dep, kWeightScale, A.errors),
@@ -546,10 +568,12 @@ __device__ __forceinline__ void run_lane(const Args& A, const int sc,
       }
       if (kJac) {
         const float v = jac_w * seg_len;
-        if (v != 0.f)
-          atomicAdd(jac + (long long)flat * grp.jac_cols + jac_col, v);
+        if (v != 0.f) {
+          const u64 u = to_fixed(v, kJacScale, A.errors);
+          atomicAdd(jac + (long long)flat * grp.jac_cols + jac_col, u);
+        }
       }
-      if (esc_w > 0.f && np_[2] < kZExitFace) {
+      if (kBaseGrids && esc_w > 0.f && np_[2] < kZExitFace) {
         const int ex = clampi((int)floorf(np_[0]), 0, nx - 1);
         const int ey = clampi((int)floorf(np_[1]), 0, ny - 1);
         const int bin = ex * ny + ey;
@@ -613,9 +637,11 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ u64 s_val[kCacheSlots];
   __shared__ int s_order[kThreads];
   __shared__ int s_warp_live[kWarps];
-  for (int i = threadIdx.x; i < kCacheSlots; i += kThreads) {
-    s_key[i] = kEmpty;
-    s_val[i] = 0ull;
+  if (kBaseGrids) {
+    for (int i = threadIdx.x; i < kCacheSlots; i += kThreads) {
+      s_key[i] = kEmpty;
+      s_val[i] = 0ull;
+    }
   }
   const int tid = threadIdx.x, wid = tid >> 5, lid = tid & 31;
   const int sc = blockIdx.y;
@@ -640,6 +666,7 @@ __global__ void __launch_bounds__(kThreads)
   if (local < A.n)
     run_lane<DO_REFLECT, TAYLOR>(A, sc, base + local, s_key, s_val);
   // --- FLUSH: the block's cached sums into device memory ---
+  if (!kBaseGrids) return;
   __syncthreads();
   const int n_flu = A.nx * A.ny * A.nz * A.ntg;
   u64* fluence = A.fluence + (long long)sc * n_flu;
@@ -670,9 +697,10 @@ cudaError_t launch(const Args& a, int blocks, int scenarios,
 //   out: pos, dir, ivox, w, s_left, t, rng, alive, fluence, exitance,
 //        escaped, timed (12), then [ppath, det_w, det_ppath] (DET),
 //        [cap_det, cap_gate] (RECORD), [jac] (JAC), [stats] (STATS);
-//        fluence, exitance, det_w and det_ppath are int64 fixed point,
-//        zeroed here on the stream before the launch unless add_into is
-//        set, when the launch adds into them; jac is always zeroed
+//        fluence, exitance, det_w, det_ppath and jac are int64 fixed
+//        point, zeroed here on the stream before the launch unless
+//        add_into is set, when the launch adds into them; with NOBASE
+//        fluence and exitance are null
 //   ints:   n, nx, ny, nz, n_steps, ntg, general_exact, do_reflect, taylor,
 //           groups, n_det, n_media, jac_cols, scenarios, labels_stride,
 //           add_into, threads, blocks
@@ -753,21 +781,21 @@ extern "C" int photon_step_launch(const void* const* in, void* const* out,
     grp.cap_det = (int32_t*)out[i_out++];
     grp.cap_gate = (int32_t*)out[i_out++];
   }
-  if (kJac) grp.jac = (float*)out[i_out++];
+  if (kJac) grp.jac = (u64*)out[i_out++];
   if (kStats) grp.stats = (float*)out[i_out++];
   grp.n_det = n_det;
   grp.n_media = n_media;
   grp.jac_cols = jac_cols;
 
   const size_t sc = (size_t)scenarios;
-  const struct { void* p; size_t bytes; bool fixed; } zero[] = {
-      {a.fluence, 8 * sc * nvox * a.ntg, true},
-      {a.exitance, 8 * sc * a.nx * a.ny, true},
-      {grp.det_w, 8 * sc * n_det * a.ntg, true},
-      {grp.det_ppath, 8 * sc * n_det * n_media, true},
-      {grp.jac, 4 * sc * nvox * jac_cols, false}};
+  const struct { void* p; size_t bytes; } zero[] = {
+      {a.fluence, 8 * sc * nvox * a.ntg},
+      {a.exitance, 8 * sc * a.nx * a.ny},
+      {grp.det_w, 8 * sc * n_det * a.ntg},
+      {grp.det_ppath, 8 * sc * n_det * n_media},
+      {grp.jac, 8 * sc * nvox * jac_cols}};
   for (const auto& z : zero) {
-    if (z.p == nullptr || z.bytes == 0 || (z.fixed && add_into)) continue;
+    if (add_into || z.p == nullptr || z.bytes == 0) continue;
     const cudaError_t err = cudaMemsetAsync(z.p, 0, z.bytes, s);
     if (err != cudaSuccess) return (int)err;
   }

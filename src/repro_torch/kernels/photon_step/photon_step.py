@@ -6,12 +6,12 @@ every output group.  It advances every photon lane ``n_steps`` segments
 with one thread per lane and the state in registers; each block sums
 its fluence and exitance deposits in a cache in shared memory and adds
 the cache to device memory once, and orders its lanes so that those
-alive at launch share warps.  Fluence, exitance, TPSF and detector path
-sums are int64 fixed point (``spec.FIXED_SHIFT``), so they do not
-depend on the order of the adds.  One launch may advance S scenarios
-(``blockIdx.y``), each with its own media, detectors and grids.  The
-source file's header says what bounds it on the card and what the
-design does about that.
+alive at launch share warps.  Fluence, exitance, TPSF, detector path
+sums and the replay Jacobian are int64 fixed point
+(``spec.FIXED_SHIFT``), so they do not depend on the order of the
+adds.  One launch may advance S scenarios (``blockIdx.y``), each with
+its own media, detectors and grids.  The source file's header says
+what bounds it on the card and what the design does about that.
 
 The source is compiled with ``nvcc`` for ``sm_90a`` once per set of
 output groups (``PS_GROUPS``, a mask of ``GROUP_BITS``), at first use,
@@ -59,23 +59,32 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # Bit of each optional output group in the kernel's PS_GROUPS mask.
 GROUP_BITS = {"n_det": 1, "record": 2, "jac_cols": 4, "stats": 8}
-# Every mask the output contract allows: record needs detectors.
-VALID_GROUPS = tuple(m for m in range(16) if not (m & 2 and not m & 1))
+# Bit of the variants without fluence and exitance deposits
+# (``base_grids=False``): the replay's two passes.
+NOBASE = 16
+# Every mask the output contract allows (record needs detectors), and
+# the replay's: detectors and records, and the Jacobian, without base
+# grids.
+VALID_GROUPS = tuple(m for m in range(16) if not (m & 2 and not m & 1)) + (
+    NOBASE | 1 | 2, NOBASE | 4)
 
 
 def group_mask(n_det: int = 0, record: bool = False, jac_cols: int = 0,
-               stats: bool = False) -> int:
+               stats: bool = False, base_grids: bool = True) -> int:
     """The PS_GROUPS mask of a call's optional output groups."""
     flags = {"n_det": n_det, "record": record, "jac_cols": jac_cols,
              "stats": stats}
-    return sum(bit for name, bit in GROUP_BITS.items() if flags[name])
+    return sum(bit for name, bit in GROUP_BITS.items() if flags[name]) + (
+        0 if base_grids else NOBASE)
 
 
 def group_names(groups: int) -> str:
     """``"base"`` or the groups of a mask joined by ``+``, e.g.
-    ``"det+record+stats"``."""
+    ``"det+record+stats"`` (``+nobase`` without base grids)."""
     names = [{"n_det": "det", "jac_cols": "jac"}.get(n, n)
              for n, bit in GROUP_BITS.items() if groups & bit]
+    if groups & NOBASE:
+        names.append("nobase")
     return "+".join(names) or "base"
 
 
@@ -236,29 +245,38 @@ _STATE_SPECS = (("pos", torch.float32, (3,)), ("dir", torch.float32, (3,)),
                 ("rng", torch.int64, (4,)), ("alive", torch.bool, ()))
 
 
-def _grid_specs(S, batched, nvox, nxy, ntg, n_det, n_media):
+def _grid_specs(S, batched, nvox, nxy, ntg, n_det, n_media, jac_cols,
+                base_grids):
     """``(name, shape)`` of the int64 fixed-point grids of a call."""
     lead = (S,) if batched else ()
-    specs = [("fluence", lead + (nvox * ntg,)), ("exitance", lead + (nxy,))]
+    specs = []
+    if base_grids:
+        specs += [("fluence", lead + (nvox * ntg,)),
+                  ("exitance", lead + (nxy,))]
     if n_det:
         specs += [("det_w", lead + (n_det * ntg,)),
                   ("det_ppath", lead + (n_det, n_media))]
+    if jac_cols:
+        specs += [("jac", lead + (nvox * jac_cols,))]
     return specs
 
 
 def prepare(labels_flat, media, state: ph.PhotonState, shape, unitinmm,
             cfg: SimConfig, n_steps: int, ppath=None, det_geom=None,
             record=False, jac_w=None, jac_col=None, jac_cols: int = 0,
-            stats: bool = False, totals=None):
+            stats: bool = False, totals=None, base_grids: bool = True):
     """Check a call's inputs and allocate its outputs on the state's
     device; returns ``(groups, ins, outs, ints, floats)``: the
     tensors, in the order of the C entry point's ``in`` and ``out``
     arrays, and its ``ints`` and ``floats``.  The kernel zeroes the
     accumulated outputs (fluence, exitance, TPSF, path sums, Jacobian)
     itself, so every output is allocated uninitialised; with ``totals``
-    the fixed-point grids are the caller's, which the launch adds into.
-    A ``(S, n_media, 4)`` media table makes it a launch of S scenarios
-    (``ref.photon_steps_ref`` gives the shapes)."""
+    those fixed-point grids are the caller's, which the launch adds into
+    and zeroes nothing.  ``base_grids=False`` (the replay's variants)
+    drops the fluence and exitance grids: their outputs are ``None`` (a
+    null pointer to the kernel) and ``totals`` holds only the groups'
+    grids.  A ``(S, n_media, 4)`` media table makes it a launch of S
+    scenarios (``ref.photon_steps_ref`` gives the shapes)."""
     n_det, record, jac_cols = spec.check_groups(ppath, det_geom, record,
                                                 jac_w, jac_col, jac_cols)
     S, batched = spec.scenario_count(media)
@@ -293,7 +311,8 @@ def prepare(labels_flat, media, state: ph.PhotonState, shape, unitinmm,
     if jac_cols:
         specs += [("jac_w", jac_w, torch.float32, (n_all,)),
                   ("jac_col", jac_col, torch.int32, (n_all,))]
-    grids = _grid_specs(S, batched, nvox, nxy, ntg, n_det, n_media)
+    grids = _grid_specs(S, batched, nvox, nxy, ntg, n_det, n_media,
+                        jac_cols, base_grids)
     if totals is not None:
         if len(totals) != len(grids):
             raise ValueError(f"totals must be the {len(grids)} grids "
@@ -304,28 +323,29 @@ def prepare(labels_flat, media, state: ph.PhotonState, shape, unitinmm,
 
     f32 = dict(dtype=torch.float32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
-    fixed = (list(totals) if totals is not None else
-             [torch.empty(shp, dtype=torch.int64, device=dev)
-              for _, shp in grids])
-    lead = (S,) if batched else ()
+    fixed = dict(zip((name for name, _ in grids), totals)) if (
+        totals is not None) else {
+        name: torch.empty(shp, dtype=torch.int64, device=dev)
+        for name, shp in grids}
     ins = [labels_flat, media, *state, _error_word(dev)]
     outs = [torch.empty_like(x) for x in state]
-    outs += fixed[:2] + [torch.empty((n_all,), **f32),
-                         torch.empty((n_all,), **f32)]
+    outs += [fixed.get("fluence"), fixed.get("exitance"),
+             torch.empty((n_all,), **f32), torch.empty((n_all,), **f32)]
     if n_det:
         ins += [ppath, det_geom]
-        outs += [torch.empty((n_all, n_media), **f32)] + fixed[2:]
+        outs += [torch.empty((n_all, n_media), **f32), fixed["det_w"],
+                 fixed["det_ppath"]]
     if jac_cols:
         ins += [jac_w, jac_col]
     if record:
         outs += [torch.empty((n_all,), **i32), torch.empty((n_all,), **i32)]
     if jac_cols:
-        outs += [torch.empty(lead + (nvox * jac_cols,), **f32)]
+        outs += [fixed["jac"]]
     if stats:
         outs += [torch.empty((n_all, 2), **f32)]
     assert len(outs) == spec.output_arity(n_det, record, jac_cols, stats,
                                           packed_state=False)
-    groups = group_mask(n_det, record, jac_cols, stats)
+    groups = group_mask(n_det, record, jac_cols, stats, base_grids)
     taylor = cfg.deposit_mode == "taylor"
     ints = (n, nx, ny, nz, n_steps, ntg,
             int(not cfg.specialize and not taylor), int(bool(cfg.do_reflect)),
@@ -340,21 +360,25 @@ def prepare(labels_flat, media, state: ph.PhotonState, shape, unitinmm,
 
 def pack(ins, outs, ints, floats):
     """The C entry point's four arrays: input and output pointers
-    (uint64), ``ints`` (int32) and ``floats`` (float32)."""
+    (uint64; an output that is ``None`` is a null pointer), ``ints``
+    (int32) and ``floats`` (float32)."""
     return (array.array("Q", [x.data_ptr() for x in ins]),
-            array.array("Q", [x.data_ptr() for x in outs]),
+            array.array("Q", [0 if x is None else x.data_ptr()
+                              for x in outs]),
             array.array("i", ints), array.array("f", floats))
 
 
 def photon_step_cuda(labels_flat, media, state: ph.PhotonState, shape,
                      unitinmm, cfg: SimConfig, n_steps: int, ppath=None,
                      det_geom=None, record=False, jac_w=None, jac_col=None,
-                     jac_cols: int = 0, stats: bool = False, totals=None):
+                     jac_cols: int = 0, stats: bool = False, totals=None,
+                     base_grids: bool = True):
     """Advance all lanes ``n_steps`` segments on the card; returns what
     ``ref.photon_steps_ref`` returns, output group by output group, the
-    grids bit-equal to it (the Jacobian apart, a float32 sum in atomic
-    order).  ``totals`` and a ``(S, n_media, 4)`` media table (S
-    scenarios) are as there.
+    grids bit-equal to it.  ``totals``, ``base_grids`` and a ``(S,
+    n_media, 4)`` media table (S scenarios) are as there; without base
+    grids the kernel is built for detectors and records, or the
+    Jacobian, alone (``VALID_GROUPS``).
 
     Every tensor must be contiguous on one CUDA device, with the dtypes
     of ``photon.PhotonState`` and labels in ``[0, n_media)`` (the
@@ -371,7 +395,8 @@ def photon_step_cuda(labels_flat, media, state: ph.PhotonState, shape,
         raise ValueError(f"photon_step_cuda needs CUDA tensors, got {dev}")
     groups, ins, outs, ints, floats = prepare(
         labels_flat, media, state, shape, unitinmm, cfg, n_steps, ppath,
-        det_geom, record, jac_w, jac_col, jac_cols, stats, totals)
+        det_geom, record, jac_w, jac_col, jac_cols, stats, totals,
+        base_grids)
     lib = _library(groups)
     arrays = pack(ins, outs, ints, floats)
     ptrs = [a.buffer_info()[0] for a in arrays]

@@ -10,10 +10,16 @@ in ``csrc/photon_step.cu``, one PyTorch operation at a time.  The
 dispatcher (``ops.photon_steps``) runs it for CPU tensors, and
 ``chip_smoke.py`` holds the kernel against it on the card.
 
-Fluence, exitance, TPSF and detector path sums are int64 fixed point
-(``core/fixed.py``): each deposit is rounded once to a whole number of
-units, as the kernel rounds it, and integer sums do not depend on their
-order, so the kernel's grids equal these bit for bit.
+Fluence, exitance, TPSF, detector path sums and the replay Jacobian
+are int64 fixed point (``core/fixed.py``): each deposit is rounded once
+to a whole number of units, as the kernel rounds it, and integer sums do
+not depend on their order, so the kernel's grids equal these bit for
+bit.
+
+Once every lane is dead the loop stops: a dead lane only draws its 5
+uniforms a segment, so each lane's RNG state is moved past the draws of
+the remaining segments at once (``rng.skip``), as the kernel's dead
+warps draw them before they leave.
 """
 
 from __future__ import annotations
@@ -21,18 +27,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import photon as ph
+from repro_torch.core import rng as xrng
 from repro_torch.core.fixed import to_fixed
 from repro_torch.core.volume import SimConfig
 from repro_torch.detectors import accumulate_capture, update_capture
 from repro_torch.kernels.photon_step import spec
-
-
-def _grid(totals, i, size, dev):
-    """The call's int64 grid ``i``: the caller's total (added into in
-    place) or a fresh zeroed one; returned flat."""
-    if totals is None:
-        return torch.zeros((size,), dtype=torch.int64, device=dev)
-    return totals[i].view(-1)
 
 
 def photon_steps_ref(labels_flat, media, state: ph.PhotonState,
@@ -40,7 +39,7 @@ def photon_steps_ref(labels_flat, media, state: ph.PhotonState,
                      ppath=None, det_geom=None, record=False,
                      jac_w=None, jac_col=None, jac_cols: int = 0,
                      stats: bool = False, totals=None,
-                     accumulate=torch.float32):
+                     base_grids: bool = True):
     """Returns ``(new_state, fluence, exitance, escaped_per_lane,
     timed_per_lane)``, then the optional groups in this order:
 
@@ -52,22 +51,20 @@ def photon_steps_ref(labels_flat, media, state: ph.PhotonState,
       call's capture (-1: none);
     * with ``jac_cols > 0``: the ``(nvox * jac_cols,)`` replay Jacobian,
       ``jac_w * seg_len`` of every segment added at column ``jac_col``
-      of the segment's voxel;
+      of the segment's voxel (weight * mm);
     * with ``stats``: an ``(n, 2)`` float32 block, always last:
       segments each lane entered alive, and its deposited weight.
 
-    Fluence, exitance, TPSF and path sums are int64 fixed point
-    (``core.fixed``; ``from_fixed`` gives float32).  ``totals``
+    Fluence, exitance, TPSF, path sums and the Jacobian are int64 fixed
+    point (``core.fixed``; ``from_fixed`` gives floats).  ``totals``
     (their int64 grids, in that order, as this call returns them) makes
     the call add into them in place and return them, as the kernel does
-    with ``add_into``.  A ``(S, n_media, 4)`` media table makes the call
-    S scenarios of ``n / S`` lanes each, scenario-major: labels are
-    ``(nvox,)`` shared or ``(S, nvox)``, ``det_geom`` ``(S, n_det, 3)``,
-    and every grid gains a leading scenario axis.
-
-    ``accumulate`` is the dtype the Jacobian, the one float grid, sums
-    its float32 deposits in: float32, as the kernel stores it (in atomic
-    order), or float64, an exact sum to hold the kernel against.
+    with ``add_into``.  ``base_grids=False`` makes no fluence or
+    exitance deposits: those outputs are ``None`` and ``totals`` holds
+    only the groups' grids.  A ``(S, n_media, 4)`` media table makes
+    the call S scenarios of ``n / S`` lanes each, scenario-major: labels
+    are ``(nvox,)`` shared or ``(S, nvox)``, ``det_geom`` ``(S, n_det,
+    3)``, and every grid gains a leading scenario axis.
     """
     n_det, record, jac_cols = spec.check_groups(ppath, det_geom, record,
                                                 jac_w, jac_col, jac_cols)
@@ -97,66 +94,82 @@ def photon_steps_ref(labels_flat, media, state: ph.PhotonState,
         return index if lane_sc is None else index + lane_sc * stride
 
     fw = spec.FIXED_SHIFT
-    flu = _grid(totals, 0, S * n_flu, dev)
-    exi = _grid(totals, 1, S * nxy, dev)
+    # the call's int64 grids, flat: the caller's totals (added into in
+    # place) or fresh zeroed ones
+    sizes = {"fluence": S * n_flu, "exitance": S * nxy,
+             "det_w": S * n_det * ntg, "det_ppath": S * n_det * n_media,
+             "jac": S * nvox * jac_cols}
+    names = [name for name, on in (
+        ("fluence", base_grids), ("exitance", base_grids),
+        ("det_w", n_det), ("det_ppath", n_det), ("jac", jac_cols)) if on]
+    if totals is not None and len(totals) != len(names):
+        raise ValueError(f"totals must be the {len(names)} grids {names}")
+    grid = {name: (torch.zeros((sizes[name],), dtype=torch.int64,
+                               device=dev) if totals is None
+                   else totals[i].view(-1)) for i, name in enumerate(names)}
     esc = torch.zeros_like(state.w)
     timed = torch.zeros_like(state.w)
     if n_det:
         pp = ppath
         geom = det_geom[lane_sc] if batched else det_geom
-        dw = _grid(totals, 2, S * n_det * ntg, dev)
-        dp = _grid(totals, 3, S * n_det * n_media, dev)
     if record:
         capd = torch.full((n_all,), -1, dtype=torch.int32, device=dev)
         capg = torch.zeros((n_all,), dtype=torch.int32, device=dev)
     if jac_cols:
-        jac = torch.zeros((S * nvox * jac_cols,), dtype=accumulate,
-                          device=dev)
         jac_col = jac_col.to(torch.int64)
     if stats:
         stbl = torch.zeros((n_all, 2), **f32)
     st = state
-    for _ in range(int(n_steps)):
+    n_steps = int(n_steps)
+    for k in range(n_steps):
+        if not bool(st.alive.any()):
+            st = st._replace(rng=xrng.skip(st.rng, 5 * (n_steps - k)))
+            break
         res = ph.step(st, labels, media_rows, shape, unitinmm, cfg,
                       label_base, media_base)
         gate = ph.time_gate_bins(res.dep_t, cfg.tmax_ns, ntg)
-        flu.index_add_(0, at(res.dep_idx * ntg + gate, n_flu),
-                       to_fixed(res.dep_w, fw["fluence"]))
-        xy, xw = ph.exitance_bins(res.esc_pos, res.esc_w, shape)
-        exi.index_add_(0, at(xy, nxy), to_fixed(xw, fw["exitance"]))
+        if base_grids:
+            grid["fluence"].index_add_(0, at(res.dep_idx * ntg + gate, n_flu),
+                                       to_fixed(res.dep_w, fw["fluence"]))
+            xy, xw = ph.exitance_bins(res.esc_pos, res.esc_w, shape)
+            grid["exitance"].index_add_(0, at(xy, nxy),
+                                        to_fixed(xw, fw["exitance"]))
         esc = esc + res.esc_w
         timed = timed + res.timed_w
         if n_det:
-            pp, _, _ = accumulate_capture(pp, dw, dp.view(-1, n_media), res,
-                                          gate, geom, ntg, lane_sc)
+            pp, _, _ = accumulate_capture(
+                pp, grid["det_w"], grid["det_ppath"].view(-1, n_media), res,
+                gate, geom, ntg, lane_sc)
             if record:
                 capd, capg = update_capture(capd, capg, res, gate, geom)
         if jac_cols:
-            jac.index_add_(0, at(res.dep_idx * jac_cols + jac_col,
-                                 nvox * jac_cols),
-                           (jac_w * res.seg_len).to(accumulate))
+            grid["jac"].index_add_(0, at(res.dep_idx * jac_cols + jac_col,
+                                         nvox * jac_cols),
+                                   to_fixed(jac_w * res.seg_len, fw["jac"]))
         if stats:
             stbl = stbl + torch.stack(
                 [st.alive.to(torch.float32), res.dep_w], dim=1)
         st = res.state
-    grids = [flu, exi] + ([dw, dp] if n_det else [])
-    if any(bool((g < 0).any()) for g in grids):
+    if any(bool((g < 0).any()) for g in grid.values()):
         raise OverflowError("a fixed-point grid sum passed 2**63 - 1 units")
 
-    def shaped(x, *tail):
-        return x.view(S, *tail) if batched else x.view(*tail)
+    def shaped(name, *tail):
+        """Grid ``name`` as the call returns it: the caller's total, or
+        shaped, or ``None`` if the call has none."""
+        if name not in grid:
+            return None
+        if totals is not None:
+            return totals[names.index(name)]
+        return grid[name].view(S, *tail) if batched else grid[name].view(*tail)
 
-    out = (st, shaped(flu, n_flu), shaped(exi, nxy), esc, timed)
-    if totals is not None:
-        out = (st, *totals[:2], esc, timed)
+    out = (st, shaped("fluence", n_flu), shaped("exitance", nxy), esc, timed)
     if n_det:
-        dwp = ((shaped(dw, n_det * ntg), shaped(dp, n_det, n_media))
-               if totals is None else tuple(totals[2:4]))
-        out = out + (pp,) + dwp
+        out = out + (pp, shaped("det_w", n_det * ntg),
+                     shaped("det_ppath", n_det, n_media))
     if record:
         out = out + (capd, capg)
     if jac_cols:
-        out = out + (shaped(jac, nvox * jac_cols),)
+        out = out + (shaped("jac", nvox * jac_cols),)
     if stats:
         out = out + (stbl,)
     assert len(out) == spec.output_arity(n_det, record, jac_cols, stats)

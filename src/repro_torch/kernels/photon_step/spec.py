@@ -34,21 +34,26 @@ CORE_PARAMS = ("labels_flat", "media", "state", "shape", "unitinmm",
 EXT_PARAMS = ("ppath", "det_geom", "record", "jac_w", "jac_col",
               "jac_cols", "stats")
 
-# Order-independent sums.  Fluence, exitance, the TPSF and the detector
-# path sums are int64 fixed point: each deposit is rounded once (to
-# nearest, ties to even) to a whole number of 2**-shift units, and the
-# integer sums give the same bits in any order.  Range and resolution:
+# Order-independent sums.  Fluence, exitance, the TPSF, the detector
+# path sums and the replay Jacobian are int64 fixed point: each deposit
+# is rounded once (to nearest, ties to even) to a whole number of
+# 2**-shift units, and the integer sums give the same bits in any order.
+# Range and resolution:
 #   fluence, exitance, det_w  2**-36 = 1.46e-11 weight a unit, at most
 #                             2**27 = 1.34e8 weight in one cell
 #   det_ppath                 2**-28 = 3.73e-9 weight * mm a unit, at
 #                             most 2**35 = 3.44e10 weight * mm in one sum
-# A deposit of DEPOSIT_LIMIT units or more (256 weight, 65536 weight *
-# mm), or a sum past 2**63 - 1 units, raises: the kernel flags its error
-# word (``photon_step.check_errors``), the plain version raises at once,
-# and the simulator checks the sign of every total at the end of a run.
-# A launch runs at most MAX_STEPS segments, so a block's cached sum of
-# 256 lanes' deposits stays below 2**64 and its sign shows an overflow.
-FIXED_SHIFT = {"fluence": 36, "exitance": 36, "det_w": 36, "det_ppath": 28}
+#   jac                       2**-36 = 1.46e-11 weight * mm a unit, at
+#                             most 2**27 = 1.34e8 weight * mm in one cell
+# A deposit of DEPOSIT_LIMIT units or more (256 weight or weight * mm,
+# 65536 weight * mm for det_ppath), or a sum past 2**63 - 1 units,
+# raises: the kernel flags its error word (``photon_step.check_errors``),
+# the plain version raises at once, and the simulator and the replay
+# check the sign of every total at the end of a run.  A launch runs at
+# most MAX_STEPS segments, so a block's cached sum of 256 lanes' deposits
+# stays below 2**64 and its sign shows an overflow.
+FIXED_SHIFT = {"fluence": 36, "exitance": 36, "det_w": 36, "det_ppath": 28,
+               "jac": 36}
 DEPOSIT_LIMIT = 2.0**44
 MAX_STEPS = 4095
 # The simulator's per-scenario run totals (escaped, timed-out, launched

@@ -12,9 +12,8 @@ For a detected packet exiting with weight ``w`` after ``L_v`` mm in
 voxel ``v`` (exact Beer-Lambert deposition),
 ``w = w0 * exp(-sum_v mua_v * L_v)``, so ``dw/dmua_v = -w * L_v``.
 :func:`replay_jacobian` relaunches exactly the recorded ids in two
-lock-step passes, each in fused rounds of ``cfg.steps_per_round``
-segments through ``ops.photon_steps`` (the CUDA kernel on the card, its
-plain version on the CPU):
+lock-step passes through ``ops.photon_steps`` (the CUDA kernel on the
+card, its plain version on the CPU):
 
   pass A  re-runs the trajectories with detectors and capture records
           on, and reads off each packet's exit weight, detector and
@@ -26,8 +25,23 @@ plain version on the CPU):
 
 Both passes see the trajectories of the forward run bit for bit, so
 every record comes back at its detector and gate, and the Jacobian's
-per-medium sums equal the forward run's ``det_ppath`` up to float32
-accumulation order (``analysis.jacobian_medium_sums``).
+per-medium sums equal the forward run's ``det_ppath`` up to the
+rounding of each deposit (``analysis.jacobian_medium_sums``).
+
+The replay never relaunches a lane: a lane is one record, and its
+trajectory does not depend on how its segments are cut into launches.
+So each pass runs in a few launches of up to ``spec.MAX_STEPS``
+segments, with one host read of the lanes' liveness between two, and
+stops where the reference's loop of rounds of ``cfg.steps_per_round``
+stops: once every lane is dead, or at ``cfg.max_steps`` rounded up to a
+whole round.  Every output is then the same bits as a replay in rounds.
+The Jacobian is int64 fixed point (``spec.FIXED_SHIFT["jac"]``), so its
+sums do not depend on their order: each launch of pass B adds into one
+Jacobian total that stays on the device for the whole replay, and its
+cells the replay reached cross to the host once, as float64.  The
+launches make no fluence or exitance deposits (``base_grids=False``);
+pass A adds its detector sums, which the replay does not read, into
+scratch grids zeroed once a replay.
 """
 
 from __future__ import annotations
@@ -41,8 +55,10 @@ from repro_torch.core import photon as ph
 from repro_torch.core import rng as xrng
 from repro_torch.core.simulator import SimResult
 from repro_torch.core.volume import SimConfig, Volume
+from repro_torch.core.fixed import from_fixed
 from repro_torch.detectors import (as_detectors, det_geometry,
                                    validate_detectors)
+from repro_torch.kernels.photon_step import spec
 from repro_torch.kernels.photon_step.ops import photon_steps, resolve_device
 from repro_torch.kernels.photon_step.photon_step import check_errors
 from repro_torch.sources import as_source
@@ -78,53 +94,66 @@ def detected_records(result: SimResult) -> np.ndarray:
 
 
 def _build_replay_fn(shape, unitinmm, cfg: SimConfig, n_lanes: int,
-                     source, det_geom, jac_cols: int, step=photon_steps):
-    """Two-pass replay of one batch of ``n_lanes`` records, each round
-    one call of ``step`` (``ops.photon_steps``'s arguments).
+                     source, det_geom, jac_cols: int, step=photon_steps,
+                     steps_per_launch=None):
+    """Two-pass replay of one batch of ``n_lanes`` records, each pass in
+    launches of up to ``steps_per_launch`` segments (default
+    ``spec.MAX_STEPS``), each launch one call of ``step``
+    (``ops.photon_steps``'s arguments).
 
     Returns ``fn(labels_flat, media, id_lo, id_hi, jac_col, active,
-    seed) -> (jac_flat, w_exit, gate, replayed_det)``, ``jac_flat`` of
-    shape ``(nvox * jac_cols,)``.  ``id_lo`` / ``id_hi`` are int64 id
-    words, ``jac_col`` the int32 Jacobian column of each lane and
-    ``active`` masks padding lanes, which launch with zero weight and
-    add exactly nothing.  Tensors live on ``det_geom``'s device.
+    seed, jac, scratch) -> (w_exit, gate, replayed_det)``.  ``id_lo`` /
+    ``id_hi`` are int64 id words, ``jac_col`` the int32 Jacobian column
+    of each lane and ``active`` masks padding lanes, which launch with
+    zero weight and add exactly nothing.  ``jac`` is the caller's
+    ``(nvox * jac_cols,)`` int64 Jacobian total, which pass B adds into;
+    ``scratch`` the int64 TPSF and path-sum grids pass A adds into.
+    Neither pass makes fluence or exitance deposits.  Tensors live on
+    ``det_geom``'s device.
     """
     source = as_source(source)
-    nx, ny, nz = shape
-    nvox = nx * ny * nz
     K = int(cfg.steps_per_round)
     if K < 1:
         raise ValueError(f"cfg.steps_per_round must be >= 1, got {K}")
+    # the reference's loop runs rounds of K while steps < max_steps
+    cap = -(-int(cfg.max_steps) // K) * K
+    L = spec.MAX_STEPS if steps_per_launch is None else int(steps_per_launch)
+    if not 1 <= L <= spec.MAX_STEPS:
+        raise ValueError(f"steps_per_launch must be in [1, "
+                         f"{spec.MAX_STEPS}], got {L}")
 
-    def fn(labels_flat, media, id_lo, id_hi, jac_col, active, seed):
+    def fn(labels_flat, media, id_lo, id_hi, jac_col, active, seed, jac,
+           scratch):
         dev = id_lo.device
         n_media = media.shape[0]
         pos, direc, w0, rng = source.sample(xrng.PhotonId(id_lo, id_hi),
                                             int(seed) & xrng.MASK32)
 
-        def rounds(**groups):
-            """Fused rounds from the launch until every lane is dead or
-            the step cap fires; yields each round's outputs (one host
-            read a round)."""
+        def launches(**groups):
+            """Launches from the launch of the lanes until every lane is
+            dead or the step cap is reached; yields each launch's
+            outputs (one host read a launch)."""
             state = ph.launch(pos, direc, w0, rng, active, shape)
             steps = 0
-            while steps < cfg.max_steps and bool(state.alive.any()):
+            while steps < cap and bool(state.alive.any()):
+                n = min(L, cap - steps)
                 outs = step(labels_flat, media, state, shape, unitinmm,
-                            cfg, K, **groups)
+                            cfg, n, **groups)
                 yield outs
                 state = outs[0]
                 if "ppath" in groups:
                     groups["ppath"] = outs[5]
-                steps += K
+                steps += n
 
         # -- pass A: exit weight, gate and detector of each lane --------
+        # (a lane escapes once, so one launch adds its exit weight)
         w_exit = torch.zeros((n_lanes,), dtype=torch.float32, device=dev)
         rdet = torch.full((n_lanes,), -1, dtype=torch.int32, device=dev)
         gate = torch.full((n_lanes,), -1, dtype=torch.int32, device=dev)
         ppath = torch.zeros((n_lanes, n_media), dtype=torch.float32,
                             device=dev)
-        for outs in rounds(ppath=ppath, det_geom=det_geom,
-                           record=True):
+        for outs in launches(ppath=ppath, det_geom=det_geom, record=True,
+                             base_grids=False, totals=scratch):
             w_exit = w_exit + outs[3]
             capd, capg = outs[8], outs[9]
             rdet = torch.where(capd >= 0, capd, rdet)
@@ -134,12 +163,10 @@ def _build_replay_fn(shape, unitinmm, cfg: SimConfig, n_lanes: int,
         # the same trajectories again, so the exit weight is known from
         # the first segment on
         wscale = torch.where(active, w_exit, torch.zeros_like(w_exit))
-        jac = torch.zeros((nvox * jac_cols,), dtype=torch.float32,
-                          device=dev)
-        for outs in rounds(jac_w=wscale, jac_col=jac_col,
-                           jac_cols=jac_cols):
-            jac += outs[-1]
-        return jac, w_exit, gate, rdet
+        for _ in launches(jac_w=wscale, jac_col=jac_col, jac_cols=jac_cols,
+                          base_grids=False, totals=[jac]):
+            pass
+        return w_exit, gate, rdet
 
     return fn
 
@@ -163,7 +190,7 @@ def _batch_arrays(records, start, n_lanes, gate_resolved, ntg):
 def replay_jacobian(volume: Volume, cfg: SimConfig, records, detectors,
                     source=None, seed: int = 1234, n_lanes: int = 4096,
                     gate_resolved: bool = False, device=None, mesh=None,
-                    tracer=None) -> ReplayResult:
+                    tracer=None, steps_per_launch=None) -> ReplayResult:
     """Replay detected-photon records into per-detector absorption
     Jacobian volumes, on ``device`` (``None``: the CUDA device).
 
@@ -175,11 +202,16 @@ def replay_jacobian(volume: Volume, cfg: SimConfig, records, detectors,
     check.  ``gate_resolved=True`` widens the scatter to
     ``(nvox, n_det, ntg)`` keyed by each record's exit gate; its
     gate-sum is the ungated Jacobian.  Records run in batches of
-    ``n_lanes`` lanes, and the Jacobian is summed on the host in
-    float64.  ``tracer`` (a ``repro_torch.telemetry.Tracer``) records
-    one ``replay_batch`` span per batch, tagged with its record count
-    and ended after a device synchronisation.  ``mesh`` (a sharded
-    replay) is not ported yet and raises ``NotImplementedError``.
+    ``n_lanes`` lanes, each pass of a batch in launches of up to
+    ``steps_per_launch`` segments (default ``spec.MAX_STEPS``; the
+    result does not depend on it).  The Jacobian is summed on the
+    device in int64 fixed point; the cells the replay reached are
+    converted to float64 and copied to the host once.  A cell past the
+    fixed-point range raises ``OverflowError``.  ``tracer`` (a
+    ``repro_torch.telemetry.Tracer``) records one ``replay_batch`` span
+    per batch, tagged with its record count and ended after a device
+    synchronisation.  ``mesh`` (a sharded replay) is not ported yet and
+    raises ``NotImplementedError``.
     """
     if mesh is not None:
         raise NotImplementedError("replay over a device mesh is not "
@@ -214,9 +246,14 @@ def replay_jacobian(volume: Volume, cfg: SimConfig, records, detectors,
     media = volume.media.to(torch.float32).contiguous()
     n_lanes = max(1, min(int(n_lanes), max(n_rec, 1)))
     fn = _build_replay_fn(volume.shape, volume.unitinmm, cfg, n_lanes,
-                          source, det_geometry(detectors, dev), jac_cols)
+                          source, det_geometry(detectors, dev), jac_cols,
+                          steps_per_launch=steps_per_launch)
 
-    jac = np.zeros((nx * ny * nz * jac_cols,), np.float64)
+    nvox, n_media = nx * ny * nz, media.shape[0]
+    i64 = dict(dtype=torch.int64, device=dev)
+    jac = torch.zeros((nvox * jac_cols,), **i64)
+    scratch = [torch.zeros((n_det * ntg,), **i64),
+               torch.zeros((n_det, n_media), **i64)]
     w_exit = np.zeros((n_rec,), np.float32)
     gate = np.full((n_rec,), -1, np.int32)
     rdet = np.full((n_rec,), -1, np.int32)
@@ -228,25 +265,32 @@ def replay_jacobian(volume: Volume, cfg: SimConfig, records, detectors,
             span = tracer.span("replay_batch", device=dev,
                                engine="kernel" if dev.type == "cuda"
                                else "plain", records=nb, batch_start=start)
-        jac_b, w_b, g_b, rd_b = fn(
+        w_b, g_b, rd_b = fn(
             labels_flat, media,
             torch.tensor(id_lo.astype(np.int64), device=dev),
             torch.tensor(id_hi.astype(np.int64), device=dev),
             torch.tensor(col, device=dev), torch.tensor(active, device=dev),
-            seed)
+            seed, jac, scratch)
         if span is not None:
             span.end()
-        jac += jac_b.cpu().numpy()
         if dev.type == "cuda":
             check_errors(dev)
         w_exit[start: start + nb] = w_b[:nb].cpu().numpy()
         gate[start: start + nb] = g_b[:nb].cpu().numpy()
         rdet[start: start + nb] = rd_b[:nb].cpu().numpy()
 
+    if bool((jac < 0).any()):
+        raise OverflowError("a replay Jacobian cell passed 2**63 - 1 units")
+    # the cells the replay reached (a few percent of the grid), as
+    # float64, in one copy to the host
+    reached = torch.nonzero(jac).squeeze(1)
+    jacobian = np.zeros((nvox * jac_cols,), np.float64)
+    jacobian[reached.cpu().numpy()] = from_fixed(
+        jac[reached], spec.FIXED_SHIFT["jac"], torch.float64).cpu().numpy()
     shape_out = ((nx, ny, nz, n_det, ntg) if gate_resolved
                  else (nx, ny, nz, n_det))
     return ReplayResult(
-        jacobian=jac.reshape(shape_out),
+        jacobian=jacobian.reshape(shape_out),
         w_exit=w_exit,
         det=records[:, 2].astype(np.int32),
         gate=gate,

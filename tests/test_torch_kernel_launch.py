@@ -106,7 +106,7 @@ def test_prepare_orders_arguments_as_the_entry_point_documents():
             "det_w": (torch.int64, (ntg,)),
             "det_ppath": (torch.int64, (1, n_media)),
             "cap_det": (torch.int32, (N,)), "cap_gate": (torch.int32, (N,)),
-            "jac": (torch.float32, (nvox * 3,)),
+            "jac": (torch.int64, (nvox * 3,)),
             "stats": (torch.float32, (N, 2))}
     assert contract["out"] == list(want)
     for name, x in zip(contract["out"], outs):
@@ -122,6 +122,30 @@ def test_prepare_orders_arguments_as_the_entry_point_documents():
                                   "w_threshold", "roulette_m", "roulette_p"]
     assert floats[0] == 0.5 and floats[2] == cfg.tmax_ns
     assert floats[5] == pytest.approx(1.0 / cfg.roulette_m)
+
+
+def test_prepare_without_base_grids_passes_null_grids():
+    """The replay's variants: no fluence or exitance grid (a null
+    pointer to the kernel), ``totals`` only the groups' grids, and the
+    NOBASE bit in the mask, which has a library of its own."""
+    vol, cfg, state, kw, args = _call(groups=("jac",))
+    nvox = vol.labels.numel()
+    jac = torch.zeros(nvox * 3, dtype=torch.int64)
+    groups, ins, outs, ints, floats = K.prepare(
+        *args, **kw, base_grids=False, totals=[jac])
+    assert groups == K.NOBASE | K.GROUP_BITS["jac_cols"]
+    assert groups in K.VALID_GROUPS and ints[9] == groups
+    assert K.group_names(groups) == "jac+nobase"
+    assert outs[8] is None and outs[9] is None and outs[-1] is jac
+    assert ints[15] == 1  # add_into
+    p_out = K.pack(ins, outs, ints, floats)[1]
+    assert p_out[8] == p_out[9] == 0 and p_out[-1] == jac.data_ptr()
+    with pytest.raises(ValueError, match="totals must be"):
+        K.prepare(*args, **kw, base_grids=False, totals=[jac, jac, jac])
+    _, _, _, dkw, dargs = _call(groups=("det", "record"))
+    groups, _, outs, _, _ = K.prepare(*dargs, **dkw, base_grids=False)
+    assert groups in K.VALID_GROUPS and outs[8] is None
+    assert outs[13].dtype == outs[14].dtype == torch.int64  # det grids
 
 
 def test_pack_gives_the_entry_point_its_four_arrays():
@@ -183,29 +207,43 @@ def test_prepare_checks_every_input():
 
 
 def test_plain_version_sums_its_grids_exactly_on_request():
+    """Every grid of the plain version, the Jacobian too, is an int64 sum
+    of deposits each rounded once (``to_fixed``): the Jacobian equals
+    the sum of its rounded deposits added in another order, and the
+    call's totals are added into in place."""
+    from repro_torch.core import photon as ph
+    from repro_torch.core.fixed import to_fixed
+    from repro_torch.kernels.photon_step import spec
     from repro_torch.kernels.photon_step.ref import photon_steps_ref
     vol, cfg, state, kw, args = _call(n=512)
     kw = dict(kw, jac_w=torch.rand(512, generator=torch.Generator(
         ).manual_seed(1)))
-    f32 = photon_steps_ref(*args, **kw)
-    f64 = photon_steps_ref(*args, **kw, accumulate=torch.float64)
-    again = photon_steps_ref(*args, **kw, accumulate=torch.float32)
-    fixed = {1, 2, 6, 7}  # fluence, exitance, TPSF, path sums
-    for i, (a, b, c) in enumerate(zip(f32, f64, again)):
-        if i == 0:
-            for x, y, z in zip(a, b, c):
-                assert torch.equal(x, y) and torch.equal(x, z)
-        elif i in fixed:
-            # int64 fixed point whatever the Jacobian sums in
-            assert a.dtype == torch.int64
-            assert torch.equal(a, b) and torch.equal(a, c)
-            assert i != 1 or int(a.sum()) > 0
-        elif i == 10:  # the Jacobian, the one float grid
-            assert b.dtype == torch.float64 and a.dtype == torch.float32
-            assert torch.equal(a, c)
-            torch.testing.assert_close(a.double(), b, rtol=1e-5, atol=1e-6)
-        else:
-            assert torch.equal(a, b) and torch.equal(a, c)
+    got = photon_steps_ref(*args, **kw)
+    again = photon_steps_ref(*args, **kw)
+    for i, (a, b) in enumerate(zip(got[1:], again[1:])):
+        assert torch.equal(a, b), i
+    fixed = {1, 2, 6, 7, 10}  # fluence, exitance, TPSF, path sums, jac
+    for i in fixed:
+        assert got[i].dtype == torch.int64
+    # the Jacobian's deposits, rounded one by one, summed cell by cell
+    # from the last segment to the first
+    deposits, st = [], state
+    for _ in range(args[6]):
+        res = ph.step(st, vol.labels.reshape(-1), vol.media, SHAPE, 0.5, cfg)
+        deposits.append((res.dep_idx * 3 + kw["jac_col"].long(),
+                         to_fixed(kw["jac_w"] * res.seg_len,
+                                  spec.FIXED_SHIFT["jac"])))
+        st = res.state
+    want = torch.zeros_like(got[10])
+    for idx, units in reversed(deposits):
+        for j in reversed(range(idx.numel())):
+            want[idx[j]] += units[j]
+    assert torch.equal(got[10], want) and int(want.sum()) > 0
+    # with totals, the call adds into them and returns them
+    totals = [torch.full_like(got[i], 5) for i in sorted(fixed)]
+    into = photon_steps_ref(*args, **kw, totals=totals)
+    for t, i in zip(totals, sorted(fixed)):
+        assert into[i] is t and torch.equal(t, got[i] + 5)
 
 
 @pytest.mark.parametrize("module", ["kernel_timing", "profile_run"])

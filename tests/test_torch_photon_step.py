@@ -13,7 +13,7 @@ HG cancellation can turn that into a different voxel crossing, so
 alive/ivox must agree on >= 99% of lanes; fluence and exitance totals
 (sums over all lanes) agree to 1e-4 relative.  The port's grids are
 int64 fixed point (``spec.FIXED_SHIFT``), compared as the float32
-values ``core.fixed.from_fixed`` gives.
+values ``core.fixed.from_fixed`` gives, the replay Jacobian too.
 
 The optional output groups are held the same way, with two detectors
 at and beside the pencil so that backscattered photons are captured:
@@ -72,13 +72,14 @@ def _setup(bench, ntg):
 
 
 def _float_grids(got):
-    """The port's fixed-point fluence, exitance, TPSF and path sums as
-    float32, by their positions in a call's outputs."""
+    """The port's fixed-point fluence, exitance, TPSF, path sums and, in
+    a call of every group, Jacobian as float32, by their positions in a
+    call's outputs."""
     got = list(got)
     for i, name in ((1, "fluence"), (2, "exitance"), (6, "det_w"),
-                    (7, "det_ppath")):
+                    (7, "det_ppath"), (10, "jac")):
         if i < len(got) and (i < 5 or len(got) > 7) and \
-                got[i].dtype == torch.int64:
+                (i < 10 or len(got) == 12) and got[i].dtype == torch.int64:
             got[i] = from_fixed(got[i], tspec.FIXED_SHIFT[name])
     return got
 
@@ -307,3 +308,65 @@ def test_launch_counter_and_build_key_are_static():
     assert path.parent == tkernel.BUILD_DIR and path.suffix == ".so"
     assert "--fmad=false" in tkernel.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in tkernel.NVCC_FLAGS
+
+
+@pytest.mark.parametrize("groups", [
+    {}, {"record": True, "stats": True, "jac": True}])
+def test_plain_version_stops_once_every_lane_is_dead(groups):
+    """Once every lane is dead the plain version leaves its loop and
+    moves each lane's RNG words past the remaining segments' 5 draws at
+    once (``rng.skip``), as the kernel's dead warps draw them: the same
+    outputs, bit for bit, as stepping every segment with
+    ``photon.step``, dead-lane RNG words included."""
+    tv = TV.benchmark_b2((10, 10, 10))
+    cfg = dataclasses.replace(TV.b2_config(), n_time_gates=2, tmax_ns=0.2)
+    n, n_steps = 64, 400
+    st0 = ops.fresh_state(tv, n, seed=4, source={
+        "type": "pencil", "pos": [5.0, 5.0, 0.0]})
+    # lanes dead at launch among live ones
+    st0 = st0._replace(alive=st0.alive & (torch.arange(n) % 5 != 0))
+    kw = {}
+    if groups:
+        kw = dict(ppath=torch.zeros(n, tv.media.shape[0]),
+                  det_geom=TD.det_geometry(TD.as_detectors(
+                      [{"x": 6.0, "y": 5.0, "radius": 2.0}])),
+                  record=True, stats=True, jac_w=torch.rand(
+                      n, generator=torch.Generator().manual_seed(2)),
+                  jac_col=torch.zeros(n, dtype=torch.int32), jac_cols=1)
+    got = tref.photon_steps_ref(tv.labels.reshape(-1), tv.media, st0,
+                                tv.shape, 1.0, cfg, n_steps, **kw)
+    st, steps_alive = st0, 0
+    for _ in range(n_steps):
+        steps_alive += bool(st.alive.any())
+        st = tph.step(st, tv.labels.reshape(-1), tv.media, tv.shape, 1.0,
+                      cfg).state
+    assert 0 < steps_alive < n_steps // 2  # the loop did stop early
+    for name, x, y in zip(st._fields, got[0], st):
+        assert torch.equal(x, y), name
+    if groups:
+        # against the same call cut to the segments any lane lived
+        short = tref.photon_steps_ref(tv.labels.reshape(-1), tv.media, st0,
+                                      tv.shape, 1.0, cfg, steps_alive, **kw)
+        for i, (x, y) in enumerate(zip(got[1:], short[1:])):
+            assert torch.equal(x, y), i
+        assert int(got[10].sum()) > 0 and int((got[8] >= 0).sum()) > 0
+
+
+def test_plain_version_without_base_grids():
+    """``base_grids=False`` (the replay's variants) makes no fluence or
+    exitance deposits and changes nothing else: lane state, escaped and
+    timed-out weight and every group's outputs bit-equal."""
+    _, tv, _, tcfg, _, tst = _setup("B2", 4)
+    t, _, tj, _ = _group_args(None, tv.media.shape[0])
+    args = (tv.labels.reshape(-1), tv.media, tst, SHAPE, 1.0, tcfg, K)
+    full = tref.photon_steps_ref(*args, **t, record=True, **tj, stats=True)
+    lean = ops.photon_steps(*args, **t, record=True, **tj, stats=True,
+                            base_grids=False)
+    assert len(full) == len(lean) and lean[1] is None and lean[2] is None
+    for i, (a, b) in enumerate(zip(full, lean)):
+        if i == 0:
+            for x, y in zip(a, b):
+                assert torch.equal(x, y)
+        elif i not in (1, 2):
+            assert torch.equal(a, b), i
+    assert int(full[1].sum()) > 0 and int(lean[10].sum()) > 0

@@ -9,6 +9,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
@@ -130,3 +131,17 @@ def test_add_id_carries_into_the_high_word():
         want = [trng.split_id64((s + d) % 2**64) for d in deltas]
         assert got.lo.tolist() == [w[0] for w in want]
         assert got.hi.tolist() == [w[1] for w in want]
+
+
+@pytest.mark.parametrize("n", [0, 1, 2, 7, 640, 5 * 4095])
+def test_skip_equals_drawing(n):
+    """``skip`` (the plain photon step's jump past a dead lane's draws)
+    gives the state of ``n`` draws of the reference's ``next_u32``."""
+    lo, hi = _ids(64, 2**32 - 30)
+    ref = jrng.seed_state(jnp.uint32(int(_SEEDS[0])),
+                          jrng.PhotonId(jnp.asarray(lo), jnp.asarray(hi)))
+    start = _t(ref)
+    ref = jax.jit(lambda s: jax.lax.fori_loop(
+        0, n, lambda i, s: jrng.next_u32(s)[0], s))(ref)
+    np.testing.assert_array_equal(trng.skip(start, n).numpy(),
+                                  np.asarray(ref).astype(np.int64))
