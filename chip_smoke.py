@@ -54,12 +54,10 @@ script exits non-zero and prints no result:
            records/ms and launches a pass; every output bit-equal
            between all of them and the detect run's replay; the largest
            Jacobian cell and the smallest deposit against the fixed-point
-           range; the launches of pass A (det+record) and pass B (jac)
-           timed at the replay's lane count, with their bounds from the
-           Jacobian cells they reach; and a replay of a subset of the
-           records (the longest trajectories among them) held launch by
-           launch against the plain version on its own inputs, as in the
-           groups phase
+           range; every launch of pass A (det+record) and pass B (jac)
+           held against the plain version on its own inputs at the
+           replay's lane count, as in the groups phase, and timed, with
+           its bound from the Jacobian cells it reaches
   sources  every source type of the menu (pencil, isotropic, cone,
            gaussian, disk, planar with a pattern, line as a slit and
            isotropic) through the CLI on B2 at 60^3 with 10^6 photons:
@@ -92,6 +90,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import json
 import math
 import pathlib
@@ -155,9 +154,6 @@ SCENARIO_PHOTONS = 1_000_000
 SCENARIO_LANES = 32_768
 KEEP_ROUND = 12
 K_MAIN = 16
-# the replay's subset held against the plain version: its longest
-# trajectories and an even spread of the rest
-SUBSET_LONGEST, SUBSET_SPREAD = 1024, 3072
 CMP_LANES, CMP_K = 131_072, 8
 SIZE = 60
 # the detection path: 50 gates of 0.1 ns, 2 mm disks 10, 15 and 20 mm
@@ -177,15 +173,13 @@ DETECT_ARGV = ["--bench", "B2", "--photons", str(PHOTONS), "--lanes",
 DET, RECORD, JAC, STATS = (K.GROUP_BITS[g]
                            for g in ("n_det", "record", "jac_cols", "stats"))
 GROUP_ROWS = {DET: "K2", RECORD: "K3", JAC: "K4", STATS: "K5"}
-# the variants the detection path launches, and where (the replay's
-# without fluence and exitance deposits)
-FORWARD, PASS_A, PASS_B = (DET | RECORD | STATS, K.NOBASE | DET | RECORD,
-                           K.NOBASE | JAC)
+# the variants the detection path launches, and where
+FORWARD, PASS_A, PASS_B = DET | RECORD | STATS, DET | RECORD, JAC
 PATH_VARIANTS = {FORWARD: "detection forward", PASS_A: "replay pass A",
                  PASS_B: "replay pass B"}
 # the variants held against the plain version: each group alone, and
-# the detection path's
-CHECK_VARIANTS = (DET, DET | RECORD, JAC, STATS, FORWARD, PASS_A, PASS_B)
+# the detection path's (the replay's two among them)
+CHECK_VARIANTS = (DET, DET | RECORD, JAC, STATS, FORWARD)
 
 
 def emit(phase: str, **fields) -> None:
@@ -316,8 +310,6 @@ def measure(got, want, tol: float, min_equal: float = 0.9999):
            "state_max_abs": max_abs, "state_max_rel": max_rel}
     for name, a, b in zip(("fluence", "exitance", "escaped", "timed"),
                           got[1:], want[1:]):
-        if a is None and b is None:  # a variant without base grids
-            continue
         cells(name, a, b, tol, fails, out,
               same if name in ("escaped", "timed") else None)
         max_abs = max(max_abs, out.get(name, {}).get("cell_max_abs", 0.0))
@@ -699,8 +691,6 @@ def main() -> None:
                       jac_cols=n_det * ntg)
         if groups & STATS:
             kw["stats"] = True
-        if groups & K.NOBASE:
-            kw["base_grids"] = False
         return kw
 
     def groups_vs_plain(vol, cfg, state, ppath, n_steps, reps, start):
@@ -934,14 +924,22 @@ def main() -> None:
     rounds_label = f"rounds of {K_MAIN}"
     schedules = {"long launches": None, rounds_label: K_MAIN}
 
+    build_replay_fn = R._build_replay_fn
+
     def replay_again(label):
+        # the launch length through the replay's own builder
+        R._build_replay_fn = functools.partial(
+            build_replay_fn, steps_per_launch=schedules[label])
         K.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        again = R.replay_jacobian(vol, cfg_detect, rec, DETECTORS, seed=SEED,
-                                  n_lanes=LANES, gate_resolved=True,
-                                  steps_per_launch=schedules[label])
-        torch.cuda.synchronize()
+        try:
+            again = R.replay_jacobian(vol, cfg_detect, rec, DETECTORS,
+                                      seed=SEED, n_lanes=LANES,
+                                      gate_resolved=True)
+            torch.cuda.synchronize()
+        finally:
+            R._build_replay_fn = build_replay_fn
         wall = time.perf_counter() - t0
         for name, a, b in zip(rep._fields, rep, again):
             check(np.array_equal(a, b), f"replay in {label}: {name} differs "
@@ -970,9 +968,10 @@ def main() -> None:
 
     def scratch_for(groups):
         """Zeroed int64 totals of a replay launch, as the replay gives
-        them: the pass's grids, no fluence or exitance."""
-        return ([zeros(n_det * NTG_DETECT), zeros(n_det, n_media)]
-                if groups & DET else [zeros(nvox * jac_cols)])
+        them: fluence, exitance and the pass's own grids."""
+        return [zeros(nvox * NTG_DETECT), zeros(SIZE * SIZE)] + (
+            [zeros(n_det * NTG_DETECT), zeros(n_det, n_media)]
+            if groups & DET else [zeros(nvox * jac_cols)])
 
     def replay_kept(records):
         """One replay of ``records`` as replay_jacobian runs it (batches
@@ -1001,25 +1000,46 @@ def main() -> None:
                 active)), SEED, jac, scratch)
         return kept
 
-    # every launch of one replay at the replay's own lane count: its live
-    # lane-segments (stats block), captures and the Jacobian or detector
-    # cells it reaches (its own grids), its bound, and its time as the
-    # replay launches it (adding into totals, zeroing nothing)
+    # every launch of one replay at the replay's own lane count: held
+    # against the plain version on its own inputs, as in the groups phase;
+    # its live lane-segments (stats block), captures and the Jacobian or
+    # detector cells it reaches (its own grids), its bound, and its time
+    # as the replay launches it (adding into totals, zeroing nothing).
+    # The plain version's steps of pass B give the range of the Jacobian's
+    # deposits (three reductions a step, inside pass B's plain time).
     kept = replay_kept(rec)
     K.check_errors(dev)
     # live segments of each record's lane, over its batch's launches
     segments = torch.zeros(rec.shape[0], dtype=torch.float64, device=dev)
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    deposits = {"smallest": torch.full((), math.inf, device=dev),
+                "largest": torch.zeros((), device=dev),
+                "count": torch.zeros((), dtype=torch.int64, device=dev)}
+    plain_step = ph.step
+
+    def observed_step(jac_w):
+        """``ph.step`` that adds the range of ``jac_w * seg_len`` of its
+        segments to ``deposits``."""
+        def step(*args, **kw):
+            res = plain_step(*args, **kw)
+            v = jac_w * res.seg_len
+            pos = v > 0
+            deposits["smallest"] = torch.minimum(
+                deposits["smallest"], torch.where(pos, v, math.inf).min())
+            deposits["largest"] = torch.maximum(deposits["largest"], v.max())
+            deposits["count"] += pos.sum()
+            return res
+        return step
+
     for groups in (PASS_A, PASS_B):
         pass_launches = kept[groups]
         check(len(pass_launches) == by_variant[pass_names[groups]],
               f"the replay again made {len(pass_launches)} launches of "
               f"{pass_names[groups]}, the detect run "
               f"{by_variant[pass_names[groups]]}")
-        bounds, lives = [], 0.0
-        for args, kw, first in pass_launches:
-            # (the stats group has no variant without base grids)
-            outs = K.photon_step_cuda(*args, **dict(kw, base_grids=True),
-                                      stats=True)
+        bounds, lives, plain_ms, seen, max_abs = [], 0.0, [], {}, 0.0
+        for i, (args, kw, first) in enumerate(pass_launches):
+            outs = K.photon_step_cuda(*args, **kw, stats=True)
             live = outs[-1][:, 0].double()
             if groups == PASS_A:
                 nb = min(live.numel(), rec.shape[0] - first)
@@ -1030,11 +1050,34 @@ def main() -> None:
             moved = 2 * FIXED_BYTES * touched + 16 * n_media + (
                 12 * n_det if groups & DET else 0)
             lives += float(live.sum())
+            lanes, n_steps = args[2].w.numel(), int(args[6])
             bounds.append(group_bound(
-                groups, args[2].w.numel(), float(live.sum()), captures,
-                NTG_DETECT, n_det, n_media, jac_cols,
-                spec.STATE_LANE_BYTES_PORT, grid_bytes=moved)
-                | {"cells_touched": touched})
+                groups, lanes, float(live.sum()), captures, NTG_DETECT, n_det,
+                n_media, jac_cols, spec.STATE_LANE_BYTES_PORT,
+                grid_bytes=moved) | {"cells_touched": touched})
+            tol = cell_tol(lanes, n_steps)
+            base = K.photon_step_cuda(*args)
+            got = K.photon_step_cuda(*args, **kw)
+            torch.cuda.synchronize()
+            if groups & JAC:
+                ph.step = observed_step(kw["jac_w"])
+            try:
+                start.record()
+                want = photon_steps_ref(*args, **kw)
+                stop.record()
+                torch.cuda.synchronize()
+            finally:
+                ph.step = plain_step
+            plain_ms.append(start.elapsed_time(stop))
+            diffs, fails = measure_groups(got, want, base, groups, tol)
+            check(not fails, f"replay {K.group_names(groups)} launch {i}: "
+                  + "; ".join(fails))
+            max_abs = max(max_abs, diffs["max_abs_err"])
+            if not seen and (not groups & DET or int((want[8] >= 0).sum())):
+                seen = check_groups_see_index_errors(
+                    got, want, base, groups, n_det, NTG_DETECT, jac_cols, tol)
+        check(bool(seen), f"replay {K.group_names(groups)}: no launch to "
+              f"show the comparison's power on")
         scratch = scratch_for(groups)
 
         def go(pass_launches=pass_launches, scratch=scratch):
@@ -1048,7 +1091,8 @@ def main() -> None:
                           "cells_touched")}
         timed_groups[groups] = {
             "variant": pass_names[groups], "ms": ms,
-            "host_loop_ms": host_loop_ms,
+            "host_loop_ms": host_loop_ms, "plain_ms": sum(plain_ms) / n,
+            "max_abs_err": max_abs, "mutations_seen": list(seen),
             "bound_ms": max(mean["bytes_ms"], mean["operations_ms"]),
             "bound_by": ("bytes" if mean["bytes_ms"] >= mean["operations_ms"]
                          else "operations"),
@@ -1056,72 +1100,14 @@ def main() -> None:
             "steps_per_launch": [int(a[6]) for a, _, _ in pass_launches],
             "live_segments": lives, **mean}
     longest_lane = float(segments.max())
-
-    # a subset of the records, their longest trajectories among them, so
-    # that lanes live across a launch boundary: every launch of its
-    # replay held against the plain version on its own inputs, as in the
-    # groups phase, and the range of the Jacobian's deposits walked with
-    # the plain step
-    order = torch.argsort(segments, descending=True).cpu().numpy()
-    pick = np.union1d(order[:SUBSET_LONGEST], np.arange(
-        0, rec.shape[0], max(rec.shape[0] // SUBSET_SPREAD, 1)))
-    sub = rec[pick]
-    kept_sub = replay_kept(sub)
-    K.check_errors(dev)
-    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    deposits = {"smallest": math.inf, "largest": 0.0, "count": 0}
-    for groups in (PASS_A, PASS_B):
-        plain_ms, sub_ms, seen, max_abs = [], [], {}, 0.0
-        for i, (args, kw, _) in enumerate(kept_sub[groups]):
-            lanes, n_steps = args[2].w.numel(), int(args[6])
-            tol = cell_tol(lanes, n_steps)
-            base = K.photon_step_cuda(*args)
-            got = K.photon_step_cuda(*args, **kw)
-            torch.cuda.synchronize()
-            start.record()
-            want = photon_steps_ref(*args, **kw)
-            stop.record()
-            torch.cuda.synchronize()
-            plain_ms.append(start.elapsed_time(stop))
-            scratch = scratch_for(groups)
-            sub_ms.append(time_cuda(lambda: K.photon_step_cuda(
-                *args, **kw, totals=scratch), 3))
-            diffs, fails = measure_groups(got, want, base, groups, tol)
-            check(not fails, f"replay {K.group_names(groups)} launch {i} of "
-                  f"the subset: " + "; ".join(fails))
-            max_abs = max(max_abs, diffs["max_abs_err"])
-            if not seen and (not groups & DET or int((want[8] >= 0).sum())):
-                seen = check_groups_see_index_errors(
-                    got, want, base, groups, n_det, NTG_DETECT, jac_cols, tol)
-            if groups & JAC:
-                walk = args[2]
-                for _ in range(n_steps):
-                    if not bool(walk.alive.any()):
-                        break
-                    res = ph.step(walk, args[0], args[1], args[3], args[4],
-                                  args[5])
-                    v = kw["jac_w"] * res.seg_len
-                    v = v[v > 0]
-                    if v.numel():
-                        deposits["smallest"] = min(deposits["smallest"],
-                                                   float(v.min()))
-                        deposits["largest"] = max(deposits["largest"],
-                                                  float(v.max()))
-                        deposits["count"] += v.numel()
-                    walk = res.state
-        check(bool(seen), f"replay {K.group_names(groups)}: no launch of the "
-              f"subset to show the comparison's power on")
-        n = len(kept_sub[groups])
-        timed_groups[groups].update(
-            plain_ms=sum(plain_ms) / n, max_abs_err=max_abs,
-            plain_lanes=int(sub.shape[0]), ms_at_plain_lanes=sum(sub_ms) / n,
-            plain_launches=n, mutations_seen=list(seen))
+    deposits = {k: v.item() for k, v in deposits.items()}
     # a deposit below one unit rounds to 0 or 1 unit; one of 2^44 units
     # or more, or a cell near 2^63, would be out of range
     unit = 2.0**-spec.FIXED_SHIFT["jac"]
-    check(deposits["largest"] < spec.DEPOSIT_LIMIT * unit
-          and largest < 2.0**62, f"Jacobian deposits or cells near the "
-          f"fixed-point range: {deposits}, largest cell {largest} units")
+    check(deposits["count"] > 0 and deposits["largest"]
+          < spec.DEPOSIT_LIMIT * unit and largest < 2.0**62,
+          f"Jacobian deposits or cells near the fixed-point range: "
+          f"{deposits}, largest cell {largest} units")
     emit("replay", records=int(rec.shape[0]), replays=replays,
          every_output_bit_equal=True,
          launches={K.group_names(g): by_variant[pass_names[g]]
@@ -1129,10 +1115,8 @@ def main() -> None:
          jacobian_unit=unit, largest_cell_units=largest,
          largest_cell_weight_mm=largest * unit,
          headroom_bits=63 - math.log2(max(largest, 1.0)),
-         subset_deposits={**deposits,
-                          "smallest_units": deposits["smallest"] / unit},
-         subset_lanes=int(sub.shape[0]), **{
-             K.group_names(g): timed_groups[g] for g in (PASS_A, PASS_B)},
+         deposits={**deposits, "smallest_units": deposits["smallest"] / unit},
+         **{K.group_names(g): timed_groups[g] for g in (PASS_A, PASS_B)},
          longest_lane_segments=longest_lane,
          kernel_share_of_replay_wall=sum(
              by_variant[pass_names[g]] * timed_groups[g]["ms"]
@@ -1371,8 +1355,8 @@ def main() -> None:
         "bound_ms": timed_groups[g]["bound_ms"],
         "bound_by": timed_groups[g]["bound_by"], "library_ms": None, **{
             k: timed_groups[g][k] for k in (
-                "lanes", "steps_per_launch", "cells_touched", "plain_lanes",
-                "ms_at_plain_lanes") if k in timed_groups[g]}}
+                "lanes", "steps_per_launch", "cells_touched")
+            if k in timed_groups[g]}}
         for g, where in PATH_VARIANTS.items()] + [{
         "name": "photon_step_" + K.group_names(row["groups"]).replace(
             "+", "_") + "_batched",

@@ -13,9 +13,8 @@
 //     STATS     (n, 2) segments entered alive, deposit     (stats)
 //   The source is compiled once per valid set of groups, with
 //   -DPS_GROUPS=<mask> (1 DET, 2 RECORD, 4 JAC, 8 STATS; RECORD needs
-//   DET; 16 NOBASE, the replay's variants, compiles the fluence and
-//   exitance deposits away), into a library of its own; groups that are
-//   off compile away, so the base variant is the base kernel alone.
+//   DET), into a library of its own; groups that are off compile away,
+//   so the base variant is the base kernel alone.
 //
 // What bounds it.  The source's own count, which sets the kernel
 //   table's bound in chip_smoke.py, is per live lane-segment ~130
@@ -97,14 +96,13 @@
 //   are long: a pass is a few launches of up to 4095 segments, not one
 //   launch a round.  Such a launch is bound by its longest lane, a chain
 //   of dependent segments on one warp, while the rest of the card idles
-//   in its tail.  So the replay's variants (NOBASE) make no fluence or
-//   exitance deposits, which the replay never reads (measured 10% of a
-//   launch); their launches add into the caller's totals (add_into) and
-//   zero nothing; the Jacobian's deposits go straight to device memory
-//   with integer atomics that do not wait (through the block's cache
-//   they took 5% longer: neighbouring lanes mostly carry other Jacobian
-//   columns), and the caller keeps one int64 Jacobian on the device for
-//   the whole replay.
+//   in its tail.  So a replay launch adds into the caller's totals
+//   (add_into) and zeroes nothing: the caller keeps one int64 Jacobian
+//   on the device for the whole replay, and scratch fluence and
+//   exitance grids it zeroes once.  The Jacobian's deposits go straight
+//   to device memory with integer atomics that do not wait (through the
+//   block's cache they took 5% longer: neighbouring lanes mostly carry
+//   other Jacobian columns).
 //
 // Scenarios.  One launch may advance S scenarios of n lanes each (the
 //   batched executor of repro_torch.scenarios): blockIdx.y is the
@@ -166,14 +164,12 @@ typedef unsigned long long u64;
 #define PS_GROUPS 0
 #endif
 constexpr int kGroupDet = 1, kGroupRecord = 2, kGroupJac = 4,
-              kGroupStats = 8, kGroupNoBase = 16;
+              kGroupStats = 8;
 constexpr bool kDet = (PS_GROUPS & kGroupDet) != 0;
 constexpr bool kRecord = (PS_GROUPS & kGroupRecord) != 0;
 constexpr bool kJac = (PS_GROUPS & kGroupJac) != 0;
 constexpr bool kStats = (PS_GROUPS & kGroupStats) != 0;
-// fluence and exitance deposits (the base grids), which NOBASE drops
-constexpr bool kBaseGrids = (PS_GROUPS & kGroupNoBase) == 0;
-static_assert(PS_GROUPS >= 0 && PS_GROUPS < 32, "PS_GROUPS is a 5-bit mask");
+static_assert(PS_GROUPS >= 0 && PS_GROUPS < 16, "PS_GROUPS is a 4-bit mask");
 static_assert(!kRecord || kDet, "the RECORD group needs the DET group");
 
 // Pointers and sizes of the optional groups; members of a group that is
@@ -527,7 +523,7 @@ __device__ __forceinline__ void run_lane(const Args& A, const int sc,
       // deposition (zero deposits add nothing and are skipped); the gate
       // is computed where it is used, so the base variant does no work
       // of the groups
-      if (kBaseGrids && dep != 0.f) {
+      if (dep != 0.f) {
         const int gate = clampi((int)floorf(t_new * A.gate_scale), 0, ntg - 1);
         const int cell = flat * ntg + gate;
         cache_add(s_key, s_val, cell, to_fixed(dep, kWeightScale, A.errors),
@@ -573,7 +569,7 @@ __device__ __forceinline__ void run_lane(const Args& A, const int sc,
           atomicAdd(jac + (long long)flat * grp.jac_cols + jac_col, u);
         }
       }
-      if (kBaseGrids && esc_w > 0.f && np_[2] < kZExitFace) {
+      if (esc_w > 0.f && np_[2] < kZExitFace) {
         const int ex = clampi((int)floorf(np_[0]), 0, nx - 1);
         const int ey = clampi((int)floorf(np_[1]), 0, ny - 1);
         const int bin = ex * ny + ey;
@@ -637,11 +633,9 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ u64 s_val[kCacheSlots];
   __shared__ int s_order[kThreads];
   __shared__ int s_warp_live[kWarps];
-  if (kBaseGrids) {
-    for (int i = threadIdx.x; i < kCacheSlots; i += kThreads) {
-      s_key[i] = kEmpty;
-      s_val[i] = 0ull;
-    }
+  for (int i = threadIdx.x; i < kCacheSlots; i += kThreads) {
+    s_key[i] = kEmpty;
+    s_val[i] = 0ull;
   }
   const int tid = threadIdx.x, wid = tid >> 5, lid = tid & 31;
   const int sc = blockIdx.y;
@@ -666,7 +660,6 @@ __global__ void __launch_bounds__(kThreads)
   if (local < A.n)
     run_lane<DO_REFLECT, TAYLOR>(A, sc, base + local, s_key, s_val);
   // --- FLUSH: the block's cached sums into device memory ---
-  if (!kBaseGrids) return;
   __syncthreads();
   const int n_flu = A.nx * A.ny * A.nz * A.ntg;
   u64* fluence = A.fluence + (long long)sc * n_flu;
@@ -699,8 +692,7 @@ cudaError_t launch(const Args& a, int blocks, int scenarios,
 //        [cap_det, cap_gate] (RECORD), [jac] (JAC), [stats] (STATS);
 //        fluence, exitance, det_w, det_ppath and jac are int64 fixed
 //        point, zeroed here on the stream before the launch unless
-//        add_into is set, when the launch adds into them; with NOBASE
-//        fluence and exitance are null
+//        add_into is set, when the launch adds into them
 //   ints:   n, nx, ny, nz, n_steps, ntg, general_exact, do_reflect, taylor,
 //           groups, n_det, n_media, jac_cols, scenarios, labels_stride,
 //           add_into, threads, blocks

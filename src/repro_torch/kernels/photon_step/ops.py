@@ -35,15 +35,13 @@ def resolve_device(device=None) -> torch.device:
 def photon_steps(labels_flat, media, state, shape, unitinmm, cfg: SimConfig,
                  n_steps: int, ppath=None, det_geom=None,
                  record: bool = False, jac_w=None, jac_col=None,
-                 jac_cols: int = 0, stats: bool = False, totals=None,
-                 base_grids: bool = True):
+                 jac_cols: int = 0, stats: bool = False, totals=None):
     """Returns ``(new_state, fluence, exitance, escaped_per_lane,
     timed_per_lane)`` and the optional output groups the arguments ask
     for (see ``ref.photon_steps_ref``: int64 fixed-point grids, added
-    into ``totals`` when given, no fluence or exitance without
-    ``base_grids``, and a leading scenario axis for a ``(S, n_media,
-    4)`` media table): the kernel for CUDA tensors, the plain version
-    for CPU tensors."""
+    into ``totals`` when given, and a leading scenario axis for a
+    ``(S, n_media, 4)`` media table): the kernel for CUDA tensors, the
+    plain version for CPU tensors."""
     dev = state.w.device
     if dev.type == "cuda":
         fn = photon_step_cuda
@@ -54,7 +52,7 @@ def photon_steps(labels_flat, media, state, shape, unitinmm, cfg: SimConfig,
     return fn(labels_flat, media, state, shape, unitinmm, cfg, n_steps,
               ppath=ppath, det_geom=det_geom, record=record, jac_w=jac_w,
               jac_col=jac_col, jac_cols=jac_cols, stats=stats,
-              totals=totals, base_grids=base_grids)
+              totals=totals)
 
 
 def launch_ids(n: int, id_offset: int, device) -> xrng.PhotonId:

@@ -59,32 +59,23 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # Bit of each optional output group in the kernel's PS_GROUPS mask.
 GROUP_BITS = {"n_det": 1, "record": 2, "jac_cols": 4, "stats": 8}
-# Bit of the variants without fluence and exitance deposits
-# (``base_grids=False``): the replay's two passes.
-NOBASE = 16
-# Every mask the output contract allows (record needs detectors), and
-# the replay's: detectors and records, and the Jacobian, without base
-# grids.
-VALID_GROUPS = tuple(m for m in range(16) if not (m & 2 and not m & 1)) + (
-    NOBASE | 1 | 2, NOBASE | 4)
+# Every mask the output contract allows: record needs detectors.
+VALID_GROUPS = tuple(m for m in range(16) if not (m & 2 and not m & 1))
 
 
 def group_mask(n_det: int = 0, record: bool = False, jac_cols: int = 0,
-               stats: bool = False, base_grids: bool = True) -> int:
+               stats: bool = False) -> int:
     """The PS_GROUPS mask of a call's optional output groups."""
     flags = {"n_det": n_det, "record": record, "jac_cols": jac_cols,
              "stats": stats}
-    return sum(bit for name, bit in GROUP_BITS.items() if flags[name]) + (
-        0 if base_grids else NOBASE)
+    return sum(bit for name, bit in GROUP_BITS.items() if flags[name])
 
 
 def group_names(groups: int) -> str:
     """``"base"`` or the groups of a mask joined by ``+``, e.g.
-    ``"det+record+stats"`` (``+nobase`` without base grids)."""
+    ``"det+record+stats"``."""
     names = [{"n_det": "det", "jac_cols": "jac"}.get(n, n)
              for n, bit in GROUP_BITS.items() if groups & bit]
-    if groups & NOBASE:
-        names.append("nobase")
     return "+".join(names) or "base"
 
 
@@ -245,14 +236,10 @@ _STATE_SPECS = (("pos", torch.float32, (3,)), ("dir", torch.float32, (3,)),
                 ("rng", torch.int64, (4,)), ("alive", torch.bool, ()))
 
 
-def _grid_specs(S, batched, nvox, nxy, ntg, n_det, n_media, jac_cols,
-                base_grids):
+def _grid_specs(S, batched, nvox, nxy, ntg, n_det, n_media, jac_cols):
     """``(name, shape)`` of the int64 fixed-point grids of a call."""
     lead = (S,) if batched else ()
-    specs = []
-    if base_grids:
-        specs += [("fluence", lead + (nvox * ntg,)),
-                  ("exitance", lead + (nxy,))]
+    specs = [("fluence", lead + (nvox * ntg,)), ("exitance", lead + (nxy,))]
     if n_det:
         specs += [("det_w", lead + (n_det * ntg,)),
                   ("det_ppath", lead + (n_det, n_media))]
@@ -264,7 +251,7 @@ def _grid_specs(S, batched, nvox, nxy, ntg, n_det, n_media, jac_cols,
 def prepare(labels_flat, media, state: ph.PhotonState, shape, unitinmm,
             cfg: SimConfig, n_steps: int, ppath=None, det_geom=None,
             record=False, jac_w=None, jac_col=None, jac_cols: int = 0,
-            stats: bool = False, totals=None, base_grids: bool = True):
+            stats: bool = False, totals=None):
     """Check a call's inputs and allocate its outputs on the state's
     device; returns ``(groups, ins, outs, ints, floats)``: the
     tensors, in the order of the C entry point's ``in`` and ``out``
@@ -272,11 +259,8 @@ def prepare(labels_flat, media, state: ph.PhotonState, shape, unitinmm,
     accumulated outputs (fluence, exitance, TPSF, path sums, Jacobian)
     itself, so every output is allocated uninitialised; with ``totals``
     those fixed-point grids are the caller's, which the launch adds into
-    and zeroes nothing.  ``base_grids=False`` (the replay's variants)
-    drops the fluence and exitance grids: their outputs are ``None`` (a
-    null pointer to the kernel) and ``totals`` holds only the groups'
-    grids.  A ``(S, n_media, 4)`` media table makes it a launch of S
-    scenarios (``ref.photon_steps_ref`` gives the shapes)."""
+    and zeroes nothing.  A ``(S, n_media, 4)`` media table makes it a
+    launch of S scenarios (``ref.photon_steps_ref`` gives the shapes)."""
     n_det, record, jac_cols = spec.check_groups(ppath, det_geom, record,
                                                 jac_w, jac_col, jac_cols)
     S, batched = spec.scenario_count(media)
@@ -312,7 +296,7 @@ def prepare(labels_flat, media, state: ph.PhotonState, shape, unitinmm,
         specs += [("jac_w", jac_w, torch.float32, (n_all,)),
                   ("jac_col", jac_col, torch.int32, (n_all,))]
     grids = _grid_specs(S, batched, nvox, nxy, ntg, n_det, n_media,
-                        jac_cols, base_grids)
+                        jac_cols)
     if totals is not None:
         if len(totals) != len(grids):
             raise ValueError(f"totals must be the {len(grids)} grids "
@@ -329,7 +313,7 @@ def prepare(labels_flat, media, state: ph.PhotonState, shape, unitinmm,
         for name, shp in grids}
     ins = [labels_flat, media, *state, _error_word(dev)]
     outs = [torch.empty_like(x) for x in state]
-    outs += [fixed.get("fluence"), fixed.get("exitance"),
+    outs += [fixed["fluence"], fixed["exitance"],
              torch.empty((n_all,), **f32), torch.empty((n_all,), **f32)]
     if n_det:
         ins += [ppath, det_geom]
@@ -345,7 +329,7 @@ def prepare(labels_flat, media, state: ph.PhotonState, shape, unitinmm,
         outs += [torch.empty((n_all, 2), **f32)]
     assert len(outs) == spec.output_arity(n_det, record, jac_cols, stats,
                                           packed_state=False)
-    groups = group_mask(n_det, record, jac_cols, stats, base_grids)
+    groups = group_mask(n_det, record, jac_cols, stats)
     taylor = cfg.deposit_mode == "taylor"
     ints = (n, nx, ny, nz, n_steps, ntg,
             int(not cfg.specialize and not taylor), int(bool(cfg.do_reflect)),
@@ -360,25 +344,20 @@ def prepare(labels_flat, media, state: ph.PhotonState, shape, unitinmm,
 
 def pack(ins, outs, ints, floats):
     """The C entry point's four arrays: input and output pointers
-    (uint64; an output that is ``None`` is a null pointer), ``ints``
-    (int32) and ``floats`` (float32)."""
+    (uint64), ``ints`` (int32) and ``floats`` (float32)."""
     return (array.array("Q", [x.data_ptr() for x in ins]),
-            array.array("Q", [0 if x is None else x.data_ptr()
-                              for x in outs]),
+            array.array("Q", [x.data_ptr() for x in outs]),
             array.array("i", ints), array.array("f", floats))
 
 
 def photon_step_cuda(labels_flat, media, state: ph.PhotonState, shape,
                      unitinmm, cfg: SimConfig, n_steps: int, ppath=None,
                      det_geom=None, record=False, jac_w=None, jac_col=None,
-                     jac_cols: int = 0, stats: bool = False, totals=None,
-                     base_grids: bool = True):
+                     jac_cols: int = 0, stats: bool = False, totals=None):
     """Advance all lanes ``n_steps`` segments on the card; returns what
     ``ref.photon_steps_ref`` returns, output group by output group, the
-    grids bit-equal to it.  ``totals``, ``base_grids`` and a ``(S,
-    n_media, 4)`` media table (S scenarios) are as there; without base
-    grids the kernel is built for detectors and records, or the
-    Jacobian, alone (``VALID_GROUPS``).
+    grids bit-equal to it.  ``totals`` and a ``(S, n_media, 4)`` media
+    table (S scenarios) are as there.
 
     Every tensor must be contiguous on one CUDA device, with the dtypes
     of ``photon.PhotonState`` and labels in ``[0, n_media)`` (the
@@ -395,8 +374,7 @@ def photon_step_cuda(labels_flat, media, state: ph.PhotonState, shape,
         raise ValueError(f"photon_step_cuda needs CUDA tensors, got {dev}")
     groups, ins, outs, ints, floats = prepare(
         labels_flat, media, state, shape, unitinmm, cfg, n_steps, ppath,
-        det_geom, record, jac_w, jac_col, jac_cols, stats, totals,
-        base_grids)
+        det_geom, record, jac_w, jac_col, jac_cols, stats, totals)
     lib = _library(groups)
     arrays = pack(ins, outs, ints, floats)
     ptrs = [a.buffer_info()[0] for a in arrays]

@@ -38,8 +38,7 @@ def photon_steps_ref(labels_flat, media, state: ph.PhotonState,
                      shape, unitinmm, cfg: SimConfig, n_steps: int,
                      ppath=None, det_geom=None, record=False,
                      jac_w=None, jac_col=None, jac_cols: int = 0,
-                     stats: bool = False, totals=None,
-                     base_grids: bool = True):
+                     stats: bool = False, totals=None):
     """Returns ``(new_state, fluence, exitance, escaped_per_lane,
     timed_per_lane)``, then the optional groups in this order:
 
@@ -59,12 +58,10 @@ def photon_steps_ref(labels_flat, media, state: ph.PhotonState,
     point (``core.fixed``; ``from_fixed`` gives floats).  ``totals``
     (their int64 grids, in that order, as this call returns them) makes
     the call add into them in place and return them, as the kernel does
-    with ``add_into``.  ``base_grids=False`` makes no fluence or
-    exitance deposits: those outputs are ``None`` and ``totals`` holds
-    only the groups' grids.  A ``(S, n_media, 4)`` media table makes
-    the call S scenarios of ``n / S`` lanes each, scenario-major: labels
-    are ``(nvox,)`` shared or ``(S, nvox)``, ``det_geom`` ``(S, n_det,
-    3)``, and every grid gains a leading scenario axis.
+    with ``add_into``.  A ``(S, n_media, 4)`` media table makes the call
+    S scenarios of ``n / S`` lanes each, scenario-major: labels are
+    ``(nvox,)`` shared or ``(S, nvox)``, ``det_geom`` ``(S, n_det, 3)``,
+    and every grid gains a leading scenario axis.
     """
     n_det, record, jac_cols = spec.check_groups(ppath, det_geom, record,
                                                 jac_w, jac_col, jac_cols)
@@ -99,9 +96,11 @@ def photon_steps_ref(labels_flat, media, state: ph.PhotonState,
     sizes = {"fluence": S * n_flu, "exitance": S * nxy,
              "det_w": S * n_det * ntg, "det_ppath": S * n_det * n_media,
              "jac": S * nvox * jac_cols}
-    names = [name for name, on in (
-        ("fluence", base_grids), ("exitance", base_grids),
-        ("det_w", n_det), ("det_ppath", n_det), ("jac", jac_cols)) if on]
+    names = ["fluence", "exitance"]
+    if n_det:
+        names += ["det_w", "det_ppath"]
+    if jac_cols:
+        names += ["jac"]
     if totals is not None and len(totals) != len(names):
         raise ValueError(f"totals must be the {len(names)} grids {names}")
     grid = {name: (torch.zeros((sizes[name],), dtype=torch.int64,
@@ -128,12 +127,11 @@ def photon_steps_ref(labels_flat, media, state: ph.PhotonState,
         res = ph.step(st, labels, media_rows, shape, unitinmm, cfg,
                       label_base, media_base)
         gate = ph.time_gate_bins(res.dep_t, cfg.tmax_ns, ntg)
-        if base_grids:
-            grid["fluence"].index_add_(0, at(res.dep_idx * ntg + gate, n_flu),
-                                       to_fixed(res.dep_w, fw["fluence"]))
-            xy, xw = ph.exitance_bins(res.esc_pos, res.esc_w, shape)
-            grid["exitance"].index_add_(0, at(xy, nxy),
-                                        to_fixed(xw, fw["exitance"]))
+        grid["fluence"].index_add_(0, at(res.dep_idx * ntg + gate, n_flu),
+                                   to_fixed(res.dep_w, fw["fluence"]))
+        xy, xw = ph.exitance_bins(res.esc_pos, res.esc_w, shape)
+        grid["exitance"].index_add_(0, at(xy, nxy),
+                                    to_fixed(xw, fw["exitance"]))
         esc = esc + res.esc_w
         timed = timed + res.timed_w
         if n_det:
@@ -155,9 +153,7 @@ def photon_steps_ref(labels_flat, media, state: ph.PhotonState,
 
     def shaped(name, *tail):
         """Grid ``name`` as the call returns it: the caller's total, or
-        shaped, or ``None`` if the call has none."""
-        if name not in grid:
-            return None
+        shaped."""
         if totals is not None:
             return totals[names.index(name)]
         return grid[name].view(S, *tail) if batched else grid[name].view(*tail)

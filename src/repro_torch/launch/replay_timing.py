@@ -11,15 +11,15 @@ photons, 262144 lanes, K = 16, 50 gates over 5 ns, three 2 mm detectors,
 - ``replay``: the wall of ``replay.replay_jacobian`` (host clock, ended by
   a device synchronisation) over ``--reps`` runs, records per ms and the
   kernel launches by variant; once for each ``--steps-per-launch`` where
-  the replay takes that argument;
+  the replay's builder (``replay._build_replay_fn``) takes that argument;
 - ``breakdown``: one default replay traced (``telemetry.Tracer``): the
   seconds of its ``replay_batch`` spans (the two passes of a batch, to a
   device synchronisation) and of the rest of the wall (set-up, checks,
   the Jacobian's conversion and copy to the host);
 - ``pass``: for each replay pass, its launches, the device ms a launch
-  (CUDA events around the pass's launches queued back to back behind a
-  spin kernel) and all of the pass's device ms, the ms a launch as the
-  host issues the pass's launches, the pass's live lane-segments and the
+  and all of the pass's device ms, the ms a launch as the host issues
+  the pass's launches (``kernel_timing.device_ms`` and ``host_loop_ms``
+  over the pass's launches), the pass's live lane-segments and the
   segments of its longest lane (from the stats group on the same
   launches);
 - ``ablation``: for each ``--ablate`` name, the pass's launches through a
@@ -39,6 +39,7 @@ import argparse
 import collections
 import ctypes
 import dataclasses
+import functools
 import inspect
 import json
 import re
@@ -52,6 +53,7 @@ from repro_torch import replay as R
 from repro_torch.core import simulator as S
 from repro_torch.kernels.photon_step import ops
 from repro_torch.kernels.photon_step import photon_step as K
+from repro_torch.launch.kernel_timing import device_ms, host_loop_ms
 from repro_torch.launch.simulate import get_bench
 
 SIZE, LANES, K_STEPS, PHOTONS, SEED = 60, 262_144, 16, 10_000_000, 1234
@@ -59,10 +61,6 @@ NTG, TMAX = 50, 5.0
 DETECTORS = [{"x": 40, "y": 30, "radius": 2}, {"x": 45, "y": 30, "radius": 2},
              {"x": 50, "y": 30, "radius": 2}]
 SAVE_DETECTED = 1 << 20
-# ~0.1 s of spinning at the 1.98 GHz boost clock
-SPIN_CYCLES = 200_000_000
-# launches queued behind one spin kernel, so the queue never fills
-QUEUE = 64
 
 # Statements of csrc/photon_step.cu that an ablation replaces, by name:
 # (pattern, replacement) pairs, each pattern matching exactly once.
@@ -73,23 +71,6 @@ ABLATIONS = {
     # fluence and exitance deposits into the block's cache
     "base_deposits": ((r"cache_add\(s_key, s_val, cell,[^;]*;", ";"),
                       (r"cache_add\(s_key, s_val, n_flu \+ bin,[^;]*;", ";")),
-    # the fixed-point Jacobian's deposits through the block's cache,
-    # under keys after the fluence cells and exitance bins, and its
-    # flush routing those keys to the Jacobian (in every variant)
-    "jac_cache": (
-        (r"if \(!kBaseGrids\) return;", ";"),
-        (r"if \(kBaseGrids\) \{\n    for \(int i = threadIdx\.x;",
-         "if (true) {\n    for (int i = threadIdx.x;"),
-        (r"atomicAdd\(jac \+ \(long long\)flat \* grp\.jac_cols"
-         r" \+ jac_col, u\);",
-         "cache_add(s_key, s_val, n_flu + nx * ny + flat * grp.jac_cols"
-         " + jac_col, u, jac + (long long)flat * grp.jac_cols + jac_col);"),
-        (r"add_fixed\(key < n_flu \? fluence \+ key : exitance \+"
-         r" \(key - n_flu\), u,\s*A\.errors\);",
-         "add_fixed(key < n_flu ? fluence + key : key < n_flu + A.nx * A.ny"
-         " ? exitance + (key - n_flu) : A.grp.jac + (long long)sc * A.nx *"
-         " A.ny * A.nz * A.grp.jac_cols + (key - n_flu - A.nx * A.ny), u,"
-         " A.errors);")),
 }
 
 
@@ -127,35 +108,6 @@ def launch_with(lib, args, kw) -> None:
         raise RuntimeError(f"launch failed ({err})")
 
 
-def device_ms(fn_list) -> float:
-    """Device ms of calling each of ``fn_list`` once, queued back to
-    back behind spin kernels, ``QUEUE`` at a time."""
-    total = 0.0
-    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    for i in range(0, len(fn_list), QUEUE):
-        torch.cuda.synchronize()
-        torch.cuda._sleep(SPIN_CYCLES)
-        start.record()
-        for fn in fn_list[i:i + QUEUE]:
-            fn()
-        stop.record()
-        torch.cuda.synchronize()
-        total += start.elapsed_time(stop)
-    return total
-
-
-def host_loop_ms(fn_list) -> float:
-    """Ms of calling each of ``fn_list`` once as the host issues them."""
-    torch.cuda.synchronize()
-    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for fn in fn_list:
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop)
-
-
 def _fresh(kw):
     """A launch's keywords with any run totals replaced by zeroed
     scratch copies, so that timing it again changes nothing kept."""
@@ -173,12 +125,21 @@ def detect_records(dev):
     return vol, cfg, R.detected_records(res)
 
 
-def replay(vol, cfg, rec, extra):
+def replay(vol, cfg, rec, extra, steps_per_launch=None):
+    """One replay of ``rec`` and its wall; ``steps_per_launch`` goes to
+    the replay's builder."""
+    build = R._build_replay_fn
+    if steps_per_launch is not None:
+        R._build_replay_fn = functools.partial(
+            build, steps_per_launch=steps_per_launch)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    rep = R.replay_jacobian(vol, cfg, rec, DETECTORS, seed=SEED,
-                            n_lanes=LANES, gate_resolved=True, **extra)
-    torch.cuda.synchronize()
+    try:
+        rep = R.replay_jacobian(vol, cfg, rec, DETECTORS, seed=SEED,
+                                n_lanes=LANES, gate_resolved=True, **extra)
+        torch.cuda.synchronize()
+    finally:
+        R._build_replay_fn = build
     wall = time.perf_counter() - t0
     if not (rep.replayed_det == rep.det).all():
         raise AssertionError("a record did not replay at its detector")
@@ -190,7 +151,7 @@ def main(argv=None) -> list[dict]:
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--steps-per-launch", default="",
                     help="comma-separated launch lengths to replay with, "
-                         "where replay_jacobian takes steps_per_launch")
+                         "where the replay's builder takes steps_per_launch")
     ap.add_argument("--ablate", nargs="*", default=[],
                     choices=sorted(ABLATIONS))
     args = ap.parse_args(argv)
@@ -202,10 +163,9 @@ def main(argv=None) -> list[dict]:
                           text=True).stdout.strip().splitlines()[0]
     vol, cfg, rec = detect_records(dev)
     takes = "steps_per_launch" in inspect.signature(
-        R.replay_jacobian).parameters
-    lengths = [int(x) for x in args.steps_per_launch.split(",") if x]
-    runs = [{}] + ([{"steps_per_launch": n} for n in lengths] if takes
-                   else [])
+        R._build_replay_fn).parameters
+    lengths = [None] + ([int(x) for x in args.steps_per_launch.split(",")
+                         if x] if takes else [])
     results = []
 
     def emit(kind, **fields):
@@ -215,15 +175,16 @@ def main(argv=None) -> list[dict]:
 
     replay(vol, cfg, rec, {})  # warm-up: builds and loads the libraries
     walls_by_run = {}
-    for extra in runs:
+    for n in lengths:
         walls, by = [], None
         for _ in range(args.reps):
             K.reset_launches()
-            _, wall = replay(vol, cfg, rec, extra)
+            _, wall = replay(vol, cfg, rec, {}, n)
             walls.append(wall)
             by = dict(K.photon_step_cuda.launches_by)
-        walls_by_run[json.dumps(extra)] = (walls, by)
-        emit("replay", records=int(rec.shape[0]), **extra, walls_s=walls,
+        walls_by_run[n] = (walls, by)
+        emit("replay", records=int(rec.shape[0]),
+             **({} if n is None else {"steps_per_launch": n}), walls_s=walls,
              records_per_ms=[rec.shape[0] / w / 1e3 for w in walls],
              launches_by_variant=by)
 
@@ -243,8 +204,6 @@ def main(argv=None) -> list[dict]:
                               bool(kw.get("record")),
                               int(kw.get("jac_cols") or 0),
                               bool(kw.get("stats")))
-        if kw.get("base_grids") is False:  # checkouts that have it
-            groups |= K.NOBASE
         kept[groups].append((a, _fresh(kw)))
         return cuda_step(*a, **kw)
 
@@ -254,21 +213,20 @@ def main(argv=None) -> list[dict]:
     finally:
         ops.photon_step_cuda = cuda_step
     # the default replay's wall (not this instrumented one) a launch
-    walls, by = walls_by_run["{}"]
+    walls, by = walls_by_run[None]
     n_launches = sum(by.values())
     wall_ms_per_launch = (float(np.median(walls)) * 1e3 / n_launches
                           if n_launches else None)
     for groups, launches in sorted(kept.items()):
-        calls = [lambda a=a, kw=kw: cuda_step(*a, **kw) for a, kw in launches]
-        dev_ms = device_ms(calls)
-        host_ms = host_loop_ms(calls)
+        def run_pass(launches=launches):
+            for a, kw in launches:
+                cuda_step(*a, **kw)
+        dev_ms = device_ms(run_pass, 1)
+        host_ms = host_loop_ms(run_pass, 1)
         # live lane-segments of each lane, summed over the pass
         live = None
         for a, kw in launches:
-            # the stats group has no variant without base grids
-            extra = {"base_grids": True} if "base_grids" in kw else {}
-            st = cuda_step(*a, **dict(kw, stats=True, totals=None,
-                                      **extra))[-1][:, 0]
+            st = cuda_step(*a, **dict(kw, stats=True, totals=None))[-1][:, 0]
             live = st.double() if live is None else live + st.double()
         emit("pass", groups=groups, variant=K.group_names(groups),
              launches=len(launches), lanes=int(launches[0][0][2].w.numel()),
@@ -281,19 +239,16 @@ def main(argv=None) -> list[dict]:
              longest_lane_segments=float(live.max()),
              lanes_over_1024_segments=int((live > 1024).sum()))
         for name in args.ablate:
-            if (name.startswith("jac") and not groups & K.GROUP_BITS[
-                    "jac_cols"]) or (name == "base_deposits"
-                                     and groups & getattr(K, "NOBASE", 0)):
+            if name == "jac_atomics" and not groups & K.GROUP_BITS[
+                    "jac_cols"]:
                 continue
             lib = ablated_library(name, groups)
             base = K._library(groups)
-            for use in (base, lib):  # warm-up: the first launch loads
-                launch_with(use, *launches[0])
             turns = {}
             for which, use in (("unchanged", base), ("ablated", lib),
                                ("ablated", lib), ("unchanged", base)):
-                ms = device_ms([lambda a=a, kw=kw: launch_with(use, a, kw)
-                                for a, kw in launches])
+                ms = device_ms(lambda use=use: [launch_with(use, a, kw)
+                                                for a, kw in launches], 1)
                 turns.setdefault(which, []).append(ms / len(launches))
             emit("ablation", ablation=name, groups=groups,
                  variant=K.group_names(groups), launches=len(launches),

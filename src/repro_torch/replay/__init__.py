@@ -39,9 +39,8 @@ The Jacobian is int64 fixed point (``spec.FIXED_SHIFT["jac"]``), so its
 sums do not depend on their order: each launch of pass B adds into one
 Jacobian total that stays on the device for the whole replay, and its
 cells the replay reached cross to the host once, as float64.  The
-launches make no fluence or exitance deposits (``base_grids=False``);
-pass A adds its detector sums, which the replay does not read, into
-scratch grids zeroed once a replay.
+fluence, exitance and detector sums the launches also make, which the
+replay does not read, go into scratch grids zeroed once a replay.
 """
 
 from __future__ import annotations
@@ -107,9 +106,9 @@ def _build_replay_fn(shape, unitinmm, cfg: SimConfig, n_lanes: int,
     of each lane and ``active`` masks padding lanes, which launch with
     zero weight and add exactly nothing.  ``jac`` is the caller's
     ``(nvox * jac_cols,)`` int64 Jacobian total, which pass B adds into;
-    ``scratch`` the int64 TPSF and path-sum grids pass A adds into.
-    Neither pass makes fluence or exitance deposits.  Tensors live on
-    ``det_geom``'s device.
+    ``scratch`` the int64 fluence, exitance, TPSF and path-sum grids
+    (``ops.photon_steps``'s ``totals`` of pass A) the other sums go
+    into.  Tensors live on ``det_geom``'s device.
     """
     source = as_source(source)
     K = int(cfg.steps_per_round)
@@ -153,7 +152,7 @@ def _build_replay_fn(shape, unitinmm, cfg: SimConfig, n_lanes: int,
         ppath = torch.zeros((n_lanes, n_media), dtype=torch.float32,
                             device=dev)
         for outs in launches(ppath=ppath, det_geom=det_geom, record=True,
-                             base_grids=False, totals=scratch):
+                             totals=scratch):
             w_exit = w_exit + outs[3]
             capd, capg = outs[8], outs[9]
             rdet = torch.where(capd >= 0, capd, rdet)
@@ -164,7 +163,7 @@ def _build_replay_fn(shape, unitinmm, cfg: SimConfig, n_lanes: int,
         # the first segment on
         wscale = torch.where(active, w_exit, torch.zeros_like(w_exit))
         for _ in launches(jac_w=wscale, jac_col=jac_col, jac_cols=jac_cols,
-                          base_grids=False, totals=[jac]):
+                          totals=[*scratch[:2], jac]):
             pass
         return w_exit, gate, rdet
 
@@ -190,7 +189,7 @@ def _batch_arrays(records, start, n_lanes, gate_resolved, ntg):
 def replay_jacobian(volume: Volume, cfg: SimConfig, records, detectors,
                     source=None, seed: int = 1234, n_lanes: int = 4096,
                     gate_resolved: bool = False, device=None, mesh=None,
-                    tracer=None, steps_per_launch=None) -> ReplayResult:
+                    tracer=None) -> ReplayResult:
     """Replay detected-photon records into per-detector absorption
     Jacobian volumes, on ``device`` (``None``: the CUDA device).
 
@@ -203,8 +202,7 @@ def replay_jacobian(volume: Volume, cfg: SimConfig, records, detectors,
     ``(nvox, n_det, ntg)`` keyed by each record's exit gate; its
     gate-sum is the ungated Jacobian.  Records run in batches of
     ``n_lanes`` lanes, each pass of a batch in launches of up to
-    ``steps_per_launch`` segments (default ``spec.MAX_STEPS``; the
-    result does not depend on it).  The Jacobian is summed on the
+    ``spec.MAX_STEPS`` segments.  The Jacobian is summed on the
     device in int64 fixed point; the cells the replay reached are
     converted to float64 and copied to the host once.  A cell past the
     fixed-point range raises ``OverflowError``.  ``tracer`` (a
@@ -246,13 +244,14 @@ def replay_jacobian(volume: Volume, cfg: SimConfig, records, detectors,
     media = volume.media.to(torch.float32).contiguous()
     n_lanes = max(1, min(int(n_lanes), max(n_rec, 1)))
     fn = _build_replay_fn(volume.shape, volume.unitinmm, cfg, n_lanes,
-                          source, det_geometry(detectors, dev), jac_cols,
-                          steps_per_launch=steps_per_launch)
+                          source, det_geometry(detectors, dev), jac_cols)
 
     nvox, n_media = nx * ny * nz, media.shape[0]
     i64 = dict(dtype=torch.int64, device=dev)
     jac = torch.zeros((nvox * jac_cols,), **i64)
-    scratch = [torch.zeros((n_det * ntg,), **i64),
+    scratch = [torch.zeros((nvox * ntg,), **i64),
+               torch.zeros((nx * ny,), **i64),
+               torch.zeros((n_det * ntg,), **i64),
                torch.zeros((n_det, n_media), **i64)]
     w_exit = np.zeros((n_rec,), np.float32)
     gate = np.full((n_rec,), -1, np.int32)

@@ -41,6 +41,7 @@ its own ``simulate_one``.
 """
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -179,8 +180,6 @@ def _group_kwargs(vol, n, groups, dev):
                   jac_cols=5)
     if groups & STATS:
         kw["stats"] = True
-    if groups & kernel.NOBASE:
-        kw["base_grids"] = False
     return kw
 
 
@@ -205,8 +204,6 @@ def test_groups_match_plain_version_and_leave_state_alone(cuda_device,
         assert torch.equal(x, y)  # the groups leave the lane state alone
     assert torch.equal(got[3], base[3]) and torch.equal(got[4], base[4])
     assert torch.equal(got[0].rng, want[0].rng)
-    if groups & kernel.NOBASE:  # no fluence or exitance deposits
-        assert got[1] is None and got[2] is None and want[1] is None
     cur = 5
     if groups & DET:
         assert torch.equal(got[cur], want[cur])  # ppath, lane by lane
@@ -255,7 +252,7 @@ def test_jacobian_column_out_of_range_adds_nothing_and_raises(cuda_device):
 
 
 @pytest.mark.cuda
-def test_replay_on_card_brings_back_every_record(cuda_device):
+def test_replay_on_card_brings_back_every_record(cuda_device, monkeypatch):
     vol = V.benchmark_b2((30, 30, 30))
     cfg = dataclasses.replace(V.b2_config(), steps_per_round=8,
                               n_time_gates=10)
@@ -273,11 +270,14 @@ def test_replay_on_card_brings_back_every_record(cuda_device):
     want = res.det_ppath.double().cpu().numpy()
     assert abs(med - want).max() <= 1e-5 * abs(want).max()
     # launches of up to 4095 segments: the bits of a replay in rounds
-    # of K and of a second replay
+    # of K (set through the replay's builder) and of a second replay
+    from repro_torch import replay as R
+    build = R._build_replay_fn
     for n in (cfg.steps_per_round, None):
+        monkeypatch.setattr(R, "_build_replay_fn", functools.partial(
+            build, steps_per_launch=n))
         other = replay_jacobian(vol, cfg, rec, dets, source=src, seed=5,
-                                n_lanes=16384, gate_resolved=True,
-                                steps_per_launch=n)
+                                n_lanes=16384, gate_resolved=True)
         for a, b in zip(rep, other):
             assert np.array_equal(a, b)
 
@@ -306,9 +306,10 @@ def test_replay_kernel_matches_plain_replay(cuda_device):
         for step in (ops.photon_steps, photon_steps_ref):
             jac = torch.zeros(vol.labels.numel() * 20, dtype=torch.int64,
                               device=cuda_device)
-            scratch = [torch.zeros(20, dtype=torch.int64, device=cuda_device),
-                       torch.zeros((2, vol.media.shape[0]), dtype=torch.int64,
-                                   device=cuda_device)]
+            scratch = [torch.zeros(n, dtype=torch.int64, device=cuda_device)
+                       for n in (vol.labels.numel() * 10, 30 * 30, 20)] + [
+                torch.zeros((2, vol.media.shape[0]), dtype=torch.int64,
+                            device=cuda_device)]
             fn = R._build_replay_fn(vol.shape, 1.0, cfg, 512, src, geom, 20,
                                     step=step, steps_per_launch=steps)
             outs.append(fn(vol.labels.reshape(-1), vol.media, *ins, 5, jac,

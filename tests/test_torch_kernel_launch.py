@@ -124,28 +124,35 @@ def test_prepare_orders_arguments_as_the_entry_point_documents():
     assert floats[5] == pytest.approx(1.0 / cfg.roulette_m)
 
 
-def test_prepare_without_base_grids_passes_null_grids():
-    """The replay's variants: no fluence or exitance grid (a null
-    pointer to the kernel), ``totals`` only the groups' grids, and the
-    NOBASE bit in the mask, which has a library of its own."""
+def test_prepare_adds_each_replay_pass_into_its_totals():
+    """The replay's two launches as the wrapper packs them: pass B (the
+    Jacobian) adds into fluence, exitance and the int64 Jacobian, pass A
+    (detectors and records) into fluence, exitance, TPSF and path sums;
+    the output pointers are the caller's totals and add_into is set, so
+    the kernel zeroes nothing.  Both masks are among the 12 libraries of
+    ``VALID_GROUPS``."""
     vol, cfg, state, kw, args = _call(groups=("jac",))
-    nvox = vol.labels.numel()
-    jac = torch.zeros(nvox * 3, dtype=torch.int64)
-    groups, ins, outs, ints, floats = K.prepare(
-        *args, **kw, base_grids=False, totals=[jac])
-    assert groups == K.NOBASE | K.GROUP_BITS["jac_cols"]
-    assert groups in K.VALID_GROUPS and ints[9] == groups
-    assert K.group_names(groups) == "jac+nobase"
-    assert outs[8] is None and outs[9] is None and outs[-1] is jac
-    assert ints[15] == 1  # add_into
+    nvox, n_media = vol.labels.numel(), vol.media.shape[0]
+    i64 = dict(dtype=torch.int64)
+    flu = torch.zeros(nvox * 4, **i64)
+    exi = torch.zeros(SHAPE[0] * SHAPE[1], **i64)
+    jac = torch.zeros(nvox * 3, **i64)
+    groups, ins, outs, ints, floats = K.prepare(*args, **kw,
+                                                totals=[flu, exi, jac])
+    assert groups == K.GROUP_BITS["jac_cols"] and ints[9] == groups
+    assert K.group_names(groups) == "jac" and ints[15] == 1  # add_into
+    assert outs[8] is flu and outs[9] is exi and outs[-1] is jac
     p_out = K.pack(ins, outs, ints, floats)[1]
-    assert p_out[8] == p_out[9] == 0 and p_out[-1] == jac.data_ptr()
+    assert (p_out[8], p_out[9], p_out[-1]) == (
+        flu.data_ptr(), exi.data_ptr(), jac.data_ptr())
     with pytest.raises(ValueError, match="totals must be"):
-        K.prepare(*args, **kw, base_grids=False, totals=[jac, jac, jac])
+        K.prepare(*args, **kw, totals=[jac])
     _, _, _, dkw, dargs = _call(groups=("det", "record"))
-    groups, _, outs, _, _ = K.prepare(*dargs, **dkw, base_grids=False)
-    assert groups in K.VALID_GROUPS and outs[8] is None
-    assert outs[13].dtype == outs[14].dtype == torch.int64  # det grids
+    det = [flu, exi, torch.zeros(4, **i64), torch.zeros((1, n_media), **i64)]
+    groups, _, outs, ints, _ = K.prepare(*dargs, **dkw, totals=det)
+    assert K.group_names(groups) == "det+record" and ints[15] == 1
+    assert all(outs[i] is x for i, x in zip((8, 9, 13, 14), det))
+    assert len(K.VALID_GROUPS) == 12 and max(K.VALID_GROUPS) == 15
 
 
 def test_pack_gives_the_entry_point_its_four_arrays():

@@ -352,21 +352,26 @@ def test_plain_version_stops_once_every_lane_is_dead(groups):
         assert int(got[10].sum()) > 0 and int((got[8] >= 0).sum()) > 0
 
 
-def test_plain_version_without_base_grids():
-    """``base_grids=False`` (the replay's variants) makes no fluence or
-    exitance deposits and changes nothing else: lane state, escaped and
-    timed-out weight and every group's outputs bit-equal."""
+def test_plain_version_split_launches_add_into_totals():
+    """The replay's launches add into totals zeroed once a replay: K
+    segments as launches of 3 and K - 3 adding into the same int64
+    totals give one launch's fluence, exitance, TPSF, path sums and
+    Jacobian bit for bit, and its lane state, paths and escaped weight."""
     _, tv, _, tcfg, _, tst = _setup("B2", 4)
     t, _, tj, _ = _group_args(None, tv.media.shape[0])
-    args = (tv.labels.reshape(-1), tv.media, tst, SHAPE, 1.0, tcfg, K)
-    full = tref.photon_steps_ref(*args, **t, record=True, **tj, stats=True)
-    lean = ops.photon_steps(*args, **t, record=True, **tj, stats=True,
-                            base_grids=False)
-    assert len(full) == len(lean) and lean[1] is None and lean[2] is None
-    for i, (a, b) in enumerate(zip(full, lean)):
-        if i == 0:
-            for x, y in zip(a, b):
-                assert torch.equal(x, y)
-        elif i not in (1, 2):
-            assert torch.equal(a, b), i
-    assert int(full[1].sum()) > 0 and int(lean[10].sum()) > 0
+    args = (tv.labels.reshape(-1), tv.media)
+    one = tref.photon_steps_ref(*args, tst, SHAPE, 1.0, tcfg, K, **t, **tj)
+    grids = (1, 2, 6, 7, 8)  # fluence, exitance, TPSF, path sums, jac
+    totals = [torch.zeros_like(one[i]) for i in grids]
+    first = tref.photon_steps_ref(*args, tst, SHAPE, 1.0, tcfg, 3, **t,
+                                  **tj, totals=totals)
+    second = tref.photon_steps_ref(*args, first[0], SHAPE, 1.0, tcfg, K - 3,
+                                   **dict(t, ppath=first[5]), **tj,
+                                   totals=totals)
+    for x, y in zip(second[0], one[0]):
+        assert torch.equal(x, y)
+    assert torch.equal(second[5], one[5])
+    assert torch.equal(first[3] + second[3], one[3])
+    for i, total in zip(grids, totals):
+        assert second[i] is total and torch.equal(total, one[i]), i
+        assert int(total.sum()) > 0, i

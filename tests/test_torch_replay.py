@@ -33,6 +33,7 @@ crossing), and exit weights within 1e-5 relative (measured 1.1e-6).
 """
 
 import dataclasses
+import functools
 
 import pytest
 
@@ -49,6 +50,7 @@ from repro.replay import replay_jacobian as jax_replay_jacobian  # noqa: E402
 from repro_torch.core import analysis as A  # noqa: E402
 from repro_torch.core import simulator as S  # noqa: E402
 from repro_torch.core import volume as V  # noqa: E402
+from repro_torch import replay as R  # noqa: E402
 from repro_torch.kernels.photon_step import spec  # noqa: E402
 from repro_torch.kernels.photon_step.ref import photon_steps_ref  # noqa: E402
 from repro_torch.replay import (ReplayResult, detected_records,  # noqa: E402
@@ -200,18 +202,24 @@ def test_jacobian_is_fixed_point_and_bit_reproducible(b2_forward, b2_replay):
 
 
 @pytest.mark.parametrize("max_steps", [None, 30])
-def test_long_launches_match_rounds_of_k(b2_forward, b2_replay, max_steps):
+def test_long_launches_match_rounds_of_k(b2_forward, b2_replay, max_steps,
+                                         monkeypatch):
     """Launches of up to MAX_STEPS segments against rounds of K = 4, and
-    launches of 7 (no multiple of K); with max_steps = 30 the reference's
-    loop stops at 32 segments, where every launch schedule stops too."""
+    launches of 7 (no multiple of K), set through the replay's builder;
+    with max_steps = 30 the reference's loop stops at 32 segments, where
+    every launch schedule stops too."""
     res, vol, cfg = b2_forward
     rec = detected_records(res)
     if max_steps is not None:
         cfg = dataclasses.replace(cfg, max_steps=max_steps)
-    runs = [replay_jacobian(vol, cfg, rec, DETS, source=SRC, seed=SEED,
-                            n_lanes=256, gate_resolved=True, device="cpu",
-                            steps_per_launch=n)
-            for n in (None, cfg.steps_per_round, 7)]
+    build = R._build_replay_fn
+    runs = []
+    for n in (None, cfg.steps_per_round, 7):
+        monkeypatch.setattr(R, "_build_replay_fn", functools.partial(
+            build, steps_per_launch=n))
+        runs.append(replay_jacobian(vol, cfg, rec, DETS, source=SRC,
+                                    seed=SEED, n_lanes=256,
+                                    gate_resolved=True, device="cpu"))
     for other in runs[1:]:
         for a, b in zip(runs[0], other):
             np.testing.assert_array_equal(a, b)
@@ -222,8 +230,8 @@ def test_long_launches_match_rounds_of_k(b2_forward, b2_replay, max_steps):
         # cut short: fewer records reach their detector
         assert (runs[0].replayed_det == runs[0].det).mean() < 1.0
     with pytest.raises(ValueError, match="steps_per_launch"):
-        replay_jacobian(vol, cfg, rec, DETS, device="cpu",
-                        steps_per_launch=spec.MAX_STEPS + 1)
+        build(vol.shape, vol.unitinmm, cfg, 1, SRC, None, 1,
+              steps_per_launch=spec.MAX_STEPS + 1)
 
 
 def test_jacobian_out_of_range_raises(b2_forward):
