@@ -75,6 +75,21 @@ script exits non-zero and prints no result:
            sequential, the cache counters and spans from a Tracer, and
            one mid-run batched launch of each fleet held bit-equal to
            the plain version, timed, with its bound
+  multidevice  the paths above one device, each against an earlier
+           phase's result: B2 (10^7 photons) in two shards of the card
+           (0.7 / 0.3), every int64 total bit-equal to the main run;
+           the paper's mixed fleet on B1: card and CPU fitted by
+           pilots, partitioned S1-S3, the S3 partition run over
+           [cuda:0, cpu]
+           (shares, seconds, predicted and measured makespans); the
+           CPU's photons run again on the card, cell by cell (CPU
+           against CUDA bits); the resilience pool on B1 (2 10^6
+           photons, 8 chunks, three workers on the card, one throttled)
+           under a seeded chaos schedule, bit-equal to one run; the
+           optode sweep over a mesh of two (each scenario bit-equal to
+           its own simulate_one) and the detect run's replay over a
+           mesh of two (every output bit-equal); each line with the
+           card's name and power limit
   kernels  one entry per kernel variant the paths launch (launches in
            the main, detect and scenario runs, error against the plain
            version, times and bound at the shapes those runs give the
@@ -93,6 +108,7 @@ import dataclasses
 import functools
 import json
 import math
+import os
 import pathlib
 import subprocess
 import sys
@@ -169,6 +185,35 @@ DETECT_ARGV = ["--bench", "B2", "--photons", str(PHOTONS), "--lanes",
                str(TMAX_DETECT), "--detectors", json.dumps(DETECTORS),
                "--save-detected", str(SAVE_DETECTED), "--replay",
                "--replay-gate-resolved", "--collect-stats"]
+# the multidevice phase: B2 over two shards of one card, split 0.7 /
+# 0.3; the mixed CPU+GPU fleet on B1 (the volume of the reference's
+# Fig. 3b pilot; on B2 the CPU's plain version takes over 15 s for the
+# longest trajectories alone), fitted by pilots (the card at the paper's
+# 10^6 and 5 10^6 photons, the CPU, at CPU_LANES lanes, at one and four
+# times its lanes) and given the budget whose S3 makespan is the CPU's
+# fitted overhead plus MIXED_MARGIN_S, within MIXED_MAKESPAN_S; the pool
+# on B1 with POOL_PHOTONS in chunks of POOL_CHUNK, three workers on the
+# card, one throttled, under a seeded chaos schedule
+SHARD_SPLIT = 0.7
+CPU_LANES = 2048
+GPU_PILOT = (1_000_000, 5_000_000)
+CPU_PILOT = (CPU_LANES, 4 * CPU_LANES)
+MIXED_MARGIN_S, MIXED_MAKESPAN_S = 3.0, (8.0, 15.0)
+POOL_PHOTONS, POOL_CHUNK = 2_000_000, 250_000
+POOL_THROTTLE_S, POOL_TIMEOUT_S = 0.5, 0.3
+# its fault schedule: with these chunks, chunk 750000 is corrupted at its
+# first attempt, chunks 1500000 and 1750000 fail three dispatches, and
+# worker w1 leaves the fleet after two
+POOL_CHAOS = dict(seed=4, p_fail=0.25, p_nan=0.25, p_delay=0.25,
+                  delay_s=0.4, dropout={"w1": 2})
+# the port's tolerance between two arithmetics (its tests against the
+# JAX package, tests/test_torch_simulator.py): totals within 2e-3 of the
+# launched weight, fluence within 1e-3 of its largest cell
+TOTALS_TOL, GRID_TOL = 2e-3, 1e-3
+# the int64 grids and totals of a FixedResult
+FIXED_GRIDS = ("fluence", "exitance", "det_w", "det_ppath")
+FIXED_TOTALS = ("escaped", "timed_out", "launched_w", "n_launched")
+
 # the group bits of the kernel's variants, as the wrapper sets them
 DET, RECORD, JAC, STATS = (K.GROUP_BITS[g]
                            for g in ("n_det", "record", "jac_cols", "stats"))
@@ -542,6 +587,252 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def fixed_differences(a, b) -> list[str]:
+    """The int64 grids and totals of two FixedResults that differ."""
+    return [f for f in FIXED_GRIDS + FIXED_TOTALS
+            if not torch.equal(getattr(a, f).cpu(), getattr(b, f).cpu())]
+
+
+def launched_kernels() -> int:
+    return sum(K.photon_step_cuda.launches_by.values())
+
+
+def multidevice_phase(card, main_b2, fleet, fleet_alone, records, replay,
+                      cfg_detect, device: str = "cuda") -> None:
+    """Items 1-5 of the multidevice phase on ``device`` (the card; the
+    CPU only to rehearse the phase at a small size): two shards of one
+    card against the main run, the mixed CPU+GPU fleet partitioned
+    S1-S3, the CPU against the card bit for bit, the pool under chaos,
+    and the mesh of scenarios and replay against the scenarios and
+    detect phases.  Every check raises."""
+    from repro_torch import replay as R
+    from repro_torch import scenarios as SC
+    from repro_torch import telemetry as T
+    from repro_torch.core import analysis as A
+    from repro_torch.core import loadbalance as LB
+    from repro_torch.core import multidevice as M
+    from repro_torch.core import simulator as S
+    from repro_torch.launch import simulate as launch
+    from repro_torch.resilience import (DevicePool, DeviceSpec,
+                                        FaultInjector, RetryPolicy)
+    from repro_torch.telemetry.trace import device_label
+
+    on_card = device == "cuda"
+    gpu, cpu = torch.device(device, 0), torch.device("cpu")
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t0
+
+    def launched(what):
+        n = launched_kernels()
+        check(n > 0 or not on_card, f"{what}: no kernel launched")
+        return n
+
+    def shard_seconds(tracer):
+        spans = sorted((e for e in tracer.events if e.name == "shard"),
+                       key=lambda e: e.args["shard"])
+        return [e.dur for e in spans]
+
+    # 1. two shards of one card against the main phase's B2 run
+    vol2, cfg2 = launch.get_bench("B2", SIZE, gpu)
+    cfg2 = dataclasses.replace(cfg2, steps_per_round=K_MAIN)
+    first = round(PHOTONS * SHARD_SPLIT)
+    counts = [first, PHOTONS - first]
+    tracer = T.Tracer()
+    shard_fn = M.sharded_sim_fn(vol2, cfg2, LANES, [gpu, gpu], tracer=tracer)
+    K.reset_launches()
+    merged, wall = timed(lambda: S.merge_fixed(
+        shard_fn(counts, M.shard_offsets(counts), SEED)))
+    differ = fixed_differences(merged, main_b2.totals)
+    check(not differ, f"two shards of one card differ from the single run "
+          f"in {differ}")
+    res = S.to_sim_result(merged)
+    check(int(res.n_launched) == PHOTONS
+          and abs(A.energy_balance(res)["residue_frac"]) < 1e-4,
+          "sharded run: photon accounting or energy balance")
+    emit("multidevice", item="sharded", card=card,
+         mesh=[device_label(gpu)] * 2, partition=counts, photons=PHOTONS,
+         lanes=LANES, k=K_MAIN, seconds=wall,
+         photons_per_ms=PHOTONS / wall / 1e3,
+         shard_seconds=shard_seconds(tracer),
+         single_seconds=main_b2.seconds,
+         single_photons_per_ms=PHOTONS / main_b2.seconds / 1e3,
+         sharded_over_single=main_b2.seconds / wall,
+         steps=merged.steps.tolist(), kernel_launches=launched("sharded"),
+         int64_totals_bit_equal_to_single=True)
+
+    # 2. the mixed CPU+GPU fleet on B1: pilots, S1-S3, the S3 partition
+    vol1, cfg1 = launch.get_bench("B1", SIZE, gpu)
+    cfg1 = dataclasses.replace(cfg1, steps_per_round=K_MAIN)
+
+    def pilot_run(d, lanes):
+        fn = S.build_fixed_fn(vol1.shape, vol1.unitinmm, cfg1, lanes,
+                              device=d)
+        labels, media = vol1.labels.reshape(-1).to(d), vol1.media.to(d)
+        return lambda n: timed(lambda: fn(labels, media, int(n), SEED))[1]
+
+    sms = (torch.cuda.get_device_properties(gpu).multi_processor_count
+           if on_card else 1)
+    models = [LB.run_pilot(pilot_run(gpu, LANES), *GPU_PILOT,
+                           name=device_label(gpu), cores=sms),
+              LB.run_pilot(pilot_run(cpu, CPU_LANES), *CPU_PILOT,
+                           name="cpu", cores=os.cpu_count() or 1)]
+    lo, hi = MIXED_MAKESPAN_S
+    makespan = min(hi, max(lo, models[1].t0 + MIXED_MARGIN_S))
+    budget = int(sum(max(0.0, (makespan - m.t0) / m.a) for m in models))
+    partitions = {st: M.heterogeneous_partition(budget, models, st)
+                  for st in ("S1", "S2", "S3")}
+    predicted = {st: LB.makespan(p, models) for st, p in partitions.items()}
+    counts = partitions["S3"]
+    check(counts[1] > 0 and models[1].predict(counts[1]) <= hi,
+          f"the CPU's S3 share is {counts[1]} photons, "
+          f"{models[1].predict(counts[1]):.1f} s by its fit")
+    offsets = M.shard_offsets(counts)
+    tracer = T.Tracer()
+    mixed_fn = M.sharded_sim_fn(vol1, cfg1, [LANES, CPU_LANES], [gpu, cpu],
+                                tracer=tracer)
+    K.reset_launches()
+    shards, wall = timed(lambda: mixed_fn(counts, offsets, SEED))
+    mixed_launches = launched("mixed fleet")
+    mixed = S.merge_fixed(shards)
+    res = S.to_sim_result(mixed)
+    bal = A.energy_balance(res)
+    check(int(res.n_launched) == budget and abs(bal["residue_frac"]) < 1e-4,
+          "mixed fleet: photon accounting or energy balance")
+    seconds = shard_seconds(tracer)
+    emit("multidevice", item="mixed fleet", card=card, bench="B1",
+         mesh=[device_label(gpu), "cpu"], lanes=[LANES, CPU_LANES],
+         models=[dict(dataclasses.asdict(m), photons_per_ms=m.throughput
+                      / 1e3) for m in models],
+         cpu_pilot_photons=list(CPU_PILOT),
+         gpu_pilot_photons=list(GPU_PILOT), target_makespan_s=makespan,
+         budget=budget, partitions=partitions,
+         predicted_makespan_s=predicted,
+         ideal_makespan_s=LB.ideal_makespan(budget, models),
+         measured_makespan_s=wall,
+         measured_over_predicted_s3=wall / predicted["S3"],
+         shares=[{"device": m.name, "photons": n, "seconds": t,
+                  "photons_per_ms": n / t / 1e3,
+                  "predicted_s": m.predict(n)}
+                 for m, n, t in zip(models, counts, seconds)],
+         residue_frac=bal["residue_frac"], kernel_launches=mixed_launches)
+
+    # 3. the CPU shard's photons again on the card, cell by cell
+    again = S.simulate_fixed(vol1, cfg1, counts[1], LANES, SEED, device=gpu,
+                             id_offset=offsets[1])
+    cells = {f: [int((getattr(shards[1], f).cpu()
+                      == getattr(again, f).cpu()).sum()),
+                 getattr(again, f).numel()] for f in FIXED_GRIDS}
+    totals = {f: [int(getattr(shards[1], f)), int(getattr(again, f))]
+              for f in FIXED_TOTALS}
+    bit_equal = all(e == n for e, n in cells.values()) and all(
+        a == b for a, b in totals.values())
+    # one run on the card over the fleet's photons: its card shard and
+    # the CPU's range run again on the card (item 1 holds such sums to
+    # the bits of one run)
+    one_device = S.merge_fixed([shards[0], again])
+    got, want = S.to_sim_result(mixed), S.to_sim_result(one_device)
+    launched_w = float(want.launched_w)
+    largest = {
+        "fluence_of_largest_cell": float(
+            (got.energy - want.energy).abs().max() / want.energy.max()),
+        **{f"{k}_of_launched": abs(float(getattr(got, k))
+                                   - float(getattr(want, k))) / launched_w
+           for k in ("escaped_w", "timed_out_w")}}
+    if bit_equal:
+        differ = fixed_differences(mixed, one_device)
+        check(not differ, f"the mixed fleet differs from one run in {differ}")
+    else:
+        check(int(got.n_launched) == int(want.n_launched)
+              and float(got.launched_w) == launched_w,
+              "mixed fleet: launched photons or weight differ")
+        check(largest["fluence_of_largest_cell"] <= GRID_TOL
+              and max(largest["escaped_w_of_launched"],
+                      largest["timed_out_w_of_launched"]) <= TOTALS_TOL,
+              f"the mixed fleet misses one run on the card by {largest}")
+    emit("multidevice", item="cpu against cuda", card=card,
+         photons=counts[1], id_offset=offsets[1], cells_equal=cells,
+         totals=totals, bit_equal=bit_equal,
+         mixed_against_one_device=largest,
+         tolerance=None if bit_equal else {"totals_of_launched": TOTALS_TOL,
+                                           "fluence_of_largest_cell":
+                                           GRID_TOL})
+
+    # 4. the pool under a seeded chaos schedule against one run
+    ref = S.simulate_fixed(vol1, cfg1, POOL_PHOTONS, LANES, SEED, device=gpu)
+    specs = [DeviceSpec(device=gpu, n_lanes=LANES, label=f"w{i}")
+             for i in range(2)] + [DeviceSpec(
+                 device=gpu, n_lanes=LANES, label="lag",
+                 throttle_s=POOL_THROTTLE_S)]
+    injector = FaultInjector(**POOL_CHAOS)
+    pool = DevicePool(vol1, cfg1, specs, fault_injector=injector,
+                      chunk_timeout_s=POOL_TIMEOUT_S,
+                      retry_policy=RetryPolicy(max_attempts=12,
+                                               quarantine_after=50))
+    K.reset_launches()
+    (fixed, report), wall = timed(lambda: pool.run_fixed(
+        POOL_PHOTONS, POOL_CHUNK, seed=SEED, deadline_s=300))
+    differ = fixed_differences(fixed, ref)
+    check(not differ, f"the pool under chaos differs from one run in "
+          f"{differ}")
+    c = report.counters()
+    check(c["merged"] == c["chunks"] == POOL_PHOTONS // POOL_CHUNK
+          and not report.quarantined_chunks, f"pool: {c}")
+    check(c["injected_faults"] > 0 and c["retries"] > 0
+          and c["validation_failures"] > 0 and c["speculative"] > 0
+          and c["workers_quarantined"] == 1,
+          f"the chaos schedule missed a fault kind: {c}")
+    emit("multidevice", item="pool", card=card, photons=POOL_PHOTONS,
+         chunk=POOL_CHUNK, lanes=LANES, k=K_MAIN,
+         workers=[dataclasses.asdict(s) | {"device": device_label(gpu)}
+                  for s in specs],
+         injector=dataclasses.asdict(injector),
+         chunk_timeout_s=POOL_TIMEOUT_S, seconds=wall,
+         photons_per_ms=POOL_PHOTONS / wall / 1e3, report=c,
+         worker_summaries=report.workers,
+         kernel_launches=launched("pool"),
+         int64_totals_bit_equal_to_single=True)
+
+    # 5. the mesh: the optode sweep's scenarios and the detect run's replay
+    K.reset_launches()
+    many, wall = timed(lambda: SC.simulate_many(
+        fleet, n_lanes=SCENARIO_LANES, mesh=[gpu, gpu],
+        cache=SC.CompileCache()))
+    for i, (got, want) in enumerate(zip(many, fleet_alone)):
+        for name, x, y in zip(got._fields, got, want):
+            same = (torch.equal(x, y) if isinstance(x, torch.Tensor)
+                    else x == y)
+            check(same, f"mesh scenario {i}: {name} differs from its own "
+                  f"simulate_one")
+    emit("multidevice", item="scenario mesh", card=card,
+         mesh=[device_label(gpu)] * 2, scenarios=len(fleet),
+         lanes_each=SCENARIO_LANES, seconds=wall,
+         photons_per_ms=sum(sc.n_photons for sc in fleet) / wall / 1e3,
+         kernel_launches=launched("scenario mesh"),
+         bit_equal_to_simulate_one=True)
+    vol_d = launch.get_bench("B2", SIZE, gpu)[0]
+    K.reset_launches()
+    again, wall = timed(lambda: R.replay_jacobian(
+        vol_d, cfg_detect, records, DETECTORS, seed=SEED, n_lanes=LANES,
+        gate_resolved=True, mesh=[gpu, gpu]))
+    for name, a, b in zip(replay._fields, replay, again):
+        check(np.array_equal(a, b), f"replay over the mesh: {name} differs "
+              f"from the detect run's replay")
+    emit("multidevice", item="replay mesh", card=card,
+         mesh=[device_label(gpu)] * 2, records=int(records.shape[0]),
+         seconds=wall, records_per_ms=records.shape[0] / wall / 1e3,
+         kernel_launches=launched("replay mesh"),
+         every_output_bit_equal=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA device "
@@ -814,12 +1105,14 @@ def main() -> None:
 
     # --- main path ------------------------------------------------------------
     launches = {}
+    main_runs = {}
     for bench in ("B1", "B2"):
         K.reset_launches()
         t0 = time.perf_counter()
-        res = launch.main(["--bench", bench, "--photons", str(PHOTONS),
-                           "--lanes", str(LANES), "--size", str(SIZE),
-                           "--steps-per-round", str(K_MAIN)])
+        main_runs[bench] = launch.run([
+            "--bench", bench, "--photons", str(PHOTONS), "--lanes",
+            str(LANES), "--size", str(SIZE), "--steps-per-round", str(K_MAIN)])
+        res = main_runs[bench].result
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         n = sum(K.photon_step_cuda.launches_by.values())
@@ -857,7 +1150,7 @@ def main() -> None:
     wall = time.perf_counter() - t0
     by_variant = dict(K.photon_step_cuda.launches_by)
     res, rep = run.result, run.replay
-    res_detect = res
+    res_detect, rep_detect = res, rep
     bal = A.energy_balance(res)
     check(int(res.n_launched) == PHOTONS, "n_launched != photons")
     check(float(res.launched_w) == PHOTONS, "launched_w != photons")
@@ -1203,6 +1496,7 @@ def main() -> None:
         return step_fn(*args, **kw)
 
     scen_rows = {}
+    alone_runs = {}
     for fleet_name, (fleet, groups) in fleets.items():
         keep_round.calls, keep_round.fleet = 0, fleet_name
         S.photon_steps = keep_round
@@ -1229,6 +1523,7 @@ def main() -> None:
                  for sc in fleet]
         torch.cuda.synchronize()
         sequential_s = time.perf_counter() - t0
+        alone_runs[fleet_name] = alone
         seq_launches = sum(K.photon_step_cuda.launches_by.values())
         for i, (got, want) in enumerate(zip(many, alone)):
             for name, x, y in zip(got._fields, got, want):
@@ -1310,6 +1605,12 @@ def main() -> None:
              lanes=lanes, k=K_MAIN, ms=ms, host_loop_ms=host_loop_ms,
              plain_ms=plain_ms, live_segments=live, captures=captures,
              cells_touched=touched, **bound, **diffs)
+
+    # --- multidevice: shards, the mixed fleet, the pool, the mesh --------------
+    multidevice_phase(
+        card, main_runs["B2"], fleet=fleets["optode sweep"][0],
+        fleet_alone=alone_runs["optode sweep"], records=rec,
+        replay=rep_detect, cfg_detect=cfg_detect)
 
     # --- kernel table ---------------------------------------------------------
     # one kernel source, two instantiations: its times and bound are the

@@ -42,13 +42,23 @@ condition; the record cursor, the overflow count and the counters stay
 on the device.  Photon ids are 64-bit, carried as (lo, hi) 32-bit words
 with the carry propagated, so campaigns beyond 2**32 photons keep
 distinct RNG streams.
+
+The round loop returns a :class:`FixedResult`: the run's int64
+fixed-point totals, records and counters, still on its device.
+:func:`to_sim_result` converts one (or a sum of several,
+:func:`merge_fixed`) to the float32 ``SimResult`` once.  A photon's
+path depends only on ``(seed, global id)`` and each deposit is rounded
+once, so the totals of runs over disjoint id ranges add up to the bits
+of one run over their union, whatever the lanes, mode or order: shards,
+chunks and workers (``core.multidevice``, ``resilience``) add
+their ``FixedResult`` values and convert once.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -94,6 +104,121 @@ class SimResult(NamedTuple):
     #                          the buffer was full (det_w still counts them)
     stats: RoundStats | None = None  # round counters with
     #                          cfg.collect_stats, else None
+
+
+# RoundStats counters a FixedResult carries as int64, in this order; the
+# weight fields of RoundStats come from the totals at the conversion
+COUNTER_FIELDS = ("rounds", "regen_rounds", "relaunched", "live_segments",
+                  "lane_segments")
+
+
+class FixedResult(NamedTuple):
+    """A run's totals in int64 fixed point, before the one conversion to
+    ``SimResult`` (:func:`to_sim_result`).  Grids are in units of
+    ``2**-spec.FIXED_SHIFT[name]``, the scalar weights in units of
+    ``2**-spec.TOTAL_SHIFT``; every field adds across disjoint id ranges
+    (:func:`merge_fixed`)."""
+
+    fluence: torch.Tensor     # (nx, ny, nz) or (nx, ny, nz, ntg) int64
+    exitance: torch.Tensor    # (nx, ny) int64
+    escaped: torch.Tensor     # () int64 escaped weight
+    timed_out: torch.Tensor   # () int64 weight retired by the gate or cap
+    launched_w: torch.Tensor  # () int64 launched weight
+    n_launched: torch.Tensor  # () int64 photons launched
+    steps: object             # int segments a lane ran (rounds * K), or a
+    #                           rank-1 int64 tensor of them, one a shard
+    det_w: torch.Tensor       # (n_det, ntg) int64 TPSF
+    det_ppath: torch.Tensor   # (n_det, n_media) int64 path sums
+    det_rec: torch.Tensor     # (capacity, 4) int64 record rows, or the
+    #                           shards' buffers concatenated
+    det_rec_n: torch.Tensor   # () int64 valid records, or one a shard
+    det_rec_overflow: torch.Tensor  # () int64 captures dropped
+    counters: torch.Tensor | None = None  # (5,) int64 in COUNTER_FIELDS
+    #                           order with cfg.collect_stats, else None
+
+
+class RunCancelled(RuntimeError):
+    """A run whose ``cancel`` event was set stopped at a round's host
+    read."""
+
+
+def to_sim_result(fixed: FixedResult) -> SimResult:
+    """The float32 ``SimResult`` of a fixed-point result, on its device:
+    each total converted once (``core.fixed.from_fixed``), the record and
+    step fields passed through."""
+    fw = spec.FIXED_SHIFT
+    tot = lambda x: from_fixed(x, spec.TOTAL_SHIFT)  # noqa: E731
+    escaped, timed_out = tot(fixed.escaped), tot(fixed.timed_out)
+    stats = None
+    if fixed.counters is not None:
+        c = dict(zip(COUNTER_FIELDS, fixed.counters.tolist()))
+        stats = RoundStats(
+            rounds=np.int32(c["rounds"]),
+            regen_rounds=np.int32(c["regen_rounds"]),
+            relaunched=np.int32(c["relaunched"]),
+            live_segments=np.float32(c["live_segments"]),
+            lane_segments=np.float32(c["lane_segments"]),
+            deposited_w=np.float32(from_fixed(fixed.fluence.sum(),
+                                              fw["fluence"]).item()),
+            escaped_w=np.float32(escaped.item()),
+            timed_out_w=np.float32(timed_out.item()),
+            detected_w=np.float32(from_fixed(fixed.det_w.sum(),
+                                             fw["det_w"]).item()))
+    return SimResult(
+        energy=from_fixed(fixed.fluence, fw["fluence"]),
+        exitance=from_fixed(fixed.exitance, fw["exitance"]),
+        escaped_w=escaped,
+        timed_out_w=timed_out,
+        n_launched=fixed.n_launched,
+        launched_w=tot(fixed.launched_w),
+        steps=fixed.steps,
+        det_w=from_fixed(fixed.det_w, fw["det_w"]),
+        det_ppath=from_fixed(fixed.det_ppath, fw["det_ppath"]),
+        det_rec=fixed.det_rec,
+        det_rec_n=fixed.det_rec_n,
+        det_rec_overflow=fixed.det_rec_overflow,
+        stats=stats)
+
+
+# the fields of a FixedResult that add across runs
+_ADDED = ("fluence", "exitance", "escaped", "timed_out", "launched_w",
+          "n_launched", "det_w", "det_ppath", "det_rec_overflow")
+
+
+def check_fixed_range(fixed: FixedResult) -> None:
+    """Raise ``OverflowError`` if a total passed the fixed-point range:
+    past ``2**63 - 1`` units an int64 sum shows a negative value (one
+    host read)."""
+    totals = [getattr(fixed, k) for k in _ADDED if k != "det_rec_overflow"]
+    if bool(torch.stack([t.min() for t in totals if t.numel()]).lt(0).any()):
+        raise OverflowError("a run total passed the fixed-point range of "
+                            "2**63 - 1 units")
+
+
+def merge_fixed(parts: Sequence[FixedResult]) -> FixedResult:
+    """The sum of several runs' fixed-point results, on the host (CPU
+    tensors): every total added (order-free, int64), ``steps`` and
+    ``det_rec_n`` one entry a part (rank 1) and ``det_rec`` the parts'
+    buffers concatenated, the layout of a sharded run.  Raises
+    ``OverflowError`` if a sum passes the fixed-point range."""
+    if not parts:
+        raise ValueError("merge_fixed needs at least one result")
+    dev = torch.device("cpu")
+    moved = [FixedResult(*(x.to(dev) if isinstance(x, torch.Tensor) else x
+                           for x in p)) for p in parts]
+    summed = {k: sum(getattr(p, k) for p in moved) for k in _ADDED}
+    counters = None
+    if moved[0].counters is not None:
+        counters = sum(p.counters for p in moved)
+    merged = FixedResult(
+        steps=torch.tensor([int(s) for p in moved
+                            for s in torch.as_tensor(p.steps).reshape(-1)],
+                           dtype=torch.int64, device=dev),
+        det_rec=torch.cat([p.det_rec for p in moved]),
+        det_rec_n=torch.cat([p.det_rec_n.reshape(-1) for p in moved]),
+        counters=counters, **summed)
+    check_fixed_range(merged)
+    return merged
 
 
 _TOTAL_SCALE = float(2**spec.TOTAL_SHIFT)
@@ -193,23 +318,25 @@ def _append_records(rec, rec_n, overflow, lane_ids, capd, capg,
     rec_n.copy_(new_n)
 
 
-def build_batched_fn(shape: tuple[int, int, int], unitinmm: float,
+def build_round_loop(shape: tuple[int, int, int], unitinmm: float,
                      cfg: SimConfig, n_lanes: int, mode: str = "dynamic",
                      sample=None, device=None, n_det: int = 0,
                      record_detected: int = 0):
     """Build the round loop of S scenarios at once.
 
     Returns ``fn(labels, media, det_geom, n_photons, seeds, id_lo,
-    id_hi) -> list[SimResult]`` on ``device`` (``None``: CUDA): labels
-    ``(nvox,)`` shared or ``(S, nvox)`` stacked uint8, media ``(S,
-    n_media, 4)`` float32, ``det_geom`` ``(S, n_det, 3)`` (or None
-    without detectors), and per scenario the photon budget, seed and
-    the low and high words of its 64-bit id offset (sequences of S
-    ints).  ``sample(ids, seeds)`` gives the launch states of ``(S,
-    n_lanes)`` ids for ``(S, 1)`` int64 seeds, as a source's
+    id_hi, cancel=None) -> list[FixedResult]`` on ``device`` (``None``:
+    CUDA): labels ``(nvox,)`` shared or ``(S, nvox)`` stacked uint8,
+    media ``(S, n_media, 4)`` float32, ``det_geom`` ``(S, n_det, 3)``
+    (or None without detectors), and per scenario the photon budget,
+    seed and the low and high words of its 64-bit id offset (sequences
+    of S ints).  ``sample(ids, seeds)`` gives the launch states of
+    ``(S, n_lanes)`` ids for ``(S, 1)`` int64 seeds, as a source's
     ``sample_staged`` on stacked staged parameters does.  Each scenario
     runs ``n_lanes`` lanes; the result of each is the same bits as the
-    scenario alone (S = 1).
+    scenario alone (S = 1).  ``cancel`` (a ``threading.Event``) is
+    tested at each round's host read: once it is set the run raises
+    :class:`RunCancelled`.
     """
     if mode not in MODES:
         raise ValueError(f"unknown workload mode: {mode}")
@@ -233,8 +360,8 @@ def build_batched_fn(shape: tuple[int, int, int], unitinmm: float,
     n_lanes = int(n_lanes)
     fw = spec.FIXED_SHIFT
 
-    def fn(labels, media, det_geom, n_photons, seeds, id_lo,
-           id_hi) -> list[SimResult]:
+    def fn(labels, media, det_geom, n_photons, seeds, id_lo, id_hi,
+           cancel=None) -> list[FixedResult]:
         S = len(n_photons)
         labels = labels.to(dev).contiguous()
         media = media.to(device=dev, dtype=torch.float32).contiguous()
@@ -305,6 +432,8 @@ def build_batched_fn(shape: tuple[int, int, int], unitinmm: float,
                 has_work = (alive | (launched < quota)).any(1)
             if not bool(has_work.any()):  # the round's one host read
                 break
+            if cancel is not None and cancel.is_set():
+                raise RunCancelled(f"run cancelled after {steps} steps")
             # a scenario with no work left is frozen: it relaunches
             # nothing, its lanes are dead, and its rounds stop here
             rounds += has_work.to(torch.int64)
@@ -354,55 +483,52 @@ def build_batched_fn(shape: tuple[int, int, int], unitinmm: float,
                                 "of 2**63 - 1 units")
         if dev.type == "cuda":
             check_errors(dev)
+        # launches per run stay < 2**31, so the low-word difference is
+        # the exact count even across a 2**32 boundary
         n_launched = (next_id[0] - first_lo) & xrng.MASK32
         steps_s = (rounds * K).tolist()
-        tot = lambda x: from_fixed(x, spec.TOTAL_SHIFT)  # noqa: E731
-        energy = from_fixed(grids[0], fw["fluence"])
-        exitance = from_fixed(grids[1], fw["exitance"])
-        if n_det:
-            det_w = from_fixed(grids[2], fw["det_w"]).view(S, n_det, ntg)
-            det_ppath = from_fixed(grids[3], fw["det_ppath"])
-        else:
-            det_w = torch.zeros((S, 0, ntg), **f32)
-            det_ppath = torch.zeros((S, 0, n_media), **f32)
-        esc_f, timed_f, launched_f = tot(escaped), tot(timed_out), \
-            tot(launched_w)
-        stats = [None] * S
         if collect:
-            host = {k: v.tolist() for k, v in counters.items()}
-            deposited = from_fixed(grids[0].sum(1), fw["fluence"]).tolist()
-            detected = (from_fixed(grids[2].sum(1), fw["det_w"]).tolist()
-                        if n_det else [0.0] * S)
-            rounds_h = rounds.tolist()
-            esc_h, timed_h = esc_f.tolist(), timed_f.tolist()
-            stats = [RoundStats(
-                rounds=np.int32(rounds_h[i]),
-                regen_rounds=np.int32(host["regen_rounds"][i]),
-                relaunched=np.int32(host["relaunched"][i]),
-                live_segments=np.float32(host["live_segments"][i]),
-                lane_segments=np.float32(steps_s[i] * n_lanes),
-                deposited_w=np.float32(deposited[i]),
-                escaped_w=np.float32(esc_h[i]),
-                timed_out_w=np.float32(timed_h[i]),
-                detected_w=np.float32(detected[i])) for i in range(S)]
+            counters = torch.stack(
+                [rounds] + [counters[k] for k in COUNTER_FIELDS[1:4]]
+                + [rounds * (K * n_lanes)], dim=1)
         grid_shape = tuple(shape) + ((ntg,) if ntg > 1 else ())
-        return [SimResult(
-            energy=energy[i].view(grid_shape),
-            exitance=exitance[i].view(nx, ny),
-            escaped_w=esc_f[i],
-            timed_out_w=timed_f[i],
-            # launches per run stay < 2**31, so the low-word difference
-            # is the exact count even across a 2**32 boundary
+        if n_det:
+            det_w = grids[2].view(S, n_det, ntg)
+            det_ppath = grids[3]
+        else:
+            det_w = torch.zeros((S, 0, ntg), **i64)
+            det_ppath = torch.zeros((S, 0, n_media), **i64)
+        return [FixedResult(
+            fluence=grids[0][i].view(grid_shape),
+            exitance=grids[1][i].view(nx, ny),
+            escaped=escaped[i],
+            timed_out=timed_out[i],
+            launched_w=launched_w[i],
             n_launched=n_launched[i],
-            launched_w=launched_f[i],
             steps=steps_s[i],
             det_w=det_w[i],
             det_ppath=det_ppath[i],
             det_rec=rec[i, :capacity],
             det_rec_n=rec_n[i],
             det_rec_overflow=rec_overflow[i],
-            stats=stats[i],
+            counters=counters[i] if collect else None,
         ) for i in range(S)]
+
+    return fn
+
+
+def build_batched_fn(shape: tuple[int, int, int], unitinmm: float,
+                     cfg: SimConfig, n_lanes: int, mode: str = "dynamic",
+                     sample=None, device=None, n_det: int = 0,
+                     record_detected: int = 0):
+    """The round loop of :func:`build_round_loop` with each scenario's
+    result converted: ``fn(labels, media, det_geom, n_photons, seeds,
+    id_lo, id_hi) -> list[SimResult]``."""
+    loop = build_round_loop(shape, unitinmm, cfg, n_lanes, mode, sample,
+                            device, n_det, record_detected)
+
+    def fn(*args) -> list[SimResult]:
+        return [to_sim_result(f) for f in loop(*args)]
 
     return fn
 
@@ -423,6 +549,39 @@ def source_sampler(source, device):
     return sample
 
 
+def build_fixed_fn(shape: tuple[int, int, int], unitinmm: float,
+                   cfg: SimConfig, n_lanes: int, mode: str = "dynamic",
+                   source: PhotonSource | None = None, device=None,
+                   detectors=None, record_detected: int = 0):
+    """Build the fixed-point simulation function of one scenario.
+
+    Returns ``fixed_fn(labels_flat, media, n_photons, seed, id_offset=0,
+    id_offset_hi=0, cancel=None) -> FixedResult`` running on ``device``
+    (``None``: CUDA): the round loop of :func:`build_round_loop` with
+    S = 1.  ``id_offset`` / ``id_offset_hi`` (the low and high 32-bit
+    words of a 64-bit offset) give this run a disjoint global photon-id
+    range; ``cancel`` is as there.  The arguments are those of
+    :func:`build_sim_fn`.
+    """
+    dev = resolve_device(device)
+    detectors = as_detectors(detectors)
+    n_det = len(detectors)
+    if n_det:
+        validate_detectors(detectors, shape)
+    det_geom = det_geometry(detectors, dev)[None] if n_det else None
+    run = build_round_loop(shape, unitinmm, cfg, n_lanes, mode,
+                           source_sampler(source, dev), dev, n_det,
+                           record_detected)
+
+    def fixed_fn(labels_flat, media, n_photons, seed, id_offset=0,
+                 id_offset_hi=0, cancel=None) -> FixedResult:
+        return run(labels_flat.reshape(-1), media[None], det_geom,
+                   [n_photons], [seed], [id_offset], [id_offset_hi],
+                   cancel)[0]
+
+    return fixed_fn
+
+
 def build_sim_fn(shape: tuple[int, int, int], unitinmm: float,
                  cfg: SimConfig, n_lanes: int, mode: str = "dynamic",
                  source: PhotonSource | None = None, device=None,
@@ -431,10 +590,11 @@ def build_sim_fn(shape: tuple[int, int, int], unitinmm: float,
 
     Returns ``sim_fn(labels_flat, media, n_photons, seed, id_offset=0,
     id_offset_hi=0) -> SimResult`` running on ``device`` (``None``:
-    CUDA): the round loop of ``build_batched_fn`` with S = 1.
-    ``id_offset`` / ``id_offset_hi`` (the low and high 32-bit words of
-    a 64-bit offset) give this run a disjoint global photon-id range.
-    ``cfg.n_time_gates`` widens the energy grid to ``shape + (ntg,)``.
+    CUDA): :func:`build_fixed_fn`'s result converted by
+    :func:`to_sim_result`.  ``id_offset`` / ``id_offset_hi`` (the low
+    and high 32-bit words of a 64-bit offset) give this run a disjoint
+    global photon-id range.  ``cfg.n_time_gates`` widens the energy
+    grid to ``shape + (ntg,)``.
 
     ``detectors`` (``repro_torch.detectors`` spec) records, per detector
     disk on the z=0 face, the TPSF over the time gates and the
@@ -447,20 +607,13 @@ def build_sim_fn(shape: tuple[int, int, int], unitinmm: float,
     ``RoundStats`` counters on ``SimResult.stats`` without changing any
     physics output.
     """
-    dev = resolve_device(device)
-    detectors = as_detectors(detectors)
-    n_det = len(detectors)
-    if n_det:
-        validate_detectors(detectors, shape)
-    det_geom = det_geometry(detectors, dev)[None] if n_det else None
-    run = build_batched_fn(shape, unitinmm, cfg, n_lanes, mode,
-                           source_sampler(source, dev), dev, n_det,
-                           record_detected)
+    fixed_fn = build_fixed_fn(shape, unitinmm, cfg, n_lanes, mode, source,
+                              device, detectors, record_detected)
 
     def sim_fn(labels_flat, media, n_photons, seed, id_offset=0,
                id_offset_hi=0) -> SimResult:
-        return run(labels_flat.reshape(-1), media[None], det_geom,
-                   [n_photons], [seed], [id_offset], [id_offset_hi])[0]
+        return to_sim_result(fixed_fn(labels_flat, media, n_photons, seed,
+                                      id_offset, id_offset_hi))
 
     return sim_fn
 
@@ -476,6 +629,21 @@ def make_simulator(volume: Volume, cfg: SimConfig, n_lanes: int,
                         source, device, detectors, record_detected)
 
 
+def simulate_fixed(volume: Volume, cfg: SimConfig, n_photons: int,
+                   n_lanes: int = 4096, seed: int = 1234, source=None,
+                   mode: str = "dynamic", device=None, detectors=None,
+                   record_detected: int = 0,
+                   id_offset: int = 0) -> FixedResult:
+    """:func:`simulate`'s run, returned as its fixed-point totals; its
+    photons have the global ids ``id_offset .. id_offset + n_photons -
+    1`` (a 64-bit offset)."""
+    fixed_fn = build_fixed_fn(volume.shape, volume.unitinmm, cfg, n_lanes,
+                              mode, source, device, detectors,
+                              record_detected)
+    return fixed_fn(volume.labels.reshape(-1), volume.media, n_photons, seed,
+                    *xrng.split_id64(int(id_offset)))
+
+
 def simulate(volume: Volume, cfg: SimConfig, n_photons: int,
              n_lanes: int = 4096, seed: int = 1234, source=None,
              mode: str = "dynamic", device=None, detectors=None,
@@ -489,9 +657,9 @@ def simulate(volume: Volume, cfg: SimConfig, n_photons: int,
     recording on the z=0 face; ``record_detected`` sets the capacity of
     the detected-photon record buffer for replay.
     """
-    sim_fn = make_simulator(volume, cfg, n_lanes, mode, source, device,
-                            detectors, record_detected)
-    return sim_fn(volume.labels.reshape(-1), volume.media, n_photons, seed)
+    return to_sim_result(simulate_fixed(
+        volume, cfg, n_photons, n_lanes, seed, source, mode, device,
+        detectors, record_detected))
 
 
 # ---------------------------------------------------------------------------

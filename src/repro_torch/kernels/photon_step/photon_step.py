@@ -29,6 +29,12 @@ the device (a Jacobian column out of range, a fixed-point overflow).
 ``photon_step_cuda.launches_by`` counts its launches by
 ``variant_name``, with ``/xS`` appended for a launch of S > 1
 scenarios.
+
+Several host threads may run round loops at once (shards, pool
+workers): each thread has its own error word on each device, so a
+thread's ``check_errors`` reads and clears only what its own launches
+flagged; the libraries are built and loaded under one lock, and the
+launch counts are added under another.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import threading
 import time
 
 import torch
@@ -151,24 +158,41 @@ def build_library(groups: int = 0) -> pathlib.Path:
     return library_path(groups)
 
 
+# Held while a library is built or loaded: two threads would otherwise
+# both start nvcc on one temporary file.
+_BUILD_LOCK = threading.Lock()
+_LIBRARIES: dict[int, ctypes.CDLL] = {}
+
+
 def build_all(groups=VALID_GROUPS) -> float:
     """Build the kernels of several group masks, one ``nvcc`` each, all
     started together; returns seconds.  Any failed build raises."""
     t0 = time.perf_counter()
-    started = [x for x in map(_start_build, groups) if x is not None]
-    errors = []
-    for x in started:
-        try:
-            _finish_build(x)
-        except RuntimeError as e:
-            errors.append(str(e))
+    with _BUILD_LOCK:
+        started = [x for x in map(_start_build, groups) if x is not None]
+        errors = []
+        for x in started:
+            try:
+                _finish_build(x)
+            except RuntimeError as e:
+                errors.append(str(e))
     if errors:
         raise RuntimeError("\n".join(errors))
     return time.perf_counter() - t0
 
 
-@functools.cache
 def _library(groups: int) -> ctypes.CDLL:
+    """The loaded library of a group mask, built at its first use."""
+    lib = _LIBRARIES.get(groups)
+    if lib is None:
+        with _BUILD_LOCK:
+            lib = _LIBRARIES.get(groups)
+            if lib is None:
+                lib = _LIBRARIES[groups] = _load_library(groups)
+    return lib
+
+
+def _load_library(groups: int) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build_library(groups)))
     lib.photon_step_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_void_p]
     lib.photon_step_launch.restype = ctypes.c_int
@@ -392,13 +416,14 @@ def photon_step_cuda(labels_flat, media, state: ph.PhotonState, shape,
         msg = lib.photon_step_error_string(err).decode()
         raise RuntimeError(f"photon_step kernel launch failed: {msg} ({err})")
     S = ints[13]
-    photon_step_cuda.launches_by[variant_name(groups, cfg) + (
-        f"/x{S}" if S > 1 else "")] += 1
+    count_launch(variant_name(groups, cfg) + (f"/x{S}" if S > 1 else ""))
     return (ph.PhotonState(*outs[:len(spec.STATE_FIELDS)]),
             *outs[len(spec.STATE_FIELDS):])
 
 
-_ERROR_WORDS: dict[torch.device, torch.Tensor] = {}
+_COUNT_LOCK = threading.Lock()
+# each thread's error words, one a device
+_ERROR_WORDS = threading.local()
 
 
 # Bits of the error word (csrc/photon_step.cu kErrJacCol, kErrOverflow).
@@ -406,21 +431,23 @@ ERR_JAC_COL, ERR_OVERFLOW = 1, 2
 
 
 def _error_word(dev: torch.device) -> torch.Tensor:
-    """The device's int32 error flags, which every launch may set."""
+    """The calling thread's int32 error flags on the device, which the
+    thread's launches may set."""
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device(dev.type, torch.cuda.current_device())
-    if dev not in _ERROR_WORDS:
-        _ERROR_WORDS[dev] = torch.zeros((1,), dtype=torch.int32, device=dev)
-    return _ERROR_WORDS[dev]
+    words = _ERROR_WORDS.__dict__.setdefault("by_device", {})
+    if dev not in words:
+        words[dev] = torch.zeros((1,), dtype=torch.int32, device=dev)
+    return words[dev]
 
 
 def check_errors(device=None) -> None:
-    """Raise if a launch on ``device`` (``None``: the current CUDA
-    device) since the last check flagged an error: ``OverflowError`` for
-    a fixed-point deposit or sum beyond its range (the kernel added
-    nothing for it), ``ValueError`` for a ``jac_col`` outside
-    ``[0, jac_cols)`` (that lane added nothing).  One host read; clears
-    the flags."""
+    """Raise if a launch of the calling thread on ``device`` (``None``:
+    the current CUDA device) since its last check flagged an error:
+    ``OverflowError`` for a fixed-point deposit or sum beyond its range
+    (the kernel added nothing for it), ``ValueError`` for a ``jac_col``
+    outside ``[0, jac_cols)`` (that lane added nothing).  One host read;
+    clears the thread's flags."""
     word = _error_word(torch.device("cuda" if device is None else device))
     flags = int(word.item())
     if flags:
@@ -430,6 +457,13 @@ def check_errors(device=None) -> None:
                                 "deposit or sum beyond 2**63 - 1 units")
         raise ValueError("a photon-step launch got a jac_col outside "
                          "[0, jac_cols); those lanes added nothing")
+
+
+def count_launch(key: str) -> None:
+    """Add one launch of ``key`` to ``photon_step_cuda.launches_by``
+    (threads launch at once: the add holds a lock)."""
+    with _COUNT_LOCK:
+        photon_step_cuda.launches_by[key] += 1
 
 
 def reset_launches() -> None:

@@ -24,6 +24,21 @@ out:
          {"type": "disk", "pos": [20, 30, 0], "radius": 3}}, ...]' \
       --lanes 32768 --trace-out trace.json --metrics-out metrics.jsonl
 
+Several devices: ``--devices all`` shards the photons (and the replay's
+records, and the scenario axis) over every device of ``--device``'s
+type, each in a host thread of its own, when more than one is found;
+``--chunk N`` pulls chunks of N photons from a shared queue through the
+resilience pool, with a seeded chaos drill, retry caps, deadlines and
+checkpoints (a rerun with the same ``--checkpoint-dir`` resumes):
+
+  PYTHONPATH=src python -m repro_torch.launch.simulate --bench B1 \
+      --photons 4000 --size 20 --lanes 256 --device cpu --chunk 500 \
+      --chaos '{"seed": 1, "p_fail": 0.2, "p_nan": 0.1}' \
+      --checkpoint-every 2 --checkpoint-dir /tmp/ckpt
+
+Sharded and chunked runs add int64 fixed-point totals, so they give the
+bits of one run on one device of the same type.
+
 Runs on the CUDA device by default, where each fused round (forward,
 and both replay passes) is one launch of the CUDA photon-step kernel;
 ``--device cpu`` runs the plain PyTorch version instead.
@@ -43,10 +58,11 @@ import torch
 from repro_torch import scenarios as SC
 from repro_torch import telemetry as T
 from repro_torch.core import analysis as A
+from repro_torch.core import multidevice as M
 from repro_torch.core import simulator as S
 from repro_torch.core import volume as V
 from repro_torch.detectors import as_detectors
-from repro_torch.kernels.photon_step.ops import resolve_device
+from repro_torch.kernels.photon_step.ops import resolve_device, visible_devices
 from repro_torch.replay import (ReplayResult, detected_records,
                                 replay_jacobian)
 
@@ -63,13 +79,16 @@ def get_bench(name: str, size: int, device="cpu"):
 class Run(NamedTuple):
     """What one CLI run computed, with its host-clock seconds (each
     ended by a device synchronisation); with ``--scenarios``, the
-    scenarios' results in ``scenarios`` and no ``result``."""
+    scenarios' results in ``scenarios`` and no ``result``.  ``totals``
+    is the forward run's int64 fixed-point result, which ``result``
+    converts."""
 
     result: S.SimResult | None
     replay: ReplayResult | None
     seconds: float
     replay_seconds: float | None
     scenarios: list | None = None
+    totals: S.FixedResult | None = None
 
 
 def _synchronize(dev) -> None:
@@ -88,6 +107,59 @@ def _close(tracer, sinks, trace_out) -> None:
         sink.close()
 
 
+def _mesh(args, dev):
+    """``--devices all``: every device of ``dev``'s type, or None where
+    that is one device (the one-device path)."""
+    if args.devices != "all":
+        return None
+    devices = visible_devices(dev.type)
+    return devices if len(devices) > 1 else None
+
+
+def _run_chunked(args, vol, cfg, lanes, source, detectors, tracer):
+    """--chunk: the resilience pool over every device of ``--device``'s
+    type; returns the merged int64 totals."""
+    from repro_torch.resilience import FaultInjector, RetryPolicy
+
+    injector = (FaultInjector(**json.loads(args.chaos))
+                if args.chaos else None)
+    policy = (RetryPolicy(max_attempts=args.max_retries)
+              if args.max_retries is not None else None)
+    checkpointer = None
+    resume = False
+    if args.checkpoint_every:
+        from repro_torch.checkpoint import Checkpointer
+
+        checkpointer = Checkpointer(args.checkpoint_dir)
+        resume = checkpointer.latest_step() is not None
+        if resume:
+            print(f"resuming from checkpoint step "
+                  f"{checkpointer.latest_step()} in {args.checkpoint_dir}")
+    sched = M.ChunkScheduler(vol, cfg, n_lanes=lanes,
+                             devices=visible_devices(args.device),
+                             source=source, detectors=detectors,
+                             record_detected=args.save_detected,
+                             tracer=tracer, fault_injector=injector,
+                             retry_policy=policy,
+                             chunk_timeout_s=args.chunk_timeout_s,
+                             checkpointer=checkpointer,
+                             checkpoint_every=args.checkpoint_every)
+    totals, stats = sched.run_fixed(args.photons, args.chunk,
+                                    seed=args.seed,
+                                    deadline_s=args.deadline_s,
+                                    resume=resume)
+    print("per-device photons:", stats)
+    rep = sched.last_report
+    if injector is not None or rep.retries or rep.quarantine_events:
+        c = rep.counters()
+        print(f"resilience: {c['merged']}/{c['chunks']} chunks merged, "
+              f"{c['retries']} retries, {c['speculative']} speculative, "
+              f"{c['validation_failures']} rejected by merge guard, "
+              f"{c['quarantine_events']} quarantine events, "
+              f"{c['checkpoints']} checkpoints")
+    return totals
+
+
 def _run_scenarios(args, ap, dev, tracer, sinks) -> Run:
     """--scenarios: the fleet through ``scenarios.simulate_many``."""
     spec = args.scenarios
@@ -99,19 +171,22 @@ def _run_scenarios(args, ap, dev, tracer, sinks) -> Run:
         ap.error("--scenarios expects a non-empty JSON list of scenario "
                  "dicts (or @file.json holding one)")
     scenarios = [SC.Scenario.from_dict(e) for e in entries]
+    mesh = _mesh(args, dev)
     cache = SC.default_cache()
     t0 = time.perf_counter()
-    results = SC.simulate_many(scenarios, n_lanes=args.lanes, device=dev,
+    results = SC.simulate_many(scenarios, n_lanes=args.lanes,
+                               device=None if mesh else dev, mesh=mesh,
                                cache=cache, tracer=tracer)
     _synchronize(dev)
     dt = time.perf_counter() - t0
 
     total_photons = sum(sc.n_photons for sc in scenarios)
     keys = {SC.group_key(sc, args.lanes, device=dev) for sc in scenarios}
+    sharded = f" over {len(mesh)} devices" if mesh else ""
     print(f"scenarios: {len(scenarios)} in {dt:.2f}s "
           f"({len(scenarios)/dt:.2f} scenarios/s, "
           f"{total_photons/dt/1e3:.2f} photons/ms total), "
-          f"{len(keys)} config shape(s)")
+          f"{len(keys)} config shape(s){sharded}")
     st = cache.stats()
     print(f"compile cache: {st['hits']} hits / {st['misses']} misses "
           f"(hit rate {st['hit_rate']:.2f}), {st['entries']} entries, "
@@ -203,6 +278,44 @@ def run(argv=None) -> Run:
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cuda: the CUDA kernel (default); cpu: the plain "
                          "PyTorch version")
+    ap.add_argument("--devices", default="one", choices=["one", "all"],
+                    help="all: shard the photons, the replay's records and "
+                         "the scenario axis over every device of --device's "
+                         "type (every CUDA device, or the one CPU), each in "
+                         "a host thread, when more than one is found")
+    ap.add_argument("--chunk", type=int, default=0,
+                    help=">0: dynamic chunk scheduling over every device "
+                         "of --device's type through the resilience pool "
+                         "(straggler-safe)")
+    ap.add_argument("--chaos", default=None, metavar="JSON",
+                    help="seeded fault-injection drill for the --chunk "
+                         "scheduler: JSON FaultInjector config, e.g. "
+                         "'{\"seed\": 1, \"p_fail\": 0.2, \"p_nan\": 0.1, "
+                         "\"p_delay\": 0.2, \"delay_s\": 0.1, "
+                         "\"poison_chunks\": [0], \"dropout\": "
+                         "{\"w0:cpu:0\": 2}}'; results stay bit-identical "
+                         "to the fault-free run")
+    ap.add_argument("--max-retries", type=int, default=None, metavar="N",
+                    help="attempt cap per chunk before it is quarantined "
+                         "(default: RetryPolicy's 5); requires --chunk")
+    ap.add_argument("--chunk-timeout-s", type=float, default=None,
+                    metavar="S",
+                    help="hard per-chunk deadline: a chunk inflight "
+                         "longer re-dispatches speculatively (on top of "
+                         "the fitted DeviceModel deadlines); requires "
+                         "--chunk")
+    ap.add_argument("--deadline-s", type=float, default=None, metavar="S",
+                    help="overall wall-clock bound for the chunked run "
+                         "(TimeoutError past it instead of waiting "
+                         "forever); requires --chunk")
+    ap.add_argument("--checkpoint-every", type=int, default=0, metavar="N",
+                    help="auto-checkpoint the chunked campaign every N "
+                         "merged chunks (atomic Checkpointer, int64 "
+                         "totals); requires --chunk and --checkpoint-dir")
+    ap.add_argument("--checkpoint-dir", default=None, metavar="DIR",
+                    help="checkpoint directory for --checkpoint-every; "
+                         "if it already holds a matching campaign "
+                         "checkpoint the run resumes from it")
     args = ap.parse_args(argv)
     if args.save_detected and not args.detectors:
         ap.error("--save-detected requires --detectors")
@@ -210,9 +323,14 @@ def run(argv=None) -> Run:
         ap.error("--replay requires --save-detected")
     if args.replay_gate_resolved and not args.replay:
         ap.error("--replay-gate-resolved requires --replay")
+    for flag in ("chaos", "max_retries", "chunk_timeout_s", "deadline_s"):
+        if getattr(args, flag) is not None and not args.chunk:
+            ap.error(f"--{flag.replace('_', '-')} requires --chunk")
+    if args.checkpoint_every and not (args.chunk and args.checkpoint_dir):
+        ap.error("--checkpoint-every requires --chunk and --checkpoint-dir")
     if args.scenarios:
-        for flag in ("autotune", "save_detected", "replay", "source",
-                     "detectors", "collect_stats"):
+        for flag in ("chunk", "autotune", "save_detected", "replay",
+                     "source", "detectors", "collect_stats"):
             if getattr(args, flag):
                 ap.error(f"--scenarios is incompatible with "
                          f"--{flag.replace('_', '-')} (scenario dicts "
@@ -242,20 +360,37 @@ def run(argv=None) -> Run:
               "-> lanes =", lanes)
 
     engine = "kernel" if dev.type == "cuda" else "plain"
+    mesh = None
     t0 = time.perf_counter()
-    span = tracer.span("simulate", device=dev, engine=engine,
-                       photons=args.photons) if tracer else None
-    res = S.simulate(vol, cfg, args.photons, lanes, args.seed, source=source,
-                     device=dev, detectors=detectors,
-                     record_detected=args.save_detected)
-    if span is not None:
-        span.end()
+    if args.chunk:
+        totals = _run_chunked(args, vol, cfg, lanes, source, detectors,
+                              tracer)
+    else:
+        mesh = _mesh(args, dev)
+        span = tracer.span("simulate", device="mesh" if mesh else dev,
+                           engine=engine,
+                           photons=args.photons) if tracer else None
+        if mesh:
+            counts = M.shard_counts(args.photons, len(mesh))
+            totals = S.merge_fixed(M.sharded_sim_fn(
+                vol, cfg, lanes, mesh, source=source, detectors=detectors,
+                record_detected=args.save_detected)(
+                    counts, M.shard_offsets(counts), args.seed))
+        else:
+            totals = S.simulate_fixed(vol, cfg, args.photons, lanes,
+                                      args.seed, source=source, device=dev,
+                                      detectors=detectors,
+                                      record_detected=args.save_detected)
+        if span is not None:
+            span.end()
+    res = S.to_sim_result(totals)
     _synchronize(dev)
     dt = fwd_seconds = time.perf_counter() - t0
 
     bal = A.energy_balance(res)
+    sharded = f" over {len(mesh)} devices" if mesh else ""
     print(f"{args.bench}: {args.photons} photons in {dt:.2f}s "
-          f"({args.photons/dt/1e3:.2f} photons/ms)")
+          f"({args.photons/dt/1e3:.2f} photons/ms){sharded}")
     print(f"energy balance: absorbed={bal['absorbed']:.1f} "
           f"escaped={bal['escaped']:.1f} timed_out={bal['timed_out']:.2e} "
           f"residue={bal['residue_frac']:.2e}")
@@ -301,20 +436,22 @@ def run(argv=None) -> Run:
               f"(overflow: {overflow})")
         if overflow > 0:
             print(f"WARNING: {overflow} detector captures were dropped "
-                  f"from the id buffer (capacity {args.save_detected}); "
-                  f"det_w still counts them, but replay will miss them; "
-                  f"raise --save-detected")
+                  f"from the id buffer (capacity {args.save_detected} per "
+                  f"simulation unit: the run, a shard or a chunk); det_w "
+                  f"still counts them, but replay will miss them; raise "
+                  f"--save-detected")
         if args.replay and recs.shape[0]:
             t0 = time.perf_counter()
             rep = replay_jacobian(vol, cfg, recs, detectors, source=source,
                                   seed=args.seed, n_lanes=lanes,
                                   gate_resolved=args.replay_gate_resolved,
-                                  device=dev, tracer=tracer)
+                                  device=None if mesh else dev, mesh=mesh,
+                                  tracer=tracer)
             dt = time.perf_counter() - t0
             ok = int((rep.replayed_det == rep.det).sum())
             print(f"replay[{dev.type}]: {rep.n_records} photons "
-                  f"in {dt:.2f}s ({rep.n_records/dt/1e3:.2f} photons/ms), "
-                  f"{ok}/{rep.n_records} detector-exact")
+                  f"in {dt:.2f}s ({rep.n_records/dt/1e3:.2f} photons/ms)"
+                  f"{sharded}, {ok}/{rep.n_records} detector-exact")
             jac = rep.jacobian
             med = A.jacobian_medium_sums(jac, vol)
             gated = jac if jac.ndim == 4 else jac.sum(axis=-1)
@@ -328,9 +465,9 @@ def run(argv=None) -> Run:
                 print(f"  gate-resolved: {jac.shape[-1]} gates, "
                       f"peak gate {int(per_gate.argmax())}")
             _finish(tracer, sinks, args, fwd_seconds, engine)
-            return Run(res, rep, fwd_seconds, dt)
+            return Run(res, rep, fwd_seconds, dt, totals=totals)
     _finish(tracer, sinks, args, fwd_seconds, engine)
-    return Run(res, None, fwd_seconds, None)
+    return Run(res, None, fwd_seconds, None, totals=totals)
 
 
 def _finish(tracer, sinks, args, fwd_seconds, engine) -> None:

@@ -41,6 +41,10 @@ Jacobian total that stays on the device for the whole replay, and its
 cells the replay reached cross to the host once, as float64.  The
 fluence, exitance and detector sums the launches also make, which the
 replay does not read, go into scratch grids zeroed once a replay.
+Over a mesh of devices each batch splits across them, each device
+adding into its own Jacobian total in a host thread of its own
+(``core.multidevice.sharded_replay_fn``); the totals add to the bits
+of one device's.
 """
 
 from __future__ import annotations
@@ -55,11 +59,9 @@ from repro_torch.core import rng as xrng
 from repro_torch.core.simulator import SimResult
 from repro_torch.core.volume import SimConfig, Volume
 from repro_torch.core.fixed import from_fixed
-from repro_torch.detectors import (as_detectors, det_geometry,
-                                   validate_detectors)
+from repro_torch.detectors import as_detectors, validate_detectors
 from repro_torch.kernels.photon_step import spec
 from repro_torch.kernels.photon_step.ops import photon_steps, resolve_device
-from repro_torch.kernels.photon_step.photon_step import check_errors
 from repro_torch.sources import as_source
 
 
@@ -84,12 +86,28 @@ class ReplayResult(NamedTuple):
 
 def detected_records(result: SimResult) -> np.ndarray:
     """The valid records of a forward run as an ``(n, 4)`` uint32 array
-    of ``[id_lo, id_hi, det, gate]`` rows, the reference's format."""
-    n = int(result.det_rec_n)
+    of ``[id_lo, id_hi, det, gate]`` rows, the reference's format.
+
+    Takes a one-device result (a scalar ``det_rec_n``) and a sharded one
+    (``core.multidevice.simulate_sharded``), whose ``det_rec`` is the
+    concatenation of every shard's fixed-capacity buffer with the
+    shards' valid counts in the rank-1 ``det_rec_n``.
+    """
     rec = result.det_rec
-    if isinstance(rec, torch.Tensor):
-        rec = rec[:n].cpu().numpy()
-    return np.asarray(rec).reshape(-1, 4)[:n].astype(np.uint32)
+    rec = (rec.cpu().numpy() if isinstance(rec, torch.Tensor)
+           else np.asarray(rec)).reshape(-1, 4)
+    n = result.det_rec_n
+    n = n.cpu().numpy() if isinstance(n, torch.Tensor) else np.asarray(n)
+    if n.ndim == 0:
+        return rec[: int(n)].astype(np.uint32)
+    n_shards = n.shape[0]
+    if n_shards == 0 or rec.shape[0] % n_shards:
+        raise ValueError(
+            f"sharded det_rec of {rec.shape[0]} rows does not split over "
+            f"{n_shards} shards")
+    cap = rec.shape[0] // n_shards
+    parts = [rec[i * cap: i * cap + int(k)] for i, k in enumerate(n)]
+    return np.concatenate(parts, axis=0).astype(np.uint32)
 
 
 def _build_replay_fn(shape, unitinmm, cfg: SimConfig, n_lanes: int,
@@ -205,15 +223,22 @@ def replay_jacobian(volume: Volume, cfg: SimConfig, records, detectors,
     ``spec.MAX_STEPS`` segments.  The Jacobian is summed on the
     device in int64 fixed point; the cells the replay reached are
     converted to float64 and copied to the host once.  A cell past the
-    fixed-point range raises ``OverflowError``.  ``tracer`` (a
+    fixed-point range raises ``OverflowError``.
+
+    ``mesh`` (a sequence of devices, in place of ``device``) splits each
+    batch over its devices, ``n_lanes`` lanes a device (at most
+    ``ceil(n_records / len(mesh))``), each in a host thread of its own
+    adding into its own int64 Jacobian, and adds those once at the end
+    (``core.multidevice.sharded_replay_fn``): the result has the bits of
+    the replay on one device of the same type.  ``tracer`` (a
     ``repro_torch.telemetry.Tracer``) records one ``replay_batch`` span
     per batch, tagged with its record count and ended after a device
-    synchronisation.  ``mesh`` (a sharded replay) is not ported yet and
-    raises ``NotImplementedError``.
+    synchronisation (device ``"mesh"`` with a mesh).
     """
-    if mesh is not None:
-        raise NotImplementedError("replay over a device mesh is not "
-                                  "ported yet")
+    from repro_torch.core.multidevice import mesh_devices, sharded_replay_fn
+
+    if mesh is not None and device is not None:
+        raise ValueError("pass either device or mesh, not both")
     if isinstance(records, SimResult):
         records = detected_records(records)
     records = np.asarray(records, np.uint32).reshape(-1, 4)
@@ -235,61 +260,49 @@ def replay_jacobian(volume: Volume, cfg: SimConfig, records, detectors,
             f"record refers to time gate {int(records[:, 3].max())} but "
             f"cfg.n_time_gates={ntg}; gate-resolved replay needs the "
             f"forward run's gate count")
-    dev = resolve_device(device)
-    volume = volume.to(dev)
+    devices = (mesh_devices(mesh) if mesh is not None
+               else [resolve_device(device)])
     jac_cols = n_det * ntg if gate_resolved else n_det
     n_rec = records.shape[0]
     nx, ny, nz = volume.shape
-    labels_flat = volume.labels.reshape(-1).contiguous()
-    media = volume.media.to(torch.float32).contiguous()
-    n_lanes = max(1, min(int(n_lanes), max(n_rec, 1)))
-    fn = _build_replay_fn(volume.shape, volume.unitinmm, cfg, n_lanes,
-                          source, det_geometry(detectors, dev), jac_cols)
+    n_shards = len(devices)
+    n_lanes = max(1, min(int(n_lanes), -(-max(n_rec, 1) // n_shards)))
+    run_batch, jacobian = sharded_replay_fn(
+        volume, cfg, detectors, devices, n_lanes, source, gate_resolved)
+    batch_lanes = n_shards * n_lanes
+    trace_dev = "mesh" if mesh is not None else devices[0]
+    engine = "kernel" if devices[0].type == "cuda" else "plain"
 
-    nvox, n_media = nx * ny * nz, media.shape[0]
-    i64 = dict(dtype=torch.int64, device=dev)
-    jac = torch.zeros((nvox * jac_cols,), **i64)
-    scratch = [torch.zeros((nvox * ntg,), **i64),
-               torch.zeros((nx * ny,), **i64),
-               torch.zeros((n_det * ntg,), **i64),
-               torch.zeros((n_det, n_media), **i64)]
     w_exit = np.zeros((n_rec,), np.float32)
     gate = np.full((n_rec,), -1, np.int32)
     rdet = np.full((n_rec,), -1, np.int32)
-    for start in range(0, n_rec, n_lanes):
+    for start in range(0, n_rec, batch_lanes):
         nb, id_lo, id_hi, col, active = _batch_arrays(
-            records, start, n_lanes, gate_resolved, ntg)
+            records, start, batch_lanes, gate_resolved, ntg)
         span = None
         if tracer is not None:
-            span = tracer.span("replay_batch", device=dev,
-                               engine="kernel" if dev.type == "cuda"
-                               else "plain", records=nb, batch_start=start)
-        w_b, g_b, rd_b = fn(
-            labels_flat, media,
-            torch.tensor(id_lo.astype(np.int64), device=dev),
-            torch.tensor(id_hi.astype(np.int64), device=dev),
-            torch.tensor(col, device=dev), torch.tensor(active, device=dev),
-            seed, jac, scratch)
+            span = tracer.span("replay_batch", device=trace_dev,
+                               engine=engine, records=nb, batch_start=start)
+        w_b, g_b, rd_b = run_batch(id_lo, id_hi, col, active, seed)
         if span is not None:
             span.end()
-        if dev.type == "cuda":
-            check_errors(dev)
-        w_exit[start: start + nb] = w_b[:nb].cpu().numpy()
-        gate[start: start + nb] = g_b[:nb].cpu().numpy()
-        rdet[start: start + nb] = rd_b[:nb].cpu().numpy()
+        w_exit[start: start + nb] = w_b[:nb]
+        gate[start: start + nb] = g_b[:nb]
+        rdet[start: start + nb] = rd_b[:nb]
 
+    jac = jacobian()
     if bool((jac < 0).any()):
         raise OverflowError("a replay Jacobian cell passed 2**63 - 1 units")
     # the cells the replay reached (a few percent of the grid), as
     # float64, in one copy to the host
     reached = torch.nonzero(jac).squeeze(1)
-    jacobian = np.zeros((nvox * jac_cols,), np.float64)
-    jacobian[reached.cpu().numpy()] = from_fixed(
+    jacobian_h = np.zeros((nx * ny * nz * jac_cols,), np.float64)
+    jacobian_h[reached.cpu().numpy()] = from_fixed(
         jac[reached], spec.FIXED_SHIFT["jac"], torch.float64).cpu().numpy()
     shape_out = ((nx, ny, nz, n_det, ntg) if gate_resolved
                  else (nx, ny, nz, n_det))
     return ReplayResult(
-        jacobian=jacobian.reshape(shape_out),
+        jacobian=jacobian_h.reshape(shape_out),
         w_exit=w_exit,
         det=records[:, 2].astype(np.int32),
         gate=gate,

@@ -34,13 +34,21 @@ scenario freezes while the others run on, so each scenario's
     results = simulate_many([Scenario(vol, cfg, n_photons=10_000, seed=s)
                              for s in range(8)])
 
-CLI: ``python -m repro_torch.launch.simulate --scenarios '[{...}, ...]'``.
-A device mesh (``mesh=``) is not ported yet and raises.
+A device mesh (``mesh=``, a sequence of torch devices) splits each
+group's scenario axis across its devices, padded with zero-photon
+scenarios to a multiple of their count: each device runs its slice as
+one batched call in a host thread of its own, with no collective, and
+each scenario still gets the bits of its own ``simulate_one`` on a
+device of the same type.
+
+CLI: ``python -m repro_torch.launch.simulate --scenarios '[{...}, ...]'``
+(with ``--devices all``, over every device of ``--device``'s type).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from collections import OrderedDict
 
 import numpy as np
@@ -53,7 +61,8 @@ from repro_torch.core.simulator import (SimResult, build_batched_fn,
 from repro_torch.core.volume import SimConfig, Volume
 from repro_torch.detectors import (as_detectors, det_geometry,
                                    validate_detectors)
-from repro_torch.kernels.photon_step.ops import resolve_device
+from repro_torch.kernels.photon_step.ops import (hand_over, resolve_device,
+                                                 thread_stream)
 from repro_torch.sources import stage_source
 from repro_torch.telemetry.trace import device_label
 
@@ -268,14 +277,32 @@ def _raw_batched_fn(rep: _Prep, n_lanes, mode, device):
     return fn
 
 
+def _mesh_signature(mesh) -> tuple | None:
+    """The mesh's part of a cache key: its device labels, in order."""
+    if mesh is None:
+        return None
+    return tuple(device_label(d) for d in mesh)
+
+
+def _padded(members: list[_Prep], pad: int) -> tuple[list, list]:
+    """The group's rows zero-photon-padded by ``pad`` copies of the first
+    scenario (they launch nothing, so padding never changes a real
+    result), and the rows' photon budgets."""
+    rows = members + [members[0]] * pad
+    return rows, [m.sc.n_photons for m in members] + [0] * pad
+
+
 def _stack_group(members: list[_Prep], pad: int, share_labels: bool,
                  device):
-    """Stack the group's per-scenario values on ``device``,
-    zero-photon-padding the batch by ``pad`` copies of the first
-    scenario (they launch nothing, so padding never changes a real
-    result)."""
-    rows = members + [members[0]] * pad
-    n_real = len(members)
+    """Stack the group's per-scenario values on ``device``, padded as
+    :func:`_padded` pads them."""
+    return _stack_rows(*_padded(members, pad), share_labels, device)
+
+
+def _stack_rows(rows: list[_Prep], n_photons: list[int], share_labels: bool,
+                device):
+    """Stack the values of ``rows`` (with these photon budgets) on
+    ``device``."""
 
     def put(arrays, dtype=torch.float32):
         return torch.as_tensor(np.stack(arrays), dtype=dtype, device=device)
@@ -292,8 +319,6 @@ def _stack_group(members: list[_Prep], pad: int, share_labels: bool,
               for k in rows[0].staged}
     det_geom = (put([m.det_geom for m in rows])
                 if rows[0].det_geom is not None else None)
-    n_photons = [m.sc.n_photons if i < n_real else 0
-                 for i, m in enumerate(rows)]
     seeds = [int(m.sc.seed) for m in rows]
     id_lo = [m.id_lo for m in rows]
     id_hi = [m.id_hi for m in rows]
@@ -336,6 +361,29 @@ def make_batched(scenarios, *, n_lanes: int = 1024, mode: str = "dynamic",
 # public API
 # ---------------------------------------------------------------------------
 
+def _sharded_batched_fn(rep: _Prep, n_lanes, mode, devices):
+    """The executor of one group over a mesh: ``fn(per_device_args) ->
+    list[SimResult]`` runs each device's stacked slice of the scenario
+    axis as one batched call in a host thread of its own, and returns
+    the results in scenario order."""
+    from repro_torch.core.multidevice import run_on_threads
+
+    fns = [_raw_batched_fn(rep, n_lanes, mode, d) for d in devices]
+
+    def one(f, d, args, cancel):
+        with thread_stream(d):
+            out = f(*args)
+        return hand_over(out, d)
+
+    def fn(per_device_args):
+        parts = run_on_threads([
+            functools.partial(one, f, d, a)
+            for f, d, a in zip(fns, devices, per_device_args)])
+        return [r for part in parts for r in part]
+
+    return fn
+
+
 def _engine(dev: torch.device) -> str:
     """The round executor a device runs: the kernel or its plain
     version."""
@@ -363,50 +411,70 @@ def simulate_many(scenarios, *, n_lanes: int = 1024, mode: str = "dynamic",
     Scenarios group by :func:`group_key`; each group becomes one batched
     call, one photon-step launch a round for the whole group, whose
     executor comes from ``cache`` (:func:`default_cache` when None).
-    ``tracer`` records one ``scenarios.batch`` span per group (ended
-    after a device synchronisation), one ``scenarios.compile`` span per
-    cache miss, and ``scenarios.cache.{hit,miss,evictions,hit_rate}``
-    counters.  ``mesh`` (the scenario axis over several devices) is not
-    ported yet and raises ``NotImplementedError``.
+    ``mesh`` (a sequence of devices, in place of ``device``) splits each
+    group's scenario axis across its devices (zero-photon padding rounds
+    the batch up to the device count), each device's slice one batched
+    call in a host thread of its own; the mesh's device list is part of
+    the cache key.  ``tracer`` records one ``scenarios.batch`` span per
+    group (ended after a device synchronisation; device ``"mesh"`` with
+    a mesh), one ``scenarios.compile`` span per cache miss, and
+    ``scenarios.cache.{hit,miss,evictions,hit_rate}`` counters.
 
     Returns per-scenario ``SimResult``\\ s in input order, each
-    bit-identical to its own :func:`simulate_one`.
+    bit-identical to its own :func:`simulate_one` on a device of the
+    same type.
     """
+    if mesh is not None and device is not None:
+        raise ValueError("pass either device or mesh, not both")
     if mesh is not None:
-        raise NotImplementedError("simulate_many over a device mesh is not "
-                                  "ported yet")
-    dev = resolve_device(device)
+        from repro_torch.core.multidevice import mesh_devices
+
+        devices = mesh_devices(mesh)
+        dev, label = devices[0], "mesh"
+    else:
+        dev = resolve_device(device)
+        devices, label = [dev], device_label(dev)
     scenarios = list(scenarios)
     if not scenarios:
         return []
     cache = default_cache() if cache is None else cache
     engine = _engine(dev)
-    label = device_label(dev)
     preps = [_prepare(i, sc) for i, sc in enumerate(scenarios)]
     groups: OrderedDict = OrderedDict()
     for p in preps:
         groups.setdefault(_group_key(p, n_lanes, mode, label), []).append(p)
-    n_dev = 1
+    n_dev = len(devices)
     out: list = [None] * len(scenarios)
     evictions0 = cache.evictions
     for gkey, members in groups.items():
         share = _share_labels(members)
         pad = (-len(members)) % n_dev
         s_pad = len(members) + pad
-        key = (gkey, s_pad, share, None)
+        key = (gkey, s_pad, share,
+               _mesh_signature(devices if mesh is not None else None))
         fn = cache.get(key)
         hit = fn is not None
         if not hit:
-            fn = _raw_batched_fn(members[0], n_lanes, mode, dev)
+            fn = (_sharded_batched_fn(members[0], n_lanes, mode, devices)
+                  if mesh is not None
+                  else _raw_batched_fn(members[0], n_lanes, mode, dev))
             cache.put(key, fn)
-        args = _stack_group(members, pad, share, dev)
+        if mesh is not None:
+            rows, counts = _padded(members, pad)
+            k = s_pad // n_dev
+            args = ([_stack_rows(rows[i * k:(i + 1) * k],
+                                 counts[i * k:(i + 1) * k], share, d)
+                     for i, d in enumerate(devices)],)
+        else:
+            args = _stack_group(members, pad, share, dev)
         total_photons = int(sum(m.sc.n_photons for m in members))
         bspan = cspan = None
         if tracer is not None:
             tracer.counter("scenarios.cache." + ("hit" if hit else "miss"),
                            1, engine=engine, scenarios=len(members))
-            bspan = tracer.span("scenarios.batch", device=dev, engine=engine,
-                                photons=total_photons,
+            bspan = tracer.span("scenarios.batch",
+                                device="mesh" if mesh is not None else dev,
+                                engine=engine, photons=total_photons,
                                 scenarios=len(members), cache_hit=hit)
             if not hit:
                 cspan = tracer.span("scenarios.compile", device=dev,

@@ -38,6 +38,14 @@ also at a lane count that is no multiple of the block size; a deposit
 beyond the fixed-point range adds nothing and raises through
 ``check_errors``; ``simulate_many`` gives each scenario the bits of
 its own ``simulate_one``.
+
+Above one device: two shards of one card (each in a host thread and a
+stream of its own) give one run's int64 totals bit for bit; a card
+shard beside a CPU shard is held to the tolerance between the two
+arithmetics (CPU and CUDA float32 functions differ in the last bit, so
+a photon may take another path on each); a pool that loses its CPU
+worker moves that worker's chunks to the card; and two threads
+launching on one card at once each see only their own error flags.
 """
 
 import dataclasses
@@ -541,3 +549,135 @@ def test_simulate_many_on_card_is_bit_identical_to_simulate_one(cuda_device):
                 assert torch.equal(x, y), name
             else:
                 assert x == y, name
+
+
+def _int64_totals(fixed):
+    return {f: getattr(fixed, f).cpu() for f in (
+        "fluence", "exitance", "det_w", "det_ppath", "escaped", "timed_out",
+        "launched_w", "n_launched")}
+
+
+@pytest.mark.cuda
+def test_two_shards_of_one_card_are_bit_identical_to_one_run(cuda_device):
+    from repro_torch.core import multidevice as M
+    vol = V.benchmark_b2((30, 30, 30))
+    cfg = dataclasses.replace(V.b2_config(), steps_per_round=8,
+                              n_time_gates=4, tmax_ns=0.5)
+    dets = [(20.0, 15.0, 2.0), (25.0, 15.0, 2.0)]
+    src = {"type": "pencil", "pos": [15.0, 15.0, 0.0]}
+    kw = dict(source=src, detectors=dets, record_detected=8192)
+    one = S.simulate_fixed(vol, cfg, 60_000, 8192, 5, device=cuda_device,
+                           **kw)
+    counts = [42_000, 18_000]
+    parts = M.sharded_sim_fn(vol, cfg, [8192, 2048], [cuda_device] * 2,
+                             **kw)(counts, M.shard_offsets(counts), 5)
+    merged = S.merge_fixed(parts)
+    want, got = _int64_totals(one), _int64_totals(merged)
+    for f in want:
+        assert torch.equal(got[f], want[f]), f
+    res = S.to_sim_result(merged)
+    assert sorted(map(tuple, detected_records(res))) == sorted(
+        map(tuple, detected_records(S.to_sim_result(one))))
+
+
+@pytest.mark.cuda
+def test_concurrent_runs_see_only_their_own_error_flags(cuda_device):
+    """One thread's launch puts a Jacobian column out of range while
+    another thread's launch is clean: only the first thread's check
+    raises, and the clean thread's check clears nothing of it."""
+    import threading
+    vol = V.benchmark_b2(SHAPE, cuda_device)
+    cfg = V.b2_config()
+    n = 4096
+    state = ops.fresh_state(vol, n, seed=3, source=SRC)
+    args = (vol.labels.reshape(-1), vol.media, state, SHAPE, 1.0, cfg, 8)
+    barrier = threading.Barrier(2, timeout=60)
+    raised = {}
+
+    def run(name, bad):
+        col = torch.zeros(n, dtype=torch.int32, device=cuda_device)
+        if bad:
+            col[7] = 5  # outside [0, 3)
+        kernel.photon_step_cuda(*args, jac_w=torch.ones(n, device=cuda_device),
+                                jac_col=col, jac_cols=3)
+        barrier.wait()  # both launched
+        if not bad:
+            try:
+                kernel.check_errors(cuda_device)
+            except ValueError as e:
+                raised[name] = e
+        barrier.wait()  # the clean thread has checked
+        if bad:
+            try:
+                kernel.check_errors(cuda_device)
+            except ValueError as e:
+                raised[name] = e
+
+    threads = [threading.Thread(target=run, args=(name, bad))
+               for name, bad in (("bad", True), ("clean", False))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    assert set(raised) == {"bad"}
+
+
+@pytest.mark.cuda
+def test_pool_rebinds_the_chunks_of_a_lost_device_type(cuda_device):
+    """A card worker and a CPU worker: the chunks are bound to the two
+    device types in turn; the CPU worker leaves before its first chunk,
+    so its chunks are re-bound to the card, and the merged totals are
+    one run on the card, bit for bit."""
+    from repro_torch.resilience import DevicePool, DeviceSpec, FaultInjector
+    vol = V.benchmark_b2((30, 30, 30))
+    cfg = dataclasses.replace(V.b2_config(), steps_per_round=8,
+                              n_time_gates=4, tmax_ns=0.5)
+    src = {"type": "pencil", "pos": [15.0, 15.0, 0.0]}
+    specs = [DeviceSpec(device=cuda_device, n_lanes=8192, label="card"),
+             DeviceSpec(device="cpu", n_lanes=256, label="cpu")]
+    pool = DevicePool(vol, cfg, specs, source=src,
+                      fault_injector=FaultInjector(dropout={"cpu": 0}))
+    got, rep = pool.run_fixed(40_000, 5_000, seed=5, deadline_s=300)
+    want = S.simulate_fixed(vol, cfg, 40_000, 8192, 5, source=src,
+                            device=cuda_device)
+    for f, x in _int64_totals(want).items():
+        assert torch.equal(_int64_totals(got)[f], x), f
+    assert rep.rebound == 4 and rep.workers_quarantined == 1
+    assert rep.merged == rep.n_chunks == 8
+
+
+@pytest.mark.cuda
+def test_card_and_cpu_shards_hold_the_tolerance_of_two_arithmetics(
+        cuda_device):
+    """CPU and CUDA float32 functions differ in the last bit for some
+    arguments, so a photon may take another path on each (the chip smoke
+    run measured 37.6% of the fluence cells and 70.3% of the exitance
+    bins equal on 12,208 photons of B1 at 60^3).  A ``[cuda:0, cpu]``
+    run is held to the tolerance between two arithmetics: photons and
+    launched weight exact, totals within 2e-3 of the launched weight,
+    fluence within 1e-3 of the largest cell, against one run on the
+    card; the card's own shard bit-equal to that run's photons."""
+    from repro_torch.core import multidevice as M
+    vol = V.benchmark_b1((30, 30, 30))
+    cfg = dataclasses.replace(V.b1_config(), steps_per_round=8)
+    src = {"type": "pencil", "pos": [15.0, 15.0, 0.0]}
+    counts = [60_000, 2_000]
+    parts = M.sharded_sim_fn(vol, cfg, [8192, 512], [cuda_device, "cpu"],
+                             source=src)(counts, M.shard_offsets(counts), 5)
+    assert parts[0].fluence.is_cuda and not parts[1].fluence.is_cuda
+    one = S.simulate_fixed(vol, cfg, 62_000, 8192, 5, source=src,
+                           device=cuda_device)
+    card = S.simulate_fixed(vol, cfg, 60_000, 8192, 5, source=src,
+                            device=cuda_device)
+    for f, x in _int64_totals(card).items():
+        assert torch.equal(_int64_totals(parts[0])[f], x), f
+    got, want = (S.to_sim_result(S.merge_fixed(p)) for p in (
+        parts, [one]))
+    assert int(got.n_launched) == int(want.n_launched) == 62_000
+    assert float(got.launched_w) == float(want.launched_w)
+    for k in ("escaped_w", "timed_out_w"):
+        assert abs(float(getattr(got, k)) - float(getattr(want, k))) <= \
+            2e-3 * 62_000, k
+    assert float((got.energy - want.energy).abs().max()) <= \
+        1e-3 * float(want.energy.max())

@@ -54,6 +54,14 @@ def test_scan_sees_the_whole_port():
                  "src/repro_torch/scenarios/__init__.py",
                  "src/repro_torch/sources/types.py",
                  "src/repro_torch/sources/base.py",
+                 "src/repro_torch/core/multidevice.py",
+                 "src/repro_torch/checkpoint/__init__.py",
+                 "src/repro_torch/checkpoint/checkpointer.py",
+                 "src/repro_torch/resilience/__init__.py",
+                 "src/repro_torch/resilience/faults.py",
+                 "src/repro_torch/resilience/policy.py",
+                 "src/repro_torch/resilience/validate.py",
+                 "src/repro_torch/resilience/pool.py",
                  "chip_smoke.py"):
         assert must in names
 

@@ -162,8 +162,10 @@ def test_replay_input_validation(b2_forward):
     with pytest.raises(ValueError, match="time gate"):
         replay_jacobian(vol, cfg, bad, DETS, gate_resolved=True,
                         device="cpu")
-    with pytest.raises(NotImplementedError):
-        replay_jacobian(vol, cfg, rec, DETS, device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="device or mesh"):
+        replay_jacobian(vol, cfg, rec, DETS, device="cpu", mesh=["cpu"])
+    with pytest.raises(ValueError, match="at least one device"):
+        replay_jacobian(vol, cfg, rec, DETS, mesh=[])
     # a tracer gets one span a batch, tagged with the batch's records
     from repro_torch.telemetry import InMemorySink, Tracer
     tracer = Tracer(sinks=[InMemorySink()])

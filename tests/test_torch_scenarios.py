@@ -167,8 +167,11 @@ def test_make_batched_group_key_and_mesh():
                                               device="cpu"))
     with pytest.raises(ValueError, match="single scenario group"):
         SC.make_batched(fleet, n_lanes=LANES, device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        SC.simulate_many(fleet, n_lanes=LANES, device="cpu", mesh=object())
+    # a mesh takes the place of the device; an empty one has no device
+    with pytest.raises(ValueError, match="device or mesh"):
+        SC.simulate_many(fleet, n_lanes=LANES, device="cpu", mesh=["cpu"])
+    with pytest.raises(ValueError, match="at least one device"):
+        SC.simulate_many(fleet, n_lanes=LANES, mesh=[])
     assert SC.simulate_many([], device="cpu") == []
 
 
