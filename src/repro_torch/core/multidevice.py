@@ -45,17 +45,15 @@ from repro_torch.core.loadbalance import DeviceModel
 from repro_torch.core.rng import split_id64
 from repro_torch.core.volume import SimConfig, Volume
 from repro_torch.detectors import as_detectors, det_geometry, validate_detectors
-from repro_torch.kernels.photon_step.ops import (hand_over, resolve_device,
-                                                 thread_stream,
+from repro_torch.kernels.photon_step.ops import (resolve_device,
                                                  visible_devices)
 from repro_torch.kernels.photon_step.photon_step import check_errors
 from repro_torch.resilience import (DevicePool, DeviceSpec, FaultInjector,
                                     InjectedFault, RetryPolicy,
                                     corrupt_harvest, harvest_result,
                                     validate_chunk)
-from repro_torch.resilience.pool import (add_harvest, fixed_of, harvest_state,
-                                         load_harvest_state, records_of,
-                                         zero_harvest)
+from repro_torch.resilience.pool import (add_fixed, fixed_from_state,
+                                         fixed_state, zero_fixed)
 from repro_torch.sources import as_source
 from repro_torch.telemetry.trace import device_label
 
@@ -146,12 +144,11 @@ def sharded_sim_fn(volume: Volume, cfg: SimConfig, n_lanes, mesh,
                 "shard", device=device_label(d),
                 engine="kernel" if d.type == "cuda" else "plain",
                 photons=int(count), shard=i)
-        with thread_stream(d):
-            res = fns[i](labels, media, int(count), seed,
-                         *split_id64(int(offset)), cancel=cancel)
+        res = fns[i](labels, media, int(count), seed,
+                     *split_id64(int(offset)), cancel=cancel)
         if span is not None:
             span.end()
-        return hand_over(res, d)
+        return res
 
     def fn(counts, offsets, seed) -> list[S.FixedResult]:
         if len(counts) != len(devices) or len(offsets) != len(devices):
@@ -263,17 +260,16 @@ def sharded_replay_fn(volume: Volume, cfg: SimConfig, detectors, mesh,
     def one(i, id_lo, id_hi, col, active, seed, cancel):
         sh, d = shards[i], shards[i]["device"]
         part = slice(i * n_lanes, (i + 1) * n_lanes)
-        with thread_stream(d):
-            w, g, r = sh["fn"](
-                sh["labels"], sh["media"],
-                torch.tensor(id_lo[part].astype(np.int64), device=d),
-                torch.tensor(id_hi[part].astype(np.int64), device=d),
-                torch.tensor(col[part], device=d),
-                torch.tensor(active[part], device=d), seed, sh["jac"],
-                sh["scratch"])
-            if d.type == "cuda":
-                check_errors(d)  # this thread's launches
-            return w.cpu().numpy(), g.cpu().numpy(), r.cpu().numpy()
+        w, g, r = sh["fn"](
+            sh["labels"], sh["media"],
+            torch.tensor(id_lo[part].astype(np.int64), device=d),
+            torch.tensor(id_hi[part].astype(np.int64), device=d),
+            torch.tensor(col[part], device=d),
+            torch.tensor(active[part], device=d), seed, sh["jac"],
+            sh["scratch"])
+        if d.type == "cuda":
+            check_errors(d)  # this thread's launches
+        return w.cpu().numpy(), g.cpu().numpy(), r.cpu().numpy()
 
     def run_batch(id_lo, id_hi, col, active, seed):
         outs = run_on_threads([
@@ -455,7 +451,7 @@ class ElasticSimulator:
         self.skipped: list[Chunk] = []   # chunks quarantined by the cap
         self.failures: dict[int, int] = {}   # chunk start_id -> attempts
         self.n_retries = 0
-        self.acc = zero_harvest(volume, cfg, len(self.detectors))
+        self.acc = zero_fixed(volume, cfg, len(self.detectors))
         self._fns: dict[torch.device, tuple] = {}
 
     # -- execution ---------------------------------------------------------
@@ -562,13 +558,13 @@ class ElasticSimulator:
             span.end()
         return res
 
-    def _merge(self, ch: Chunk, harvest: dict):
+    def _merge(self, ch: Chunk, harvest: S.FixedResult):
         """Merge one validated host-side harvest, then auto-checkpoint
         and honor any injected host crash (the crash fires *after* the
         checkpoint, mimicking a host that dies between campaigns rather
         than mid-write; the atomic Checkpointer already covers torn
         writes)."""
-        add_harvest(self.acc, harvest)
+        self.acc = add_fixed(self.acc, harvest)
         self.completed.append(ch)
         n_merged = len(self.completed)
         if (self.checkpointer is not None and self.checkpoint_every
@@ -584,14 +580,12 @@ class ElasticSimulator:
     @property
     def det_rec(self) -> np.ndarray:
         """Accumulated (n, 4) uint32 detected-photon id records."""
-        rec = records_of(self.acc)
-        self.acc["det_rec"] = [rec] if rec.size else []
-        return rec
+        return self.acc.det_rec.numpy().astype(np.uint32)
 
     def totals(self) -> S.FixedResult:
         """The merged int64 totals (CPU tensors); ``steps`` is 0, as in
         the reference."""
-        return fixed_of(self.acc)._replace(steps=0)
+        return self.acc._replace(steps=0)
 
     def result(self) -> S.SimResult:
         """The merged totals converted once, on the CPU."""
@@ -624,7 +618,7 @@ class ElasticSimulator:
         totals as int64 fixed point (``stats`` the int64 round counters
         in ``simulator.COUNTER_FIELDS`` order)."""
         return {
-            **harvest_state(self.acc),
+            **fixed_state(self.acc),
             "pending": np.asarray(
                 [(c.start_id, c.count) for c in self.pending], np.int64
             ).reshape(-1, 2),
@@ -660,12 +654,12 @@ class ElasticSimulator:
                    self._detector_key()),
                   ("energy grid (time gates?)",
                    tuple(np.shape(state["energy"])),
-                   tuple(self.acc["energy"].shape))]
+                   tuple(self.acc.fluence.shape))]
         for what, got, want in checks:
             if got != want:
                 raise ValueError(f"{what} mismatch: checkpoint {got} vs "
                                  f"simulator {want}")
-        load_harvest_state(self.acc, state)
+        self.acc = fixed_from_state(state, self.acc)
         self.pending = [Chunk(int(s), int(c)) for s, c in state["pending"]]
         self.completed = [Chunk(int(s), int(c))
                           for s, c in state["completed"]]

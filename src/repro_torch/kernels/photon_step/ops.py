@@ -8,8 +8,6 @@ There is no fallback from one to the other.
 
 from __future__ import annotations
 
-import contextlib
-
 import torch
 
 from repro_torch.core import photon as ph
@@ -42,48 +40,6 @@ def visible_devices(device_type: str = "cuda") -> list[torch.device]:
     resolve_device(device_type)
     return [torch.device("cuda", i)
             for i in range(torch.cuda.device_count())]
-
-
-@contextlib.contextmanager
-def thread_stream(device: torch.device):
-    """Give a host thread's work on a CUDA device a stream of its own.
-
-    Threads that share a card (shards, pool workers) would otherwise
-    share its default stream, and each round's host read would wait for
-    the other threads' launches too.  The stream first waits for what
-    the default stream was given (the inputs the calling thread put on
-    the device), and is synchronised at the end, so whatever the thread
-    returns is complete (:func:`hand_over` lets the default stream use
-    and free it).  On the CPU it does nothing."""
-    if device.type != "cuda":
-        yield
-        return
-    stream = torch.cuda.Stream(device)
-    stream.wait_stream(torch.cuda.default_stream(device))
-    try:
-        with torch.cuda.stream(stream):
-            yield
-    finally:
-        stream.synchronize()
-
-
-def hand_over(results, device: torch.device):
-    """Mark the CUDA tensors of ``results`` (a tensor, or nested tuples
-    and lists of them) that a thread made on its own stream as used by
-    the device's default stream too, so the allocator does not give
-    their memory to that stream's next work while the default stream
-    may still read them.  Returns ``results``."""
-    if device.type == "cuda":
-        default = torch.cuda.default_stream(device)
-        stack = [results]
-        while stack:
-            x = stack.pop()
-            if isinstance(x, torch.Tensor):
-                if x.is_cuda:
-                    x.record_stream(default)
-            elif isinstance(x, (tuple, list)):
-                stack.extend(x)
-    return results
 
 
 def photon_steps(labels_flat, media, state, shape, unitinmm, cfg: SimConfig,

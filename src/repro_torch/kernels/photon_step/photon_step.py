@@ -23,8 +23,8 @@ every variant's ``nvcc`` at once.
 ``photon_step_cuda`` checks its inputs and allocates its outputs
 (``prepare``: the kernel zeroes the accumulated ones on the stream
 itself, or adds into the caller's ``totals``), packs the entry point's
-arrays (``pack``), launches on PyTorch's current stream, and raises if
-the launch fails.  ``check_errors`` raises for what a launch flagged on
+arrays (``pack``), launches on PyTorch's current stream, and raises
+``KernelError`` if the launch fails (as the build and load do).  ``check_errors`` raises for what a launch flagged on
 the device (a Jacobian column out of range, a fixed-point overflow).
 ``photon_step_cuda.launches_by`` counts its launches by
 ``variant_name``, with ``/xS`` appended for a launch of S > 1
@@ -98,6 +98,12 @@ def _variant_name(groups: int, do_reflect: bool, deposit_mode: str) -> str:
                      group_names(groups)))
 
 
+class KernelError(RuntimeError):
+    """The kernel could not be built, loaded or launched.  Never a
+    reason to carry on elsewhere: the schedulers raise it rather than
+    retry the work on another device."""
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -105,8 +111,8 @@ def _nvcc() -> str:
     default = pathlib.Path("/usr/local/cuda/bin/nvcc")
     if default.exists():
         return str(default)
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       "the photon-step kernel")
+    raise KernelError("nvcc not found: the CUDA toolkit is needed to build "
+                      "the photon-step kernel")
 
 
 def _flags(groups: int) -> tuple[str, ...]:
@@ -143,7 +149,7 @@ def _finish_build(started) -> None:
     out.with_suffix(".log").write_text(" ".join(cmd) + "\n" + log)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        raise KernelError(f"nvcc failed ({proc.returncode}):\n{log}")
     os.replace(tmp, out)
 
 
@@ -174,10 +180,10 @@ def build_all(groups=VALID_GROUPS) -> float:
         for x in started:
             try:
                 _finish_build(x)
-            except RuntimeError as e:
+            except KernelError as e:
                 errors.append(str(e))
     if errors:
-        raise RuntimeError("\n".join(errors))
+        raise KernelError("\n".join(errors))
     return time.perf_counter() - t0
 
 
@@ -200,13 +206,13 @@ def _load_library(groups: int) -> ctypes.CDLL:
     lib.photon_step_error_string.restype = ctypes.c_char_p
     lib.photon_step_groups.restype = ctypes.c_int
     if lib.photon_step_groups() != groups:
-        raise RuntimeError(f"{library_path(groups).name} was built for "
-                           f"groups {lib.photon_step_groups()}, not {groups}")
+        raise KernelError(f"{library_path(groups).name} was built for "
+                          f"groups {lib.photon_step_groups()}, not {groups}")
     built = (lib.photon_step_threads(), lib.photon_step_cache_slots())
     if built != (THREADS, CACHE_SLOTS):
-        raise RuntimeError(f"{library_path(groups).name} has launch "
-                           f"constants {built}, the wrapper "
-                           f"{(THREADS, CACHE_SLOTS)}")
+        raise KernelError(f"{library_path(groups).name} has launch "
+                          f"constants {built}, the wrapper "
+                          f"{(THREADS, CACHE_SLOTS)}")
     return lib
 
 
@@ -414,7 +420,7 @@ def photon_step_cuda(labels_flat, media, state: ph.PhotonState, shape,
                 *ptrs, torch._C._cuda_getCurrentRawStream(dev.index))
     if err != 0:
         msg = lib.photon_step_error_string(err).decode()
-        raise RuntimeError(f"photon_step kernel launch failed: {msg} ({err})")
+        raise KernelError(f"photon_step kernel launch failed: {msg} ({err})")
     S = ints[13]
     count_launch(variant_name(groups, cfg) + (f"/x{S}" if S > 1 else ""))
     return (ph.PhotonState(*outs[:len(spec.STATE_FIELDS)]),

@@ -1,6 +1,6 @@
 """Where the time of a multi-device run goes on one host.
 
-    PYTHONPATH=src python -m repro_torch.launch.multidevice_timing
+    PYTHONPATH=src python -m repro_torch.launch.multidevice_timing [--no-cpu]
 
 Every shard and pool worker runs its round loop in a host thread of its
 own, and each round issues ~180 device operations from Python, each of
@@ -13,14 +13,18 @@ one JSON line each, with the card's name and power limit:
   single        one run of all the photons in the calling thread
   sequential    the two shards (0.7 / 0.3) one after the other in the
                 calling thread
-  threaded      the two shards at once, each in its own host thread and
-                stream (``core.multidevice.sharded_sim_fn``)
+  threaded      the two shards at once, each in its own host thread
+                (``core.multidevice.sharded_sim_fn``)
   lock probe    one run while another thread only issues tiny CPU
                 tensor operations (no device work): the cost of handing
                 the interpreter lock back and forth alone
   cpu beside    a card run alone, then beside a CPU shard in another
                 thread, with PyTorch's CPU threads at the default, all
                 cores but one, and one
+
+Uses only entry points that earlier checkouts of the port have too: to
+compare two checkouts on one card, run this file by its path under each
+one's ``PYTHONPATH`` in turns.
 """
 
 from __future__ import annotations
@@ -91,6 +95,9 @@ def main(argv=None) -> None:
     ap.add_argument("--card-photons", type=int, default=20_000_000,
                     help="photons of the card run beside a CPU shard")
     ap.add_argument("--cpu-lanes", type=int, default=2048)
+    ap.add_argument("--no-cpu", action="store_true",
+                    help="time only the two shards of one card (and the "
+                         "lock probe), not the card beside a CPU shard")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("multidevice_timing needs a CUDA device")
@@ -124,6 +131,8 @@ def main(argv=None) -> None:
              sequential_over_single=sequential / single,
              lock_probe_over_single=probed / single)
 
+    if args.no_cpu:
+        return
     run_b1, _, _ = runner("B1", gpu, LANES)
     run_cpu, _, _ = runner("B1", torch.device("cpu"), args.cpu_lanes)
     default_threads = torch.get_num_threads()

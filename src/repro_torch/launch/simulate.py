@@ -282,11 +282,16 @@ def run(argv=None) -> Run:
                     help="all: shard the photons, the replay's records and "
                          "the scenario axis over every device of --device's "
                          "type (every CUDA device, or the one CPU), each in "
-                         "a host thread, when more than one is found")
+                         "a host thread, when more than one is found.  On "
+                         "one host each extra device currently slows the "
+                         "run down (the threads share one interpreter "
+                         "lock): use it for bits and faults, not speed")
     ap.add_argument("--chunk", type=int, default=0,
                     help=">0: dynamic chunk scheduling over every device "
                          "of --device's type through the resilience pool "
-                         "(straggler-safe)")
+                         "(straggler-safe; retries, checkpoints).  A chunk "
+                         "runs in a worker's host thread, which currently "
+                         "costs throughput against one plain run")
     ap.add_argument("--chaos", default=None, metavar="JSON",
                     help="seeded fault-injection drill for the --chunk "
                          "scheduler: JSON FaultInjector config, e.g. "

@@ -28,10 +28,15 @@ chunked schedulers survive all of them:
     ends, gets its cancel event set; its round loop raises at its next
     round's host read, so no abandoned chunk holds the process at exit,
     and the run never waits for one.
-  * **Validated merges**: every result is harvested to host numpy in
-    its worker's thread and run through :func:`validate_chunk` (negative
+  * **Validated merges**: every result is harvested to the host in its
+    worker's thread and run through :func:`validate_chunk` (negative
     totals, launch count, per-chunk energy balance) before it may touch
     the accumulator.
+  * **Errors that are not retried**: the kernel's build, load and
+    launch errors, what its launches flag and refused arguments
+    (``NOT_RETRIED``) end the run: retrying them on another worker
+    would carry the work on off the card because its kernel failed.
+    Injected faults and other errors (a lost device) are retried.
   * **Worker health**: healthy -> suspect -> quarantined, with graceful
     degradation down to one device; an empty pool raises
     :class:`PoolExhaustedError` with the full failure history.
@@ -75,8 +80,8 @@ from repro_torch.core.rng import split_id64
 from repro_torch.core.volume import SimConfig, Volume
 from repro_torch.detectors import as_detectors
 from repro_torch.kernels.photon_step.ops import (resolve_device,
-                                                 thread_stream,
                                                  visible_devices)
+from repro_torch.kernels.photon_step.photon_step import KernelError
 from repro_torch.resilience.faults import FaultInjector, InjectedFault
 from repro_torch.resilience.policy import (HEALTHY, QUARANTINED, SUSPECT,
                                            RetryPolicy)
@@ -256,7 +261,7 @@ class _Task:
         self.inflight = 0
         self.reasons: list[str] = []
         self.last_error: BaseException | None = None
-        self.harvest: dict | None = None   # valid result awaiting frontier
+        self.harvest: S.FixedResult | None = None  # valid, awaiting frontier
         self.merged_by: Worker | None = None
 
 
@@ -285,111 +290,87 @@ class _Inflight:
             self.span.end(outcome=outcome)
 
 
-def zero_harvest(volume: Volume, cfg: SimConfig, n_det: int) -> dict:
-    """An empty accumulator in :func:`validate.harvest_result`'s layout."""
+def zero_fixed(volume: Volume, cfg: SimConfig, n_det: int) -> S.FixedResult:
+    """An empty accumulator: the int64 totals of no photons, on the CPU,
+    in :func:`validate.harvest_result`'s layout."""
     nx, ny = volume.shape[:2]
     ntg = int(cfg.n_time_gates)
-    n_media = volume.media.shape[0]
-    eshape = volume.shape if ntg == 1 else (*volume.shape, ntg)
-    return {
-        "energy": np.zeros(eshape, np.int64),
-        "exitance": np.zeros((nx, ny), np.int64),
-        "escaped_w": 0,
-        "timed_out_w": 0,
-        "det_w": np.zeros((n_det, ntg), np.int64),
-        "det_ppath": np.zeros((n_det, n_media), np.int64),
-        "det_rec": [],
-        "det_rec_overflow": 0,
-        "n_launched": 0,
-        "launched_w": 0,
-        "steps": 0,
-        "stats": (np.zeros(len(S.COUNTER_FIELDS), np.int64)
-                  if cfg.collect_stats else None),
-    }
+
+    def z(*size):
+        return torch.zeros(size, dtype=torch.int64)
+
+    return S.FixedResult(
+        fluence=z(*volume.shape, *((ntg,) if ntg > 1 else ())),
+        exitance=z(nx, ny), escaped=z(), timed_out=z(), launched_w=z(),
+        n_launched=z(), steps=0, det_w=z(n_det, ntg),
+        det_ppath=z(n_det, volume.media.shape[0]), det_rec=z(0, 4),
+        det_rec_n=z(), det_rec_overflow=z(),
+        counters=z(len(S.COUNTER_FIELDS)) if cfg.collect_stats else None)
 
 
-def add_harvest(acc: dict, h: dict) -> None:
-    """Add one chunk's harvest into an accumulator, in place: the int64
-    totals add, the records append."""
-    for k in ("energy", "exitance", "det_w", "det_ppath"):
-        acc[k] += h[k]
-    for k in ("escaped_w", "timed_out_w", "det_rec_overflow", "n_launched",
-              "launched_w", "steps"):
-        acc[k] += h[k]
-    if h["det_rec"].size:
-        acc["det_rec"].append(h["det_rec"])
-    if acc["stats"] is not None and h["stats"] is not None:
-        acc["stats"] = acc["stats"] + h["stats"]
+def add_fixed(acc: S.FixedResult, harvest: S.FixedResult) -> S.FixedResult:
+    """An accumulator with one more harvest added: the int64 totals and
+    the segments run add, the records append (``simulator.merge_fixed``,
+    kept in one buffer of valid rows).  Raises ``OverflowError`` if a
+    total passes the fixed-point range."""
+    merged = S.merge_fixed([acc, harvest])
+    return merged._replace(steps=int(merged.steps.sum()),
+                           det_rec_n=merged.det_rec_n.sum())
 
 
-def records_of(acc: dict) -> np.ndarray:
-    """The accumulator's records as one ``(n, 4)`` uint32 array."""
-    return (np.concatenate(acc["det_rec"], axis=0) if acc["det_rec"]
-            else np.zeros((0, 4), np.uint32))
+# the checkpoint leaves of an accumulator, under the reference's keys
+_STATE_KEYS = {"energy": "fluence", "exitance": "exitance",
+               "escaped_w": "escaped", "timed_out_w": "timed_out",
+               "det_w": "det_w", "det_ppath": "det_ppath",
+               "det_rec": "det_rec", "det_rec_overflow": "det_rec_overflow",
+               "n_launched": "n_launched", "launched_w": "launched_w",
+               "stats": "counters"}
 
 
-def fixed_of(acc: dict) -> S.FixedResult:
-    """An accumulator as a ``FixedResult`` of CPU tensors; raises
-    ``OverflowError`` if a merged total passed the fixed-point range."""
-    rec = records_of(acc)
-
-    def t(x):
-        return torch.as_tensor(np.asarray(x, np.int64))
-
-    fixed = S.FixedResult(
-        fluence=t(acc["energy"]), exitance=t(acc["exitance"]),
-        escaped=t(acc["escaped_w"]), timed_out=t(acc["timed_out_w"]),
-        launched_w=t(acc["launched_w"]), n_launched=t(acc["n_launched"]),
-        steps=int(acc["steps"]), det_w=t(acc["det_w"]),
-        det_ppath=t(acc["det_ppath"]), det_rec=t(rec.astype(np.int64)),
-        det_rec_n=t(rec.shape[0]),
-        det_rec_overflow=t(acc["det_rec_overflow"]),
-        counters=None if acc["stats"] is None else t(acc["stats"]))
-    S.check_fixed_range(fixed)
-    return fixed
-
-
-def harvest_state(acc: dict) -> dict:
-    """The accumulator's checkpoint leaves (int64 totals and counters,
-    uint32 records)."""
-    state = {
-        "energy": acc["energy"].copy(),
-        "exitance": acc["exitance"].copy(),
-        "escaped_w": np.int64(acc["escaped_w"]),
-        "timed_out_w": np.int64(acc["timed_out_w"]),
-        "det_w": acc["det_w"].copy(),
-        "det_ppath": acc["det_ppath"].copy(),
-        "det_rec": records_of(acc),
-        "det_rec_overflow": np.int64(acc["det_rec_overflow"]),
-        "n_launched": np.int64(acc["n_launched"]),
-        "launched_w": np.int64(acc["launched_w"]),
-    }
-    if acc["stats"] is not None:
-        state["stats"] = acc["stats"].copy()
+def fixed_state(acc: S.FixedResult) -> dict:
+    """An accumulator's checkpoint leaves: its int64 totals and counters
+    as numpy, the records as ``(n, 4)`` uint32."""
+    state = {k: getattr(acc, f).numpy().copy()
+             for k, f in _STATE_KEYS.items() if getattr(acc, f) is not None}
+    state["det_rec"] = state["det_rec"].astype(np.uint32)
     return state
 
 
-def load_harvest_state(acc: dict, state: dict) -> None:
-    """Restore :func:`harvest_state`'s leaves into an accumulator."""
-    for k in ("energy", "exitance", "det_w", "det_ppath"):
-        acc[k] = np.asarray(state[k], np.int64).copy()
-    for k in ("escaped_w", "timed_out_w", "det_rec_overflow", "n_launched",
-              "launched_w"):
-        acc[k] = int(state[k])
-    rec = np.asarray(state["det_rec"], np.uint32).reshape(-1, 4)
-    acc["det_rec"] = [rec] if rec.size else []
-    if acc["stats"] is not None and "stats" in state:
-        acc["stats"] = np.asarray(state["stats"], np.int64).copy()
+def fixed_from_state(state: dict, like: S.FixedResult,
+                     steps: int = 0) -> S.FixedResult:
+    """The accumulator a :func:`fixed_state` checkpoint holds, with
+    round counters where ``like`` (the accumulator it replaces) has
+    them."""
+    def t(k):
+        return torch.tensor(np.asarray(state[k], np.int64))
+
+    fields = {f: t(k) for k, f in _STATE_KEYS.items() if k != "stats"}
+    fields["det_rec"] = fields["det_rec"].reshape(-1, 4)
+    counters = None
+    if like.counters is not None:
+        counters = (t("stats") if "stats" in state
+                    else torch.zeros_like(like.counters))
+    return S.FixedResult(steps=int(steps), counters=counters,
+                         det_rec_n=torch.tensor(fields["det_rec"].shape[0]),
+                         **fields)
 
 
-def _run_chunk(fn, device, labels, media, count, seed, start_id,
-               cancel) -> dict:
-    """A worker thread's job: one chunk through its round loop on a
-    stream of the thread's own, its totals harvested to host numpy in
-    this thread."""
-    with thread_stream(device):
-        return harvest_result(fn(labels, media, count, seed,
-                                 *split_id64(start_id), cancel=cancel))
+# Errors a retry cannot cure, raised out of the run rather than retried:
+# the kernel's build, load and launch errors (KernelError), what its
+# launches flag (OverflowError for a fixed-point total past its range,
+# ValueError for a Jacobian column out of range) and arguments that it
+# or the round loop refuse (ValueError, TypeError).  Each would fail
+# again, and a retry on a worker of another type would carry the work
+# on off the card because its kernel failed.
+NOT_RETRIED = (KernelError, OverflowError, ValueError, TypeError)
+
+
+def _run_chunk(fn, labels, media, count, seed, start_id,
+               cancel) -> S.FixedResult:
+    """A worker thread's job: one chunk through its round loop, its
+    totals harvested to the host in this thread."""
+    return harvest_result(fn(labels, media, count, seed,
+                             *split_id64(start_id), cancel=cancel))
 
 
 class DevicePool:
@@ -561,11 +542,11 @@ class DevicePool:
             for i, ch in enumerate(chunks)
         ]
         report = PoolReport(n_chunks=len(tasks))
-        acc = zero_harvest(self.volume, self.cfg, len(self.detectors))
+        acc = zero_fixed(self.volume, self.cfg, len(self.detectors))
         frontier = 0
         if resume:
-            frontier = self._restore(acc, tasks, n_photons, chunk_size,
-                                     seed, src)
+            frontier, acc = self._restore(acc, tasks, n_photons, chunk_size,
+                                          seed, src)
             for t in tasks[:frontier]:
                 if not t.quarantined:
                     t.merged = True
@@ -578,9 +559,9 @@ class DevicePool:
                 max_workers=1, thread_name_prefix=f"pool-{w.label}")
             for w in self.workers}
         try:
-            self._loop(tasks, pending, inflight, executors, acc, report,
-                       frontier, t_start, deadline_s, n_photons,
-                       chunk_size, seed, src)
+            acc = self._loop(tasks, pending, inflight, executors, acc,
+                             report, frontier, t_start, deadline_s,
+                             n_photons, chunk_size, seed, src)
         finally:
             # the run waits for no chunk still in a thread: each stops at
             # its next round, and the threads end with it
@@ -606,11 +587,13 @@ class DevicePool:
                 f"chunk {qc.start_id} (+{qc.count}) after failures "
                 f"{report.chunk_failures.get(qc.start_id)}"
             ) from tasks[[t.chunk for t in tasks].index(qc)].last_error
-        return fixed_of(acc), report
+        return acc, report
 
     def _loop(self, tasks, pending, inflight, executors, acc, report,
               frontier, t_start, deadline_s, n_photons, chunk_size, seed,
-              src) -> None:
+              src) -> S.FixedResult:
+        """Run the chunks to their end; returns the accumulator with
+        every merged chunk added."""
         last_ckpt_merged = report.merged
 
         def all_done() -> bool:
@@ -691,7 +674,7 @@ class DevicePool:
                     continue
                 if t.harvest is None:
                     break
-                self._merge(acc, t, report)
+                acc = self._merge(acc, t, report)
                 frontier += 1
                 progressed = True
                 if (self.checkpointer is not None and self.checkpoint_every
@@ -726,6 +709,7 @@ class DevicePool:
 
             if not progressed:
                 self._idle(inflight, pending, now, t_start, deadline_s)
+        return acc
 
     def _idle(self, inflight, pending, now, t_start, deadline_s) -> None:
         """Wait, without the interpreter lock, until a running chunk ends
@@ -807,13 +791,16 @@ class DevicePool:
             self._chunk_failed(task, report, f"dispatch: {e}", now, pending,
                                e)
             return
+        except NOT_RETRIED:
+            if span is not None:
+                span.end(outcome="error")
+            raise
         except Exception as e:  # a real dispatch error: requeue + surface
             self._dispatch_error(w, task, report, span, e, now, pending)
             return
         cancel = threading.Event()
-        future = executor.submit(_run_chunk, fn, w.device, labels_dev,
-                                 media_dev, ch.count, seed, ch.start_id,
-                                 cancel)
+        future = executor.submit(_run_chunk, fn, labels_dev, media_dev,
+                                 ch.count, seed, ch.start_id, cancel)
         deadline = self.chunk_timeout_s
         predicted = w.predict_s(ch.count)
         if predicted is not None:
@@ -841,6 +828,10 @@ class DevicePool:
         elapsed = now - inf.t0
         error = inf.future.exception()
         settled = task.merged or task.harvest is not None or task.quarantined
+        if isinstance(error, NOT_RETRIED):
+            if inf.span is not None:
+                inf.span.end(outcome="error")
+            raise error
         if error is not None:
             # the chunk raised in its thread: a failed dispatch, which
             # requeues the chunk unless a twin already settled it
@@ -887,16 +878,17 @@ class DevicePool:
 
     # -- accumulation --------------------------------------------------------
 
-    def _merge(self, acc: dict, task: _Task, report: PoolReport) -> None:
-        h = task.harvest
+    def _merge(self, acc: S.FixedResult, task: _Task,
+               report: PoolReport) -> S.FixedResult:
+        acc = add_fixed(acc, task.harvest)
         task.harvest = None
         task.merged = True
         report.merged += 1
-        add_harvest(acc, h)
         w = task.merged_by
         if w is not None:
             w.n_merged += 1
             w.photons_merged += task.chunk.count
+        return acc
 
     # -- checkpoint / resume -------------------------------------------------
 
@@ -918,12 +910,12 @@ class DevicePool:
         }, sort_keys=True)
         return np.frombuffer(key.encode(), np.uint8)
 
-    def _state_dict(self, acc: dict, frontier: int, tasks: list,
+    def _state_dict(self, acc: S.FixedResult, frontier: int, tasks: list,
                     n_photons: int, chunk_size: int, seed: int,
                     src) -> dict:
         return {
-            **harvest_state(acc),
-            "steps": np.int64(acc["steps"]),
+            **fixed_state(acc),
+            "steps": np.int64(acc.steps),
             "frontier": np.int64(frontier),
             "quarantined": np.asarray(
                 [(t.chunk.start_id, t.chunk.count)
@@ -945,17 +937,18 @@ class DevicePool:
         if self.tracer is not None:
             self.tracer.counter("resilience.checkpoint", frontier)
 
-    def _restore(self, acc: dict, tasks: list, n_photons: int,
-                 chunk_size: int, seed: int, src) -> int:
-        """Load the newest checkpoint into ``acc``; returns the merged
-        frontier (0 when no checkpoint exists yet)."""
+    def _restore(self, acc: S.FixedResult, tasks: list, n_photons: int,
+                 chunk_size: int, seed: int, src
+                 ) -> tuple[int, S.FixedResult]:
+        """Load the newest checkpoint; returns the merged frontier and
+        the accumulator it holds (``(0, acc)`` when no checkpoint exists
+        yet)."""
         if self.checkpointer is None:
             raise ValueError("resume=True needs a checkpointer")
         if self.checkpointer.latest_step() is None:
-            return 0
-        template = self._state_dict(
-            zero_harvest(self.volume, self.cfg, len(self.detectors)), 0, [],
-            n_photons, chunk_size, seed, src)
+            return 0, acc
+        template = self._state_dict(acc, 0, [], n_photons, chunk_size, seed,
+                                    src)
         _, state = self.checkpointer.restore(template)
         want = self._run_key(n_photons, chunk_size, seed, src)
         got = np.asarray(state["run_key"], np.uint8)
@@ -963,8 +956,7 @@ class DevicePool:
             raise ValueError(
                 f"checkpoint belongs to a different campaign: "
                 f"{bytes(got).decode()} vs {bytes(want).decode()}")
-        load_harvest_state(acc, state)
-        acc["steps"] = int(state["steps"])
+        acc = fixed_from_state(state, acc, int(state["steps"]))
         quarantined = {int(s) for s, _ in
                        np.asarray(state["quarantined"],
                                   np.int64).reshape(-1, 2)}
@@ -972,7 +964,7 @@ class DevicePool:
         for t in tasks[:frontier]:
             if t.chunk.start_id in quarantined:
                 t.quarantined = True
-        return frontier
+        return frontier, acc
 
     # -- telemetry -----------------------------------------------------------
 

@@ -2,12 +2,12 @@
 
 A corrupted chunk that reaches the host-side accumulator poisons the
 whole campaign, and a silently short-launched chunk skews the
-normalization.  The schedulers therefore harvest every chunk to host
-numpy first and run it through :func:`validate_chunk` *before* merging;
-a rejected chunk is requeued (its replay is bit-identical) instead of
+normalization.  The schedulers therefore harvest every chunk to the host
+first and run it through :func:`validate_chunk` *before* merging; a
+rejected chunk is requeued (its replay is bit-identical) instead of
 corrupting the accumulator.
 
-The harvest is a chunk's ``core.simulator.FixedResult`` on the host:
+The harvest is a chunk's ``core.simulator.FixedResult`` on the CPU:
 int64 fixed-point grids and totals, which add exactly in any order, so
 a campaign merged from harvests has the bits of one run over the same
 photons.  An int64 total cannot hold a NaN; what corruption or an
@@ -17,7 +17,7 @@ cost:
   * a chunk launched exactly the photons it was assigned
     (``n_launched == chunk.count``);
   * no total is negative (a wrapped fixed-point sum, or a corrupted
-    cell), and the float view of every field is finite;
+    cell);
   * the per-chunk energy balance closes: ``launched_w = absorbed +
     escaped + timed_out + roulette residue`` with ``|residue| /
     launched_w <= max_residue_frac``.  The residue of a healthy chunk
@@ -29,100 +29,65 @@ cost:
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
+from repro_torch.core import simulator as S
 from repro_torch.kernels.photon_step import spec
 
-# Harvest fields and their fixed-point shifts.  det_rec is trimmed to
-# its valid rows at harvest time so buffered copies don't pin the full
-# capacity buffer.
-_GRID_SHIFTS = {"energy": spec.FIXED_SHIFT["fluence"],
-                "exitance": spec.FIXED_SHIFT["exitance"],
-                "det_w": spec.FIXED_SHIFT["det_w"],
-                "det_ppath": spec.FIXED_SHIFT["det_ppath"]}
-_SCALAR_FIELDS = ("escaped_w", "timed_out_w", "launched_w")
-# FixedResult field of each harvest field
-_SOURCE = {"energy": "fluence", "exitance": "exitance",
-           "det_w": "det_w", "det_ppath": "det_ppath",
-           "escaped_w": "escaped", "timed_out_w": "timed_out",
-           "launched_w": "launched_w"}
+# the fields a harvest's checks read, and their fixed-point shifts
+_SHIFTS = {"fluence": spec.FIXED_SHIFT["fluence"],
+           "exitance": spec.FIXED_SHIFT["exitance"],
+           "det_w": spec.FIXED_SHIFT["det_w"],
+           "det_ppath": spec.FIXED_SHIFT["det_ppath"],
+           "escaped": spec.TOTAL_SHIFT, "timed_out": spec.TOTAL_SHIFT,
+           "launched_w": spec.TOTAL_SHIFT}
 
 
-def _host(x: torch.Tensor) -> np.ndarray:
-    return x.detach().cpu().numpy()
+def harvest_result(fixed: S.FixedResult) -> S.FixedResult:
+    """Copy one chunk's ``FixedResult`` to the CPU (waits for its
+    device), detached from device memory, for the schedulers to buffer,
+    validate and merge: ``det_rec`` trimmed to its valid rows (a sharded
+    result's buffers reassembled) with ``det_rec_n`` their count, so
+    buffered copies don't pin the full capacity buffer, and ``steps``
+    the longest shard's."""
+    cpu = S.FixedResult(*(x.cpu() if isinstance(x, torch.Tensor) else x
+                          for x in fixed))
+    n = cpu.det_rec_n.reshape(-1).tolist()
+    cap = cpu.det_rec.shape[0] // len(n)
+    rec = torch.cat([cpu.det_rec[i * cap: i * cap + k]
+                     for i, k in enumerate(n)]).reshape(-1, 4)
+    return cpu._replace(det_rec=rec, det_rec_n=torch.tensor(rec.shape[0]),
+                        steps=int(torch.as_tensor(cpu.steps).max()))
 
 
-def harvest_result(fixed) -> dict:
-    """Copy one chunk's ``FixedResult`` to host numpy (waits for its
-    device).
-
-    Returns a plain dict the schedulers buffer, validate and merge,
-    detached from device memory: int64 grids (``energy``,
-    ``exitance``, ``det_w``, ``det_ppath``) and int64 totals
-    (``escaped_w``, ``timed_out_w``, ``launched_w`` in units of
-    ``2**-spec.TOTAL_SHIFT``), the valid ``det_rec`` rows as ``(n, 4)``
-    uint32, the counts, ``steps`` and the round counters (int64 in
-    ``simulator.COUNTER_FIELDS`` order, or None).
-    """
-    rec = _host(fixed.det_rec)
-    n = np.asarray(_host(fixed.det_rec_n)).reshape(-1)
-    if n.size == 1:
-        rec = rec[: int(n[0])]
-    else:  # a sharded result: each shard's buffer, its valid rows
-        cap = rec.shape[0] // n.size
-        rec = np.concatenate([rec[i * cap: i * cap + int(k)]
-                              for i, k in enumerate(n)])
-    out = {k: _host(getattr(fixed, src)) for k, src in _SOURCE.items()}
-    for k in _SCALAR_FIELDS:
-        out[k] = int(out[k])
-    out.update(
-        det_rec=rec.astype(np.uint32).reshape(-1, 4),
-        det_rec_overflow=int(fixed.det_rec_overflow),
-        n_launched=int(fixed.n_launched),
-        steps=int(np.max(np.asarray(fixed.steps))),
-        stats=(None if fixed.counters is None
-               else _host(fixed.counters).astype(np.int64)))
-    return out
-
-
-def weight(harvest: dict, field: str) -> float:
+def weight(harvest: S.FixedResult, field: str) -> float:
     """A harvest field's weight as a float64: the sum of a grid, or a
     scalar total, converted from its fixed point."""
-    if field in _GRID_SHIFTS:
-        return float(np.asarray(harvest[field]).sum()) * \
-            2.0**-_GRID_SHIFTS[field]
-    return float(harvest[field]) * 2.0**-spec.TOTAL_SHIFT
+    return float(getattr(harvest, field).sum()) * 2.0**-_SHIFTS[field]
 
 
-def validate_chunk(harvest: dict, expected_photons: int | None = None,
+def validate_chunk(harvest: S.FixedResult, expected_photons: int | None = None,
                    max_residue_frac: float = 5e-3) -> list[str]:
     """Validate one harvested chunk; returns a list of defects (empty =
     the chunk is safe to merge)."""
     errs: list[str] = []
     if expected_photons is not None and \
-            harvest["n_launched"] != int(expected_photons):
-        errs.append(f"launched {harvest['n_launched']} photons, chunk "
+            int(harvest.n_launched) != int(expected_photons):
+        errs.append(f"launched {int(harvest.n_launched)} photons, chunk "
                     f"assigned {int(expected_photons)}")
-    for k in (*_GRID_SHIFTS, *_SCALAR_FIELDS):
-        a = np.asarray(harvest[k])
-        if a.size == 0:
-            continue
-        view = a.astype(np.float64)
-        if not np.isfinite(view).all():
-            errs.append(f"{k} contains {int((~np.isfinite(view)).sum())} "
-                        f"non-finite value(s)")
-        elif a.min() < 0:
-            errs.append(f"{k} contains a negative total (min {a.min()} "
+    for k in _SHIFTS:
+        t = getattr(harvest, k)
+        if t.numel() and int(t.min()) < 0:
+            errs.append(f"{k} contains a negative total (min {int(t.min())} "
                         f"fixed-point units: corrupted, or a sum past "
                         f"2**63 - 1)")
     if errs:
         # the residue check below would just re-report the defect
         return errs
     launched = weight(harvest, "launched_w")
-    absorbed = weight(harvest, "energy")
-    escaped = weight(harvest, "escaped_w")
-    timed_out = weight(harvest, "timed_out_w")
+    absorbed = weight(harvest, "fluence")
+    escaped = weight(harvest, "escaped")
+    timed_out = weight(harvest, "timed_out")
     frac = (launched - absorbed - escaped - timed_out) / max(launched, 1.0)
     if abs(frac) > max_residue_frac:
         errs.append(f"energy-balance residue {frac:.3e} of launched "
@@ -132,14 +97,12 @@ def validate_chunk(harvest: dict, expected_photons: int | None = None,
     return errs
 
 
-def corrupt_harvest(harvest: dict) -> dict:
+def corrupt_harvest(harvest: S.FixedResult) -> S.FixedResult:
     """Corrupt one harvested chunk (the FaultInjector's ``p_nan``
     fault), on a copy so device results and other chunks are untouched:
-    the first energy cell becomes the int64 minimum, the bits a
+    the first fluence cell becomes the int64 minimum, the bits a
     fixed-point sum leaves when it wraps, which ``validate_chunk``
     rejects as a negative total."""
-    bad = dict(harvest)
-    energy = np.array(harvest["energy"], copy=True)
-    energy.flat[0] = np.iinfo(np.int64).min
-    bad["energy"] = energy
-    return bad
+    fluence = harvest.fluence.clone()
+    fluence.view(-1)[0] = torch.iinfo(torch.int64).min
+    return harvest._replace(fluence=fluence)

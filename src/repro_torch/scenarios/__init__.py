@@ -61,8 +61,7 @@ from repro_torch.core.simulator import (SimResult, build_batched_fn,
 from repro_torch.core.volume import SimConfig, Volume
 from repro_torch.detectors import (as_detectors, det_geometry,
                                    validate_detectors)
-from repro_torch.kernels.photon_step.ops import (hand_over, resolve_device,
-                                                 thread_stream)
+from repro_torch.kernels.photon_step.ops import resolve_device
 from repro_torch.sources import stage_source
 from repro_torch.telemetry.trace import device_label
 
@@ -370,15 +369,13 @@ def _sharded_batched_fn(rep: _Prep, n_lanes, mode, devices):
 
     fns = [_raw_batched_fn(rep, n_lanes, mode, d) for d in devices]
 
-    def one(f, d, args, cancel):
-        with thread_stream(d):
-            out = f(*args)
-        return hand_over(out, d)
+    def one(f, args, cancel):
+        return f(*args)
 
     def fn(per_device_args):
         parts = run_on_threads([
-            functools.partial(one, f, d, a)
-            for f, d, a in zip(fns, devices, per_device_args)])
+            functools.partial(one, f, a)
+            for f, a in zip(fns, per_device_args)])
         return [r for part in parts for r in part]
 
     return fn

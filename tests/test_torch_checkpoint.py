@@ -125,8 +125,8 @@ def test_campaign_state_is_int64(tmp_path):
     from repro_torch.core.multidevice import ElasticSimulator
     vol = V.benchmark_b1((16, 16, 16))
     es = ElasticSimulator(vol, V.b1_config(), 300, 100, n_lanes=64)
-    es.acc["energy"][0, 0, 0] = 2**62 + 1  # beyond float64's 53 bits
-    es.acc["escaped_w"] = 2**60 + 3
+    es.acc.fluence[0, 0, 0] = 2**62 + 1  # beyond float64's 53 bits
+    es.acc = es.acc._replace(escaped=torch.tensor(2**60 + 3))
     state = es.state_dict()
     for k in ("energy", "exitance", "det_w", "det_ppath", "escaped_w",
               "timed_out_w", "launched_w", "n_launched"):
@@ -137,6 +137,6 @@ def test_campaign_state_is_int64(tmp_path):
         vol, V.b1_config(), 300, 100, n_lanes=64).state_dict())
     restored = ElasticSimulator(vol, V.b1_config(), 300, 100, n_lanes=64)
     restored.load_state_dict(got)
-    assert int(restored.acc["energy"][0, 0, 0]) == 2**62 + 1
-    assert restored.acc["escaped_w"] == 2**60 + 3
+    assert int(restored.acc.fluence[0, 0, 0]) == 2**62 + 1
+    assert int(restored.acc.escaped) == 2**60 + 3
     assert [c.start_id for c in restored.pending] == [0, 100, 200]

@@ -39,13 +39,15 @@ beyond the fixed-point range adds nothing and raises through
 ``check_errors``; ``simulate_many`` gives each scenario the bits of
 its own ``simulate_one``.
 
-Above one device: two shards of one card (each in a host thread and a
-stream of its own) give one run's int64 totals bit for bit; a card
-shard beside a CPU shard is held to the tolerance between the two
-arithmetics (CPU and CUDA float32 functions differ in the last bit, so
-a photon may take another path on each); a pool that loses its CPU
-worker moves that worker's chunks to the card; and two threads
-launching on one card at once each see only their own error flags.
+Above one device: two shards of one card (each in a host thread of its
+own) give one run's int64 totals bit for bit; a CPU shard beside a card
+shard is held to the same photons run on the card within the tolerance
+between the two arithmetics (CPU and CUDA float32 functions differ in
+the last bit, so a photon may take another path on each); a pool that
+loses its CPU worker moves that worker's chunks to the card; a pool
+whose card worker cannot build its kernel fails instead of moving the
+work to the CPU; and two threads launching on one card at once each see
+only their own error flags.
 """
 
 import dataclasses
@@ -648,16 +650,42 @@ def test_pool_rebinds_the_chunks_of_a_lost_device_type(cuda_device):
 
 
 @pytest.mark.cuda
+def test_pool_fails_when_the_card_kernel_cannot_build(cuda_device,
+                                                      monkeypatch):
+    """A card worker and a CPU worker, and the kernel's library cannot
+    be built: the run raises the build error instead of retrying the
+    card's chunks and rebinding them to the CPU's plain version."""
+    from repro_torch.resilience import DevicePool, DeviceSpec
+
+    def fail(groups):
+        raise kernel.KernelError("nvcc failed (1): injected by the test")
+
+    monkeypatch.setattr(kernel, "_LIBRARIES", {})
+    monkeypatch.setattr(kernel, "_load_library", fail)
+    vol = V.benchmark_b1((16, 16, 16))
+    cfg = dataclasses.replace(V.b1_config(), steps_per_round=8,
+                              n_time_gates=3, tmax_ns=0.3)
+    specs = [DeviceSpec(device=cuda_device, n_lanes=256, label="card"),
+             DeviceSpec(device="cpu", n_lanes=256, label="cpu")]
+    pool = DevicePool(vol, cfg, specs)
+    with pytest.raises(kernel.KernelError, match="injected by the test"):
+        pool.run_fixed(2_000, 250, seed=5, deadline_s=120)
+    assert pool.workers[0].health != "quarantined"
+
+
+@pytest.mark.cuda
 def test_card_and_cpu_shards_hold_the_tolerance_of_two_arithmetics(
         cuda_device):
     """CPU and CUDA float32 functions differ in the last bit for some
     arguments, so a photon may take another path on each (the chip smoke
     run measured 37.6% of the fluence cells and 70.3% of the exitance
     bins equal on 12,208 photons of B1 at 60^3).  A ``[cuda:0, cpu]``
-    run is held to the tolerance between two arithmetics: photons and
-    launched weight exact, totals within 2e-3 of the launched weight,
-    fluence within 1e-3 of the largest cell, against one run on the
-    card; the card's own shard bit-equal to that run's photons."""
+    run is held to the tolerance between two arithmetics, share by
+    share: the card's shard bit-equal to its photons run alone on the
+    card, and the CPU's shard against its photons run on the card,
+    photons and launched weight exact, totals within 2e-3 of the
+    share's launched weight, fluence within 1e-3 of the share's largest
+    cell; the merged run adds the two shares."""
     from repro_torch.core import multidevice as M
     vol = V.benchmark_b1((30, 30, 30))
     cfg = dataclasses.replace(V.b1_config(), steps_per_round=8)
@@ -666,18 +694,22 @@ def test_card_and_cpu_shards_hold_the_tolerance_of_two_arithmetics(
     parts = M.sharded_sim_fn(vol, cfg, [8192, 512], [cuda_device, "cpu"],
                              source=src)(counts, M.shard_offsets(counts), 5)
     assert parts[0].fluence.is_cuda and not parts[1].fluence.is_cuda
-    one = S.simulate_fixed(vol, cfg, 62_000, 8192, 5, source=src,
-                           device=cuda_device)
     card = S.simulate_fixed(vol, cfg, 60_000, 8192, 5, source=src,
                             device=cuda_device)
     for f, x in _int64_totals(card).items():
         assert torch.equal(_int64_totals(parts[0])[f], x), f
-    got, want = (S.to_sim_result(S.merge_fixed(p)) for p in (
-        parts, [one]))
-    assert int(got.n_launched) == int(want.n_launched) == 62_000
+    again = S.simulate_fixed(vol, cfg, 2_000, 8192, 5, source=src,
+                             device=cuda_device, id_offset=60_000)
+    got, want = (S.to_sim_result(S.merge_fixed([p])) for p in (
+        parts[1], again))
+    assert int(got.n_launched) == int(want.n_launched) == 2_000
     assert float(got.launched_w) == float(want.launched_w)
     for k in ("escaped_w", "timed_out_w"):
         assert abs(float(getattr(got, k)) - float(getattr(want, k))) <= \
-            2e-3 * 62_000, k
+            2e-3 * float(want.launched_w), k
     assert float((got.energy - want.energy).abs().max()) <= \
         1e-3 * float(want.energy.max())
+    merged = S.merge_fixed(parts)
+    assert int(merged.n_launched) == 62_000
+    assert torch.equal(merged.fluence, parts[0].fluence.cpu()
+                       + parts[1].fluence)

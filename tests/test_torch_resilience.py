@@ -186,19 +186,22 @@ def chunk():
 
 def test_validate_chunk_accepts_real_results_and_rejects_corruption(chunk):
     h = harvest_result(chunk)
-    assert h["energy"].dtype == np.int64 and isinstance(h["escaped_w"], int)
+    assert h.fluence.dtype == torch.int64 and h.fluence.device.type == "cpu"
+    assert int(h.det_rec_n) == h.det_rec.shape[0]
     assert validate_chunk(h, 300) == []
     bad = corrupt_harvest(h)
-    assert bad["energy"].flat[0] == np.iinfo(np.int64).min
+    assert int(bad.fluence.view(-1)[0]) == torch.iinfo(torch.int64).min
     assert any("negative" in e for e in validate_chunk(bad, 300))
     assert validate_chunk(h, 300) == []  # the corruption is on a copy
     assert any("assigned" in e for e in validate_chunk(h, 301))
-    neg = dict(h, exitance=h["exitance"] - 1)
+    neg = h._replace(exitance=h.exitance - 1)
     assert any("negative" in e for e in validate_chunk(neg, 300))
-    nan = dict(h, escaped_w=float("nan"))
-    assert any("non-finite" in e for e in validate_chunk(nan, 300))
+    # a scalar total past the range wraps negative too
+    wrapped = h._replace(escaped=torch.tensor(torch.iinfo(torch.int64).min))
+    assert any("escaped contains a negative" in e
+               for e in validate_chunk(wrapped, 300))
     # a broken energy balance, every total still in range
-    skew = dict(h, launched_w=h["launched_w"] * 3 // 2)
+    skew = h._replace(launched_w=h.launched_w * 3 // 2)
     assert any("residue" in e for e in validate_chunk(skew, 300))
 
 
@@ -269,14 +272,100 @@ def test_pool_poison_chunk_quarantine(one_run):
     assert int(res.n_launched) == 600  # missing, never silently wrong
 
 
+def _failing_worker(pool, label, run):
+    """Make the round loop of worker ``label`` call ``run()`` in its
+    thread instead of simulating."""
+    built = pool._fn_for
+
+    def fn_for(source, w):
+        return ((lambda *a, **k: run()) if w.label == label
+                else built(source, w))
+
+    pool._fn_for = fn_for
+
+
 def test_pool_real_dispatch_error_is_retried_and_surfaced(one_run):
+    """An error in a worker's thread that a retry may cure (here a
+    RuntimeError, as a lost device raises) is retried up to the policy's
+    cap and surfaced as the quarantined chunk's cause."""
     vol, cfg, _ = one_run
-    pool = DevicePool(vol, cfg, [_cpu(mode="definitely-not-real")],
+    pool = DevicePool(vol, cfg, [_cpu("lost")],
                       retry_policy=RetryPolicy(max_attempts=2))
+
+    def lost():
+        raise RuntimeError("device lost")
+
+    _failing_worker(pool, "lost", lost)
     with pytest.raises(ChunkQuarantinedError) as ei:
         pool.run(100, 100, seed=SEED, deadline_s=60)
-    assert isinstance(ei.value.__cause__, ValueError)
-    assert "definitely-not-real" in str(ei.value.__cause__)
+    assert isinstance(ei.value.__cause__, RuntimeError)
+    assert "device lost" in str(ei.value.__cause__)
+
+
+def _raise(error):
+    def run():
+        raise error
+    return run
+
+
+def _library_fails(monkeypatch):
+    """The kernel's library cannot be built: its first launch raises."""
+    from repro_torch.kernels.photon_step import photon_step as K
+
+    def fail(groups):
+        raise K.KernelError("nvcc failed (1): injected by the test")
+
+    monkeypatch.setattr(K, "_LIBRARIES", {})
+    monkeypatch.setattr(K, "_load_library", fail)
+    return lambda: K._library(0)
+
+
+def _launch_fails(monkeypatch):
+    from repro_torch.kernels.photon_step.photon_step import KernelError
+    return _raise(KernelError("photon_step kernel launch failed: "
+                              "injected by the test (1)"))
+
+
+def _overflow_flagged(monkeypatch):
+    return _raise(OverflowError("a photon-step launch met a fixed-point "
+                                "deposit or sum beyond 2**63 - 1 units "
+                                "(injected by the test)"))
+
+
+def _jac_col_flagged(monkeypatch):
+    return _raise(ValueError("a photon-step launch got a jac_col outside "
+                             "[0, jac_cols) (injected by the test)"))
+
+
+@pytest.mark.parametrize("make_run", [_library_fails, _launch_fails,
+                                      _overflow_flagged, _jac_col_flagged],
+                         ids=["build", "launch", "overflow", "jac_col"])
+def test_pool_raises_kernel_errors_instead_of_moving_the_work(
+        one_run, monkeypatch, make_run):
+    """The kernel's build and launch errors and what its launches flag
+    end the run: a healthy worker beside the failing one must not take
+    its chunks (in a fleet of a card and a CPU, that would carry the
+    card's work on in the plain version).  The first worker stands in
+    for the card, its round loop failing as the kernel would."""
+    vol, cfg, _ = one_run
+    pool = DevicePool(vol, cfg, [_cpu("card", n_lanes=64), _cpu("cpu")],
+                      retry_policy=RetryPolicy(max_attempts=12,
+                                               quarantine_after=50))
+    _failing_worker(pool, "card", make_run(monkeypatch))
+    with pytest.raises((RuntimeError, OverflowError, ValueError),
+                       match="injected by the test") as ei:
+        pool.run(800, 100, seed=SEED, deadline_s=120)
+    assert not isinstance(ei.value, ChunkQuarantinedError)
+    assert pool.workers[0].failures == 0  # raised, not retried
+
+
+def test_pool_raises_refused_arguments_instead_of_retrying(one_run):
+    """A worker whose round loop refuses its arguments (an unknown mode)
+    raises at once: another attempt would fail the same way."""
+    vol, cfg, _ = one_run
+    pool = DevicePool(vol, cfg, [_cpu(mode="definitely-not-real"), _cpu()])
+    with pytest.raises(ValueError, match="definitely-not-real"):
+        pool.run(100, 100, seed=SEED, deadline_s=60)
 
 
 def test_pool_exhausted_when_every_worker_drops(one_run):
