@@ -75,12 +75,13 @@ script exits non-zero and prints no result:
            sequential, the cache counters and spans from a Tracer, and
            one mid-run batched launch of each fleet held bit-equal to
            the plain version, timed, with its bound
-  multidevice  the paths above one device, each against an earlier
-           phase's result: B2 (10^7 photons) in two shards of the card
-           (0.7 / 0.3), every int64 total bit-equal to the main run;
-           the paper's mixed fleet on B1: card and CPU fitted by
-           pilots, partitioned S1-S3, the S3 partition run over
-           [cuda:0, cpu]
+  multidevice  the paths above one device, each device in a process
+           of its own (core/procs.py; every process warm before a timed
+           run), each against an earlier phase's result: B2 (10^7
+           photons) in two shards of the card (0.7 / 0.3), every int64
+           total bit-equal to the main run; the paper's mixed fleet on
+           B1: card and CPU fitted by pilots in their processes,
+           partitioned S1-S3, the S3 partition run over [cuda:0, cpu]
            (shares, seconds, predicted and measured makespans); the
            CPU's photons run again on the card, cell by cell (CPU
            against CUDA bits); the resilience pool on B1 (2 10^6
@@ -88,8 +89,12 @@ script exits non-zero and prints no result:
            under a seeded chaos schedule, bit-equal to one run; the
            optode sweep over a mesh of two (each scenario bit-equal to
            its own simulate_one) and the detect run's replay over a
-           mesh of two (every output bit-equal); each line with the
-           card's name and power limit
+           mesh of two (every output bit-equal); the phase's seconds
+           and its processes; each line with the card's name and power
+           limit
+  lint     both tiers of the port's lint on this tree (clean), and the
+           lint's ``sim`` target recorded once more with its round loop
+           on the card: device operations and host reads a round
   kernels  one entry per kernel variant the paths launch (launches in
            the main, detect and scenario runs, error against the plain
            version, times and bound at the shapes those runs give the
@@ -189,19 +194,21 @@ DETECT_ARGV = ["--bench", "B2", "--photons", str(PHOTONS), "--lanes",
 # 0.3; the mixed CPU+GPU fleet on B1 (the volume of the reference's
 # Fig. 3b pilot; on B2 the CPU's plain version takes over 15 s for the
 # longest trajectories alone), fitted by pilots (the card at the paper's
-# 10^6 and 5 10^6 photons, the CPU, at CPU_LANES lanes, at one and four
-# times its lanes: a CPU pilot's wall is its longest trajectory's
-# segments, ~8 s on the card machine's CPU whatever its photons, so
-# smaller pilots would not be quicker) and given the budget whose S3
+# 10^6 and 5 10^6 photons, the CPU, at CPU_LANES lanes, at one and
+# sixteen times its lanes: a CPU pilot's wall is its longest trajectory's
+# segments, ~7.5 s on the card machine's CPU whatever its photons, so
+# the second pilot needs ~6 s of photons beyond it for the slope to
+# stand above that spread; at four times, PR 17 c5 fitted a negative
+# slope) and given the budget whose S3
 # makespan is the CPU's fitted overhead plus MIXED_MARGIN_S, within
-# MIXED_MAKESPAN_S (the card's share runs ~4x slower beside the CPU's
-# thread, so the margin sets most of the phase's time); the pool
+# MIXED_MAKESPAN_S (the margin sets most of the phase's time); the pool
 # on B1 with POOL_PHOTONS in chunks of POOL_CHUNK, three workers on the
 # card, one throttled, under a seeded chaos schedule
 SHARD_SPLIT = 0.7
 CPU_LANES = 2048
 GPU_PILOT = (1_000_000, 5_000_000)
-CPU_PILOT = (CPU_LANES, 4 * CPU_LANES)
+GPU_PILOT_REPEATS = 3
+CPU_PILOT = (CPU_LANES, 16 * CPU_LANES)
 MIXED_MARGIN_S, MIXED_MAKESPAN_S = 1.5, (4.0, 15.0)
 POOL_PHOTONS, POOL_CHUNK = 2_000_000, 250_000
 POOL_THROTTLE_S, POOL_TIMEOUT_S = 0.5, 0.3
@@ -615,6 +622,7 @@ def multidevice_phase(card, main_b2, fleet, fleet_alone, records, replay,
     from repro_torch.core import analysis as A
     from repro_torch.core import loadbalance as LB
     from repro_torch.core import multidevice as M
+    from repro_torch.core import procs
     from repro_torch.core import simulator as S
     from repro_torch.launch import simulate as launch
     from repro_torch.resilience import (DevicePool, DeviceSpec,
@@ -623,6 +631,7 @@ def multidevice_phase(card, main_b2, fleet, fleet_alone, records, replay,
 
     on_card = device == "cuda"
     gpu, cpu = torch.device(device, 0), torch.device("cpu")
+    t_phase = time.perf_counter()
 
     def sync():
         if on_card:
@@ -640,10 +649,18 @@ def multidevice_phase(card, main_b2, fleet, fleet_alone, records, replay,
         check(n > 0 or not on_card, f"{what}: no kernel launched")
         return n
 
+    def shard_spans(tracer):
+        return sorted((e for e in tracer.events if e.name == "shard"),
+                      key=lambda e: e.args["shard"])
+
     def shard_seconds(tracer):
-        spans = sorted((e for e in tracer.events if e.name == "shard"),
-                       key=lambda e: e.args["shard"])
-        return [e.dur for e in spans]
+        return [e.dur for e in shard_spans(tracer)]
+
+    # every process the phase uses (two shards of the card and the pool's
+    # third worker, the fleet's CPU), started at once
+    start_s = timed(lambda: procs.run_all([
+        procs.Job(d, slot, "call", None, (os.getpid, ()))
+        for d, slot in ((gpu, 0), (gpu, 1), (gpu, 2), (cpu, 0))]))[1]
 
     # 1. two shards of one card against the main phase's B2 run
     vol2, cfg2 = launch.get_bench("B2", SIZE, gpu)
@@ -652,6 +669,10 @@ def multidevice_phase(card, main_b2, fleet, fleet_alone, records, replay,
     counts = [first, PHOTONS - first]
     tracer = T.Tracer()
     shard_fn = M.sharded_sim_fn(vol2, cfg2, LANES, [gpu, gpu], tracer=tracer)
+    # each shard's process started, its libraries loaded and its round
+    # loop built, as the single run's were, before the timed run
+    _, warm_s = timed(lambda: shard_fn([LANES] * 2, [0, LANES], SEED))
+    tracer.events.clear()
     K.reset_launches()
     merged, wall = timed(lambda: S.merge_fixed(
         shard_fn(counts, M.shard_offsets(counts), SEED)))
@@ -670,24 +691,39 @@ def multidevice_phase(card, main_b2, fleet, fleet_alone, records, replay,
          single_seconds=main_b2.seconds,
          single_photons_per_ms=PHOTONS / main_b2.seconds / 1e3,
          sharded_over_single=main_b2.seconds / wall,
+         warm_up_seconds=warm_s,
          steps=merged.steps.tolist(), kernel_launches=launched("sharded"),
          int64_totals_bit_equal_to_single=True)
 
-    # 2. the mixed CPU+GPU fleet on B1: pilots, S1-S3, the S3 partition
+    # 2. the mixed CPU+GPU fleet on B1: pilots, S1-S3, the S3 partition;
+    # each device pilots in the process its share runs in, the other
+    # shard given no photons
     vol1, cfg1 = launch.get_bench("B1", SIZE, gpu)
     cfg1 = dataclasses.replace(cfg1, steps_per_round=K_MAIN)
+    tracer = T.Tracer()
+    mixed_fn = M.sharded_sim_fn(vol1, cfg1, [LANES, CPU_LANES], [gpu, cpu],
+                                tracer=tracer)
 
-    def pilot_run(d, lanes):
-        fn = S.build_fixed_fn(vol1.shape, vol1.unitinmm, cfg1, lanes,
-                              device=d)
-        labels, media = vol1.labels.reshape(-1).to(d), vol1.media.to(d)
-        return lambda n: timed(lambda: fn(labels, media, int(n), SEED))[1]
+    def pilot_run(i, repeats=1):
+        def run(n):
+            counts = [0, 0]
+            counts[i] = int(n)
+            best = math.inf
+            for _ in range(repeats):
+                tracer.events.clear()
+                mixed_fn(counts, [0, 0], SEED)
+                best = min(best, shard_seconds(tracer)[i])
+            return best
+        return run
 
     sms = (torch.cuda.get_device_properties(gpu).multi_processor_count
            if on_card else 1)
-    models = [LB.run_pilot(pilot_run(gpu, LANES), *GPU_PILOT,
+    pilot_run(0)(LANES)  # the processes warm
+    # the card's pilots are quick: the best of GPU_PILOT_REPEATS each (one
+    # slow first pilot fitted the card at twice its rate, PR 17 c2)
+    models = [LB.run_pilot(pilot_run(0, GPU_PILOT_REPEATS), *GPU_PILOT,
                            name=device_label(gpu), cores=sms),
-              LB.run_pilot(pilot_run(cpu, CPU_LANES), *CPU_PILOT,
+              LB.run_pilot(pilot_run(1), *CPU_PILOT,
                            name="cpu", cores=os.cpu_count() or 1)]
     lo, hi = MIXED_MAKESPAN_S
     makespan = min(hi, max(lo, models[1].t0 + MIXED_MARGIN_S))
@@ -700,9 +736,7 @@ def multidevice_phase(card, main_b2, fleet, fleet_alone, records, replay,
           f"the CPU's S3 share is {counts[1]} photons, "
           f"{models[1].predict(counts[1]):.1f} s by its fit")
     offsets = M.shard_offsets(counts)
-    tracer = T.Tracer()
-    mixed_fn = M.sharded_sim_fn(vol1, cfg1, [LANES, CPU_LANES], [gpu, cpu],
-                                tracer=tracer)
+    tracer.events.clear()
     K.reset_launches()
     shards, wall = timed(lambda: mixed_fn(counts, offsets, SEED))
     mixed_launches = launched("mixed fleet")
@@ -725,8 +759,10 @@ def multidevice_phase(card, main_b2, fleet, fleet_alone, records, replay,
          measured_over_predicted_s3=wall / predicted["S3"],
          shares=[{"device": m.name, "photons": n, "seconds": t,
                   "photons_per_ms": n / t / 1e3,
-                  "predicted_s": m.predict(n)}
-                 for m, n, t in zip(models, counts, seconds)],
+                  "predicted_s": m.predict(n),
+                  "threads": e.args["threads"]}
+                 for m, n, t, e in zip(models, counts, seconds,
+                                       shard_spans(tracer))],
          residue_frac=bal["residue_frac"], kernel_launches=mixed_launches)
 
     # 3. the CPU shard's photons again on the card, cell by cell
@@ -792,6 +828,9 @@ def multidevice_phase(card, main_b2, fleet, fleet_alone, records, replay,
              for i in range(2)] + [DeviceSpec(
                  device=gpu, n_lanes=LANES, label="lag",
                  throttle_s=POOL_THROTTLE_S)]
+    # the workers' processes warm: a fault-free run of one chunk each
+    DevicePool(vol1, cfg1, specs).run_fixed(3 * LANES, LANES, seed=SEED,
+                                            deadline_s=300)
     injector = FaultInjector(**POOL_CHAOS)
     pool = DevicePool(vol1, cfg1, specs, fault_injector=injector,
                       chunk_timeout_s=POOL_TIMEOUT_S,
@@ -828,8 +867,8 @@ def multidevice_phase(card, main_b2, fleet, fleet_alone, records, replay,
         cache=SC.CompileCache()))
     for i, (got, want) in enumerate(zip(many, fleet_alone)):
         for name, x, y in zip(got._fields, got, want):
-            same = (torch.equal(x, y) if isinstance(x, torch.Tensor)
-                    else x == y)
+            same = (torch.equal(x.cpu(), y.cpu())
+                    if isinstance(x, torch.Tensor) else x == y)
             check(same, f"mesh scenario {i}: {name} differs from its own "
                   f"simulate_one")
     emit("multidevice", item="scenario mesh", card=card,
@@ -851,6 +890,51 @@ def multidevice_phase(card, main_b2, fleet, fleet_alone, records, replay,
          seconds=wall, records_per_ms=records.shape[0] / wall / 1e3,
          kernel_launches=launched("replay mesh"),
          every_output_bit_equal=True)
+    emit("multidevice", item="phase", card=card,
+         seconds=time.perf_counter() - t_phase, processes_start_s=start_s,
+         processes={f"{lab}/{slot}": p.pid
+                    for (lab, slot), p in procs.children().items()},
+         parent_pid=os.getpid())
+
+
+def lint_phase(card) -> None:
+    """Both tiers of the port's lint on this tree (``python -m
+    repro_torch.lint --tier all``), then the ``sim`` target's run once
+    more with its round loop on the card: its device operations and
+    host reads a round."""
+    from repro_torch.lint import run_lint
+    from repro_torch.lint.baseline import baseline_path, load_baseline
+    from repro_torch.lint.traced import (allowlist_path, load_allowlist,
+                                         run_traced_lint)
+    from repro_torch.lint.traced.targets import make_sim
+
+    root = pathlib.Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    reports = {"ast": run_lint(root, baseline=load_baseline(
+        baseline_path(root))),
+        "traced": run_traced_lint(root, allowlist=load_allowlist(
+            allowlist_path(root)))}
+    for tier, rep in reports.items():
+        check(rep.clean, f"lint, {tier} tier: "
+              f"{[f.format() for f in rep.findings]}")
+    lint_s = time.perf_counter() - t0
+    K.reset_launches()
+    rounds = make_sim("cuda")(None).per_round()
+    check(rounds["rounds"] > 0 and set(rounds["host_reads"]) == {1},
+          f"the round loop on the card reads the host {rounds['host_reads']} "
+          f"times a round")
+    check(launched_kernels() >= rounds["rounds"],
+          "the recorded run on the card launched no kernel a round")
+    ops = sorted(rounds["device_ops"])
+    emit("lint", card=card, seconds=lint_s,
+         ast={"modules": reports["ast"].n_modules,
+              "pragmas": reports["ast"].suppressed_pragma},
+         traced={"targets": reports["traced"].n_modules,
+                 "allowed": reports["traced"].suppressed_pragma},
+         rounds=rounds["rounds"], device_ops_a_round=ops[len(ops) // 2],
+         device_ops_range=[ops[0], ops[-1]],
+         host_reads_a_round=max(rounds["host_reads"]),
+         kernel_launches=launched_kernels())
 
 
 def main() -> None:
@@ -1631,6 +1715,9 @@ def main() -> None:
         card, main_runs["B2"], fleet=fleets["optode sweep"][0],
         fleet_alone=alone_runs["optode sweep"], records=rec,
         replay=rep_detect, cfg_detect=cfg_detect)
+
+    # --- lint: both tiers, and the round's operations on the card --------------
+    lint_phase(card)
 
     # --- kernel table ---------------------------------------------------------
     # one kernel source, two instantiations: its times and bound are the

@@ -26,7 +26,7 @@ import torch
 
 _STEP_RE = re.compile(r"step_(\d+)\.npz$")
 # dtypes an npz holds natively; others are stored as float32
-_NATIVE = (np.float32, np.float64, np.int32, np.int64, np.uint32, np.uint64,
+_NATIVE = (np.float32, np.float64, np.int32, np.int64, np.uint32, np.uint64,  # reprolint: disable=REP301 - a dtype the checkpointer stores as is, no arithmetic
            np.int8, np.uint8, np.int16, np.uint16, np.bool_, np.float16)
 
 

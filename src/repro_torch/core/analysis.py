@@ -58,7 +58,7 @@ def tpsf(result: SimResult, cfg: SimConfig) -> tuple[np.ndarray, np.ndarray]:
     Returns ``(times_ns, tpsf)``: the (ntg,) gate-centre times and the
     (n_det, ntg) detected weight per unit launched weight per ns.
     """
-    det_w = _host(result.det_w).astype(np.float64)
+    det_w = _host(result.det_w).astype(np.float64)  # reprolint: disable=REP301 - host-side analysis sums in float64
     if det_w.size and det_w.shape[1] != cfg.n_time_gates:
         raise ValueError(
             f"result has {det_w.shape[1]} gates but cfg.n_time_gates="
@@ -71,8 +71,8 @@ def detector_mean_ppath(result: SimResult) -> np.ndarray:
     """Weight-weighted mean per-medium partial pathlength (mm) of the
     detected photons, ``(n_det, n_media)`` (MCX's convention); rows of
     detectors that caught nothing are zero."""
-    det_ppath = _host(result.det_ppath).astype(np.float64)
-    tot_w = _host(result.det_w).astype(np.float64).sum(axis=1, keepdims=True)
+    det_ppath = _host(result.det_ppath).astype(np.float64)  # reprolint: disable=REP301 - host-side analysis sums in float64
+    tot_w = _host(result.det_w).astype(np.float64).sum(axis=1, keepdims=True)  # reprolint: disable=REP301 - host-side analysis sums in float64
     return np.where(tot_w > 0, det_ppath / np.maximum(tot_w, 1e-20), 0.0)
 
 
@@ -85,12 +85,12 @@ def rescale_detected(result: SimResult, volume: Volume,
     run, from the mean partial pathlengths:
     ``w' = w * exp(-sum_m dmua_m * <L_m>)``.  Returns ``(n_det,)``.
     """
-    new_mua = np.asarray(new_mua, np.float64)
-    old_mua = _host(volume.media).astype(np.float64)[:, 0]
+    new_mua = np.asarray(new_mua, np.float64)  # reprolint: disable=REP301 - host-side analysis sums in float64
+    old_mua = _host(volume.media).astype(np.float64)[:, 0]  # reprolint: disable=REP301 - host-side analysis sums in float64
     if new_mua.shape != old_mua.shape:
         raise ValueError(f"new_mua must have shape {old_mua.shape}")
     mean_l = detector_mean_ppath(result)            # (n_det, n_media)
-    tot_w = _host(result.det_w).astype(np.float64).sum(axis=1)
+    tot_w = _host(result.det_w).astype(np.float64).sum(axis=1)  # reprolint: disable=REP301 - host-side analysis sums in float64
     return tot_w * np.exp(-mean_l @ (new_mua - old_mua))
 
 
@@ -105,7 +105,7 @@ def jacobian_medium_sums(jacobian, volume: Volume,
     ``(n_det, n_media)`` result equals the forward run's ``det_ppath``:
     each detected packet adds ``w_exit * L_m`` to both.
     """
-    jac = np.asarray(jacobian, np.float64)
+    jac = np.asarray(jacobian, np.float64)  # reprolint: disable=REP301 - host-side analysis sums in float64
     if jac.ndim not in (4, 5):
         raise ValueError(
             f"jacobian must be (nx, ny, nz, n_det[, ntg]), got shape "
@@ -117,7 +117,7 @@ def jacobian_medium_sums(jacobian, volume: Volume,
     n_media = volume.media.shape[0]
     trail = jac.shape[3:]                      # (n_det,) or (n_det, ntg)
     flat = jac.reshape(-1, *trail)
-    out = np.zeros(trail + (n_media,), np.float64)
+    out = np.zeros(trail + (n_media,), np.float64)  # reprolint: disable=REP301 - host-side analysis sums in float64
     for m in range(n_media):
         out[..., m] = flat[labels == m].sum(axis=0)
     if jac.ndim == 5 and not per_gate:
@@ -129,7 +129,7 @@ def energy_balance(result: SimResult) -> dict[str, float]:
     """Launched = absorbed + escaped + timed_out (+ roulette residue),
     summed in float64 on the host.  ``residue_frac`` measures only the
     statistical Russian-roulette residue."""
-    absorbed = float(_host(result.energy).sum(dtype=np.float64))
+    absorbed = float(_host(result.energy).sum(dtype=np.float64))  # reprolint: disable=REP301 - host-side analysis sums in float64
     escaped = float(_host(result.escaped_w))
     launched = float(_host(result.launched_w))
     timed_out = float(_host(result.timed_out_w))

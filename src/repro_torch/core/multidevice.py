@@ -1,22 +1,24 @@
 """Multi-device photon simulation on one host.
 
 Maps the paper's heterogeneous multi-device execution (Fig. 1, Fig. 3b/c)
-onto a list of torch devices, driven by one process:
+onto a list of torch devices, each device in a process of its own
+(``core.procs``: spawned children, reused across calls):
 
   * :func:`simulate_sharded`: each device of a mesh (a sequence of torch
     devices, e.g. ``[cuda:0, cpu]`` or ``["cpu"] * 4``; a device may
-    appear more than once) simulates a (possibly unequal) slice of the
-    photon budget, the device-level load-balancing partition, in a
-    host thread of its own.  The shards' int64 fixed-point totals are
-    added on the host (``simulator.merge_fixed``), which takes the place
-    of the reference's one ``psum``, and converted to float32 once.
-    Because a photon's path depends only on ``(seed, global id)`` and
-    each deposit is rounded once, the result has the bits of one run
-    over the same photons on one device of the same type, whatever the
-    partition, lane counts or mode.
+    appear more than once, and then has a process for each place)
+    simulates a (possibly unequal) slice of the photon budget, the
+    device-level load-balancing partition.  The shards' int64
+    fixed-point totals come back to the calling process and are added
+    there (``simulator.merge_fixed``), which takes the place of the
+    reference's one ``psum``, and converted to float32 once.  Because a
+    photon's path depends only on ``(seed, global id)`` and each deposit
+    is rounded once, the result has the bits of one run over the same
+    photons on one device of the same type, whatever the partition,
+    lane counts or mode.
   * :func:`sharded_replay_fn`: a replay's record batches split over the
-    mesh, each device adding into its own int64 Jacobian, which are
-    added once at the end.
+    mesh, each device's process adding into its own int64 Jacobian,
+    which cross once and are added at the end.
   * :class:`ChunkScheduler`: dynamic work-stealing over photon chunks;
     the runtime analogue of the paper's "host waits for all devices"
     barrier, without the straggler penalty: fast devices pull more
@@ -25,41 +27,40 @@ onto a list of torch devices, driven by one process:
     counter-based RNG keys photons by *global id*, so a chunk lost to a
     device failure is re-simulated bit-identically elsewhere, and a
     checkpoint is just (accumulated int64 totals + chunk cursor).
+
+A mesh of one device runs in the calling process, as a single run does.
 """
 
 from __future__ import annotations
 
-import concurrent.futures
 import dataclasses
-import functools
 import json
-import threading
 import time
 from typing import Callable, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch.core import procs
 from repro_torch.core import simulator as S
 from repro_torch.core.loadbalance import DeviceModel
-from repro_torch.core.rng import split_id64
 from repro_torch.core.volume import SimConfig, Volume
-from repro_torch.detectors import as_detectors, det_geometry, validate_detectors
+from repro_torch.detectors import as_detectors, validate_detectors
 from repro_torch.kernels.photon_step.ops import (resolve_device,
                                                  visible_devices)
-from repro_torch.kernels.photon_step.photon_step import check_errors
 from repro_torch.resilience import (DevicePool, DeviceSpec, FaultInjector,
                                     InjectedFault, RetryPolicy,
                                     corrupt_harvest, harvest_result,
                                     validate_chunk)
-from repro_torch.resilience.pool import (add_fixed, fixed_from_state,
-                                         fixed_state, zero_fixed)
+from repro_torch.resilience.pool import (_engine, add_fixed,
+                                         fixed_from_state, fixed_state,
+                                         zero_fixed)
 from repro_torch.sources import as_source
 from repro_torch.telemetry.trace import device_label
 
 
 # ---------------------------------------------------------------------------
-# a mesh of devices, one host thread a device
+# a mesh of devices, one process a device
 # ---------------------------------------------------------------------------
 
 def mesh_devices(mesh) -> list[torch.device]:
@@ -69,30 +70,6 @@ def mesh_devices(mesh) -> list[torch.device]:
     if not devices:
         raise ValueError("a mesh needs at least one device")
     return devices
-
-
-def run_on_threads(calls: Sequence[Callable]) -> list:
-    """Run each ``call(cancel)`` and return their results in order: one
-    call runs in the calling thread (``cancel`` None), several each in
-    a host thread of its own.  When one raises, ``cancel`` (a
-    ``threading.Event``) is set so the others' round loops stop at their
-    next round, and the first error is raised once every thread has
-    ended."""
-    if len(calls) == 1:
-        return [calls[0](None)]
-    cancel = threading.Event()
-    with concurrent.futures.ThreadPoolExecutor(
-            max_workers=len(calls), thread_name_prefix="shard") as ex:
-        futures = [ex.submit(call, cancel) for call in calls]
-        for f in concurrent.futures.as_completed(futures):
-            if f.exception() is not None:
-                cancel.set()
-    errors = [f.exception() for f in futures if f.exception() is not None]
-    first = next((e for e in errors if not isinstance(e, S.RunCancelled)),
-                 errors[0] if errors else None)
-    if first is not None:
-        raise first
-    return [f.result() for f in futures]
 
 
 # ---------------------------------------------------------------------------
@@ -116,47 +93,42 @@ def sharded_sim_fn(volume: Volume, cfg: SimConfig, n_lanes, mesh,
     Returns ``fn(counts, offsets, seed) -> list[FixedResult]``: shard
     ``i`` runs ``counts[i]`` photons with the global ids from
     ``offsets[i]`` (64-bit Python ints) on ``mesh[i]``, each shard's
-    round loop in its own host thread, and returns its fixed-point
-    result on its device; ``simulator.merge_fixed`` adds them.  The
-    volume's labels and media are copied to each device once.
+    round loop in its device's process, and returns its fixed-point
+    result (on the CPU; on its device for a mesh of one);
+    ``simulator.merge_fixed`` adds them.  Each process builds its round
+    loop and copies the volume's labels and media to its device once.
     ``n_lanes`` is one lane count for every shard or one a shard (the
     bits do not depend on it).  ``record_detected`` gives every shard
     its own record buffer of that many rows.  ``tracer`` (a
     ``repro_torch.telemetry.Tracer``) records one ``shard`` span a
-    shard, tagged with its device, photons and index (ended without a
-    device synchronisation, which would wait for the other shards on the
-    same card: the round loop's last host read ends the shard's work).
+    shard, tagged with its device, photons, index and the threads its
+    process ran on, and lasting the
+    shard's wall in its process (the round loop's last host read ends
+    the shard's work).
     """
     devices = mesh_devices(mesh)
     lanes = _per_shard(n_lanes, len(devices))
-    fns = [S.build_fixed_fn(volume.shape, volume.unitinmm, cfg, n, mode,
-                            source, d, detectors, record_detected)
-           for d, n in zip(devices, lanes)]
-    inputs = {d: (volume.labels.reshape(-1).to(d), volume.media.to(d))
-              for d in devices}
-
-    def shard(i, count, offset, seed, cancel):
-        d = devices[i]
-        labels, media = inputs[d]
-        span = None
-        if tracer is not None:
-            span = tracer.span(
-                "shard", device=device_label(d),
-                engine="kernel" if d.type == "cuda" else "plain",
-                photons=int(count), shard=i)
-        res = fns[i](labels, media, int(count), seed,
-                     *split_id64(int(offset)), cancel=cancel)
-        if span is not None:
-            span.end()
-        return res
+    if mode not in S.MODES:
+        raise ValueError(f"unknown workload mode: {mode}")
+    works = [procs.sim_work(volume, cfg, n, mode, source, detectors,
+                            record_detected) for n in lanes]
+    slots = procs.slots(devices)
 
     def fn(counts, offsets, seed) -> list[S.FixedResult]:
         if len(counts) != len(devices) or len(offsets) != len(devices):
             raise ValueError(f"need one count and one offset for each of "
                              f"the {len(devices)} shards")
-        return run_on_threads([
-            functools.partial(shard, i, c, o, seed)
-            for i, (c, o) in enumerate(zip(counts, offsets))])
+        t0 = time.monotonic()
+        replies = procs.run_all([
+            procs.Job(d, s, "sim", w, (int(c), seed, int(o)))
+            for d, s, w, c, o in zip(devices, slots, works, counts,
+                                     offsets)])
+        if tracer is not None:
+            for i, (d, c, r) in enumerate(zip(devices, counts, replies)):
+                tracer.complete("shard", t0, r.wall_s,
+                                device=device_label(d), engine=_engine(d),
+                                photons=int(c), shard=i, threads=r.threads)
+        return [r.value for r in replies]
 
     return fn
 
@@ -216,20 +188,18 @@ def sharded_replay_fn(volume: Volume, cfg: SimConfig, detectors, mesh,
     """Build a two-pass replay over the devices of ``mesh``.
 
     The device-parallel half of ``repro_torch.replay.replay_jacobian``:
-    every device replays its own ``n_lanes``-lane slice of a record
-    batch in a host thread of its own and adds into its own int64
-    Jacobian total, which stays on its device for the whole replay.
-    Returns ``(run_batch, jacobian)``: ``run_batch(id_lo, id_hi,
-    jac_col, active, seed) -> (w_exit, gate, replayed_det)`` takes
-    ``len(mesh) * n_lanes`` lanes as numpy arrays (``replay``'s batch
-    arrays) and returns the per-record outputs in lane order as numpy;
-    ``jacobian()`` returns the sum of the totals (int64; on the device
-    itself for a mesh of one, else on the CPU), whose bits do not depend
-    on the split.  Each shard checks its launches' error flags after its
-    slice of a batch.
+    every device's process replays its own ``n_lanes``-lane slice of a
+    record batch and adds into its own int64 Jacobian total, which stays
+    on its device for the whole replay.  Returns ``(run_batch,
+    jacobian)``: ``run_batch(id_lo, id_hi, jac_col, active, seed) ->
+    (w_exit, gate, replayed_det)`` takes ``len(mesh) * n_lanes`` lanes
+    as numpy arrays (``replay``'s batch arrays) and returns the
+    per-record outputs in lane order as numpy; ``jacobian()`` ends the
+    replay and returns the sum of the totals (int64; on the device
+    itself for a mesh of one, else on the CPU, the cells each total
+    reached crossing once), whose bits do not depend on the split.  Each shard checks its
+    launches' error flags after its slice of a batch.
     """
-    from repro_torch.replay import _build_replay_fn
-
     dets = as_detectors(detectors)
     n_det = len(dets)
     if n_det == 0:
@@ -237,50 +207,35 @@ def sharded_replay_fn(volume: Volume, cfg: SimConfig, detectors, mesh,
                          "detectors")
     validate_detectors(dets, volume.shape)
     devices = mesh_devices(mesh)
-    ntg = int(cfg.n_time_gates)
-    jac_cols = n_det * ntg if gate_resolved else n_det
-    nx, ny, nz = volume.shape
-    nvox, n_media = nx * ny * nz, volume.media.shape[0]
+    slots = procs.slots(devices)
+    jac_cols = n_det * int(cfg.n_time_gates) if gate_resolved else n_det
     n_lanes = int(n_lanes)
+    work = procs.replay_work(volume, cfg, n_lanes, source, dets, jac_cols)
 
-    def zeros(d, *size):
-        return torch.zeros(size, dtype=torch.int64, device=d)
+    def each(op, args=lambda i: ()):
+        return [r.value for r in procs.run_all([
+            procs.Job(d, s, op, work, args(i))
+            for i, (d, s) in enumerate(zip(devices, slots))])]
 
-    shards = []
-    for d in devices:
-        fn = _build_replay_fn(volume.shape, volume.unitinmm, cfg, n_lanes,
-                              source, det_geometry(dets, d), jac_cols)
-        shards.append(dict(
-            fn=fn, device=d, labels=volume.labels.reshape(-1).to(d),
-            media=volume.media.to(device=d, dtype=torch.float32),
-            jac=zeros(d, nvox * jac_cols),
-            scratch=[zeros(d, nvox * ntg), zeros(d, nx * ny),
-                     zeros(d, n_det * ntg), zeros(d, n_det, n_media)]))
-
-    def one(i, id_lo, id_hi, col, active, seed, cancel):
-        sh, d = shards[i], shards[i]["device"]
-        part = slice(i * n_lanes, (i + 1) * n_lanes)
-        w, g, r = sh["fn"](
-            sh["labels"], sh["media"],
-            torch.tensor(id_lo[part].astype(np.int64), device=d),
-            torch.tensor(id_hi[part].astype(np.int64), device=d),
-            torch.tensor(col[part], device=d),
-            torch.tensor(active[part], device=d), seed, sh["jac"],
-            sh["scratch"])
-        if d.type == "cuda":
-            check_errors(d)  # this thread's launches
-        return w.cpu().numpy(), g.cpu().numpy(), r.cpu().numpy()
+    each("replay_open")
 
     def run_batch(id_lo, id_hi, col, active, seed):
-        outs = run_on_threads([
-            functools.partial(one, i, id_lo, id_hi, col, active, seed)
-            for i in range(len(shards))])
+        def part(i):
+            lanes = slice(i * n_lanes, (i + 1) * n_lanes)
+            return (id_lo[lanes], id_hi[lanes], col[lanes], active[lanes],
+                    seed)
+        outs = each("replay_batch", part)
         return tuple(np.concatenate(x) for x in zip(*outs))
 
     def jacobian() -> torch.Tensor:
-        if len(shards) == 1:
-            return shards[0]["jac"]
-        return sum(sh["jac"].cpu() for sh in shards)
+        if len(devices) == 1:
+            return each("replay_total")[0]
+        # each process sends the cells its shard reached; int64 adds
+        total = torch.zeros((volume.labels.numel() * jac_cols,),
+                            dtype=torch.int64)
+        for at, cells in each("replay_total", lambda i: ("cells",)):
+            total.index_add_(0, at, cells)
+        return total
 
     return run_batch, jacobian
 
@@ -309,7 +264,7 @@ class ChunkScheduler:
     The device-level generalization of the paper's *workgroup* dynamic
     load balancing: instead of fixing each device's share up front
     (S1-S3), devices pull fixed-size chunks from a shared queue as they
-    finish.  Each device runs its chunks in a host thread of its own, so
+    finish.  Each device runs its chunks in a process of its own, so
     while one device crunches chunk k the host hands k+1 to another.
 
     A front end over ``repro_torch.resilience.DevicePool``: a dispatch
@@ -412,12 +367,12 @@ class ElasticSimulator:
     ``validate_chunk`` merge guard rejects, and ``kill_after_merges``
     host crashes); ``checkpointer``/``checkpoint_every`` auto-save the
     campaign state every N merged chunks through the atomic
-    ``checkpoint.Checkpointer``.  Synchronous: each chunk runs to its
-    end in the calling thread.
+    ``checkpoint.Checkpointer``.  Synchronous: a round returns once each
+    of its chunks has ended.
 
     ``tracer`` (a ``repro_torch.telemetry.Tracer``) records one span per
-    chunk, ended after a device synchronisation, tagged with device,
-    engine and photon count.
+    chunk, lasting its wall in its process, tagged with device, engine
+    and photon count.
     """
 
     def __init__(self, volume: Volume, cfg: SimConfig, n_photons: int,
@@ -452,7 +407,10 @@ class ElasticSimulator:
         self.failures: dict[int, int] = {}   # chunk start_id -> attempts
         self.n_retries = 0
         self.acc = zero_fixed(volume, cfg, len(self.detectors))
-        self._fns: dict[torch.device, tuple] = {}
+        # what each device's process builds its round loop from
+        self._work = procs.sim_work(volume, cfg, self.n_lanes, "dynamic",
+                                    self.source, self.detectors,
+                                    self.record_detected)
 
     # -- execution ---------------------------------------------------------
 
@@ -462,20 +420,23 @@ class ElasticSimulator:
         """Assign up to one chunk per device; returns #chunks completed.
 
         ``devices`` defaults to every CUDA device (a machine without one
-        raises).  ``fail(chunk, device)`` simulates a device failure:
-        the chunk is re-queued instead of merged (used by tests and
-        chaos drills).  Failed and rejected chunks requeue at the *back*
-        of ``pending`` (RetryPolicy-capped, then quarantined to
-        ``self.skipped``) so a poison chunk cannot starve the rest of
-        the campaign.
+        raises).  The round's chunks run at once, each in its device's
+        process (one chunk runs in the calling process); ``max_chunks``
+        past the device count queues several on a device.  ``fail(chunk,
+        device)`` simulates a device failure: the chunk is re-queued
+        instead of merged (used by tests and chaos drills).  Failed and
+        rejected chunks requeue at the *back* of ``pending``
+        (RetryPolicy-capped, then quarantined to ``self.skipped``) so a
+        poison chunk cannot starve the rest of the campaign.
         """
         devices = (mesh_devices(devices) if devices is not None
                    else visible_devices("cuda"))
-        n_done = 0
+        slots = procs.slots(devices)
         batch = []
         while self.pending and len(batch) < (max_chunks or len(devices)):
             batch.append(self.pending.pop(0))
-        requeue = []
+        # each chunk's injected fault, or its job
+        fates, jobs = [], []
         for i, ch in enumerate(batch):
             dev = devices[i % len(devices)]
             attempt = self.failures.get(ch.start_id, 0)
@@ -492,7 +453,29 @@ class ElasticSimulator:
                         # the synchronous simulator has no speculation to
                         # overlap with: a straggler simply takes longer
                         time.sleep(delay)
-                harvest = harvest_result(self._run_chunk(ch, dev))
+            except InjectedFault as e:
+                fates.append(e)
+                continue
+            fates.append(len(jobs))
+            jobs.append(procs.Job(dev, slots[i % len(devices)], "sim",
+                                  self._work,
+                                  (ch.count, self.seed, ch.start_id)))
+        t0 = time.monotonic()
+        replies = procs.run_all(jobs) if jobs else []
+        n_done = 0
+        requeue = []
+        for ch, fate in zip(batch, fates):
+            try:
+                if isinstance(fate, InjectedFault):
+                    raise fate
+                job, reply = jobs[fate], replies[fate]
+                if self.tracer is not None:
+                    self.tracer.complete(
+                        "chunk", t0, reply.wall_s, device=job.device,
+                        engine=_engine(job.device), photons=ch.count,
+                        chunk_start=ch.start_id)
+                attempt = self.failures.get(ch.start_id, 0)
+                harvest = harvest_result(reply.value)
                 if self.injector is not None and \
                         self.injector.corrupts(ch.start_id, attempt):
                     harvest = corrupt_harvest(harvest)
@@ -532,31 +515,6 @@ class ElasticSimulator:
         while self.pending:
             self.run_round(devices)
         return self.result()
-
-    def _inputs(self, dev: torch.device) -> tuple:
-        """The round loop and the volume's labels and media on ``dev``."""
-        if dev not in self._fns:
-            vol = self.volume
-            self._fns[dev] = (
-                S.build_fixed_fn(vol.shape, vol.unitinmm, self.cfg,
-                                 self.n_lanes, "dynamic", self.source, dev,
-                                 self.detectors, self.record_detected),
-                vol.labels.reshape(-1).to(dev), vol.media.to(dev))
-        return self._fns[dev]
-
-    def _run_chunk(self, ch: Chunk, dev: torch.device) -> S.FixedResult:
-        fn, labels, media = self._inputs(dev)
-        span = None
-        if self.tracer is not None:
-            span = self.tracer.span(
-                "chunk", device=dev,
-                engine="kernel" if dev.type == "cuda" else "plain",
-                photons=ch.count, chunk_start=ch.start_id)
-        res = fn(labels, media, ch.count, self.seed,
-                 *split_id64(ch.start_id))
-        if span is not None:
-            span.end()
-        return res
 
     def _merge(self, ch: Chunk, harvest: S.FixedResult):
         """Merge one validated host-side harvest, then auto-checkpoint

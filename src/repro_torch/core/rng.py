@@ -162,11 +162,11 @@ def skip(state: torch.Tensor, n: int) -> torch.Tensor:
         return state
     shifts = torch.arange(32, device=state.device)
     bits = ((state[..., :, None] >> shifts) & 1).reshape(
-        *state.shape[:-1], 128).to(torch.float64)
+        *state.shape[:-1], 128).to(torch.float64)  # reprolint: disable=REP301 - GF(2) products of 0/1 values, exact in float64
     k = 0
     while n:
         if n & 1:
-            m = torch.as_tensor(_skip_matrix(k), dtype=torch.float64,
+            m = torch.as_tensor(_skip_matrix(k), dtype=torch.float64,  # reprolint: disable=REP301 - GF(2) products of 0/1 values, exact in float64
                                 device=state.device)
             # sums of at most 128 ones: exact in float64
             bits = (bits @ m.T) % 2

@@ -334,9 +334,10 @@ def build_round_loop(shape: tuple[int, int, int], unitinmm: float,
     ``(S, n_lanes)`` ids for ``(S, 1)`` int64 seeds, as a source's
     ``sample_staged`` on stacked staged parameters does.  Each scenario
     runs ``n_lanes`` lanes; the result of each is the same bits as the
-    scenario alone (S = 1).  ``cancel`` (a ``threading.Event``) is
-    tested at each round's host read: once it is set the run raises
-    :class:`RunCancelled`.
+    scenario alone (S = 1).  ``cancel`` (anything with ``is_set()``: a
+    ``threading.Event``, or a device process's cancel slot,
+    ``core.procs``) is tested at each round's host read: once it is set
+    the run raises :class:`RunCancelled`.
     """
     if mode not in MODES:
         raise ValueError(f"unknown workload mode: {mode}")
@@ -430,7 +431,7 @@ def build_round_loop(shape: tuple[int, int, int], unitinmm: float,
                 has_work = alive.any(1) | (remaining > 0)
             else:
                 has_work = (alive | (launched < quota)).any(1)
-            if not bool(has_work.any()):  # the round's one host read
+            if not bool(has_work.any()):  # reprolint: disable=REP401 - the round's one host read
                 break
             if cancel is not None and cancel.is_set():
                 raise RunCancelled(f"run cancelled after {steps} steps")
@@ -701,10 +702,10 @@ def autotune_rounds(volume: Volume, cfg: SimConfig, n_pilot: int = 20_000,
             _synchronize(dev)
             best = float("inf")
             for _ in range(repeats):
-                t0 = time.perf_counter()
+                t0 = time.perf_counter()  # reprolint: disable=REP201 - autotune times its pilots on the host clock
                 sim_fn(*args)
                 _synchronize(dev)
-                best = min(best, time.perf_counter() - t0)
+                best = min(best, time.perf_counter() - t0)  # reprolint: disable=REP201 - autotune times its pilots on the host clock
             timings[(lanes, k)] = best
     best_cfg = min(timings, key=timings.get)
     return best_cfg, timings

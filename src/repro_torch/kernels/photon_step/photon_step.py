@@ -30,18 +30,22 @@ the device (a Jacobian column out of range, a fixed-point overflow).
 ``variant_name``, with ``/xS`` appended for a launch of S > 1
 scenarios.
 
-Several host threads may run round loops at once (shards, pool
-workers): each thread has its own error word on each device, so a
-thread's ``check_errors`` reads and clears only what its own launches
-flagged; the libraries are built and loaded under one lock, and the
-launch counts are added under another.
+Each device of a multi-device run has a process of its own
+(``core.procs``): two processes that build one group mask at once take
+turns on a file lock in ``BUILD_DIR``, and each library is moved into
+place whole.  Launch counts are those of this process; the parent adds
+its children's from their replies (``add_launches``).  A thread has its
+own error word on each device, so its ``check_errors`` reads and clears
+only what its own launches flagged.
 """
 
 from __future__ import annotations
 
 import array
 import collections
+import contextlib
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -158,23 +162,36 @@ def build_library(groups: int = 0) -> pathlib.Path:
     its path.  The compiler's output (``-Xptxas -v``: registers,
     spills) is kept beside it in a ``.log`` file.  A failed build
     raises."""
-    started = _start_build(groups)
-    if started is not None:
-        _finish_build(started)
+    with _build_lock():
+        started = _start_build(groups)
+        if started is not None:
+            _finish_build(started)
     return library_path(groups)
 
 
-# Held while a library is built or loaded: two threads would otherwise
-# both start nvcc on one temporary file.
-_BUILD_LOCK = threading.Lock()
 _LIBRARIES: dict[int, ctypes.CDLL] = {}
+
+
+@contextlib.contextmanager
+def _build_lock():
+    """The file lock ``BUILD_DIR / build.lock``, held while libraries
+    are built: two processes (or threads, each opening the file) would
+    otherwise both start nvcc on one library, and one that waited finds
+    it built and builds nothing."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
 
 
 def build_all(groups=VALID_GROUPS) -> float:
     """Build the kernels of several group masks, one ``nvcc`` each, all
     started together; returns seconds.  Any failed build raises."""
-    t0 = time.perf_counter()
-    with _BUILD_LOCK:
+    t0 = time.perf_counter()  # reprolint: disable=REP201 - build and load seconds, reported
+    with _build_lock():
         started = [x for x in map(_start_build, groups) if x is not None]
         errors = []
         for x in started:
@@ -184,17 +201,14 @@ def build_all(groups=VALID_GROUPS) -> float:
                 errors.append(str(e))
     if errors:
         raise KernelError("\n".join(errors))
-    return time.perf_counter() - t0
+    return time.perf_counter() - t0  # reprolint: disable=REP201 - build and load seconds, reported
 
 
 def _library(groups: int) -> ctypes.CDLL:
     """The loaded library of a group mask, built at its first use."""
     lib = _LIBRARIES.get(groups)
     if lib is None:
-        with _BUILD_LOCK:
-            lib = _LIBRARIES.get(groups)
-            if lib is None:
-                lib = _LIBRARIES[groups] = _load_library(groups)
+        lib = _LIBRARIES[groups] = _load_library(groups)
     return lib
 
 
@@ -213,16 +227,20 @@ def _load_library(groups: int) -> ctypes.CDLL:
         raise KernelError(f"{library_path(groups).name} has launch "
                           f"constants {built}, the wrapper "
                           f"{(THREADS, CACHE_SLOTS)}")
+    try:
+        spec.check_shared(*built)
+    except ValueError as e:
+        raise KernelError(f"{library_path(groups).name}: {e}") from None
     return lib
 
 
 def load(groups=(0,)) -> float:
     """Build (if needed) and load the kernel libraries of ``groups``;
     returns seconds."""
-    t0 = time.perf_counter()
+    t0 = time.perf_counter()  # reprolint: disable=REP201 - build and load seconds, reported
     for g in groups:
         _library(g)
-    return time.perf_counter() - t0
+    return time.perf_counter() - t0  # reprolint: disable=REP201 - build and load seconds, reported
 
 
 # Compile-time constants of csrc/photon_step.cu (kThreads, kCacheSlots),
@@ -470,6 +488,13 @@ def count_launch(key: str) -> None:
     (threads launch at once: the add holds a lock)."""
     with _COUNT_LOCK:
         photon_step_cuda.launches_by[key] += 1
+
+
+def add_launches(counts) -> None:
+    """Add another process's launch counts (a child's reply) to
+    ``photon_step_cuda.launches_by``."""
+    with _COUNT_LOCK:
+        photon_step_cuda.launches_by.update(counts)
 
 
 def reset_launches() -> None:

@@ -114,3 +114,30 @@ def scenario_count(media) -> tuple[int, bool]:
     if media.ndim == 3:
         return int(media.shape[0]), True
     return 1, False
+
+
+# Static shared memory of one block of the kernel (csrc/photon_step.cu,
+# photon_step_kernel): the deposit cache's keys (int32) and sums (int64),
+# the lane order (int32 a thread) and each warp's live-lane count
+# (int32).  A block may ask for at most SHARED_LIMIT bytes statically
+# (48 KiB on Hopper, as on every architecture since Volta; more needs
+# dynamic shared memory and an opt-in).
+SHARED_LIMIT = 48 * 1024
+
+
+def shared_bytes(threads: int, cache_slots: int) -> int:
+    """Static shared bytes a block of ``threads`` threads with a deposit
+    cache of ``cache_slots`` cells asks for."""
+    return cache_slots * (4 + 8) + threads * 4 + (threads // 32) * 4
+
+
+def check_shared(threads: int, cache_slots: int) -> int:
+    """:func:`shared_bytes`, raising ``ValueError`` past
+    ``SHARED_LIMIT``."""
+    need = shared_bytes(threads, cache_slots)
+    if need > SHARED_LIMIT:
+        raise ValueError(f"a block of {threads} threads with {cache_slots} "
+                         f"cache cells asks for {need} bytes of static "
+                         f"shared memory, over the {SHARED_LIMIT}-byte "
+                         f"limit")
+    return need

@@ -227,7 +227,7 @@ def main(argv=None) -> list[dict]:
         live = None
         for a, kw in launches:
             st = cuda_step(*a, **dict(kw, stats=True, totals=None))[-1][:, 0]
-            live = st.double() if live is None else live + st.double()
+            live = st.double() if live is None else live + st.double()  # reprolint: disable=REP301 - host-side timing statistics
         emit("pass", groups=groups, variant=K.group_names(groups),
              launches=len(launches), lanes=int(launches[0][0][2].w.numel()),
              n_steps=[int(a[6]) for a, _ in launches][:4],

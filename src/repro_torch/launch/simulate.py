@@ -26,7 +26,8 @@ out:
 
 Several devices: ``--devices all`` shards the photons (and the replay's
 records, and the scenario axis) over every device of ``--device``'s
-type, each in a host thread of its own, when more than one is found;
+type, each in a process of its own (``core.procs``), when more than
+one is found;
 ``--chunk N`` pulls chunks of N photons from a shared queue through the
 resilience pool, with a seeded chaos drill, retry caps, deadlines and
 checkpoints (a rerun with the same ``--checkpoint-dir`` resumes):
@@ -198,7 +199,7 @@ def _run_scenarios(args, ap, dev, tracer, sinks) -> Run:
                 f"escaped={bal['escaped']:.1f} "
                 f"residue={bal['residue_frac']:.2e}")
         if sc.detectors:
-            line += f" det_w={float(res.det_w.double().sum()):.3f}"
+            line += f" det_w={float(res.det_w.double().sum()):.3f}"  # reprolint: disable=REP301 - host-side report sums
         print(line)
     if tracer is not None:
         engine = "kernel" if dev.type == "cuda" else "plain"
@@ -282,16 +283,18 @@ def run(argv=None) -> Run:
                     help="all: shard the photons, the replay's records and "
                          "the scenario axis over every device of --device's "
                          "type (every CUDA device, or the one CPU), each in "
-                         "a host thread, when more than one is found.  On "
-                         "one host each extra device currently slows the "
-                         "run down (the threads share one interpreter "
-                         "lock): use it for bits and faults, not speed")
+                         "a process of its own, when more than one is "
+                         "found.  On one H100 two shards run at about one "
+                         "run's rate, but the scenario and replay meshes "
+                         "are slower than one device (PERF.md): use them "
+                         "for bits and faults, not speed")
     ap.add_argument("--chunk", type=int, default=0,
                     help=">0: dynamic chunk scheduling over every device "
                          "of --device's type through the resilience pool "
-                         "(straggler-safe; retries, checkpoints).  A chunk "
-                         "runs in a worker's host thread, which currently "
-                         "costs throughput against one plain run")
+                         "(straggler-safe; retries, checkpoints); each "
+                         "worker runs its chunks in a process of its own.  "
+                         "A pool run costs throughput against one run "
+                         "(PERF.md)")
     ap.add_argument("--chaos", default=None, metavar="JSON",
                     help="seeded fault-injection drill for the --chunk "
                          "scheduler: JSON FaultInjector config, e.g. "
@@ -427,7 +430,7 @@ def run(argv=None) -> Run:
               f"peak gate {int(per_gate.argmax())}")
     if detectors:
         times, curves = A.tpsf(res, cfg)
-        tot = res.det_w.double().sum(dim=1).cpu().numpy()
+        tot = res.det_w.double().sum(dim=1).cpu().numpy()  # reprolint: disable=REP301 - host-side report sums
         for i, d in enumerate(detectors):
             peak = float(times[int(curves[i].argmax())]) if tot[i] else 0.0
             print(f"detector {i} ({d.x:.0f},{d.y:.0f},r={d.radius:.0f}): "

@@ -42,7 +42,7 @@ cells the replay reached cross to the host once, as float64.  The
 fluence, exitance and detector sums the launches also make, which the
 replay does not read, go into scratch grids zeroed once a replay.
 Over a mesh of devices each batch splits across them, each device
-adding into its own Jacobian total in a host thread of its own
+adding into its own Jacobian total in its device's process
 (``core.multidevice.sharded_replay_fn``); the totals add to the bits
 of one device's.
 """
@@ -111,12 +111,13 @@ def detected_records(result: SimResult) -> np.ndarray:
 
 
 def _build_replay_fn(shape, unitinmm, cfg: SimConfig, n_lanes: int,
-                     source, det_geom, jac_cols: int, step=photon_steps,
+                     source, det_geom, jac_cols: int, step=None,
                      steps_per_launch=None):
     """Two-pass replay of one batch of ``n_lanes`` records, each pass in
     launches of up to ``steps_per_launch`` segments (default
     ``spec.MAX_STEPS``), each launch one call of ``step``
-    (``ops.photon_steps``'s arguments).
+    (``ops.photon_steps``'s arguments; by default this module's
+    ``photon_steps``, looked up when the replay is built).
 
     Returns ``fn(labels_flat, media, id_lo, id_hi, jac_col, active,
     seed, jac, scratch) -> (w_exit, gate, replayed_det)``.  ``id_lo`` /
@@ -129,6 +130,7 @@ def _build_replay_fn(shape, unitinmm, cfg: SimConfig, n_lanes: int,
     into.  Tensors live on ``det_geom``'s device.
     """
     source = as_source(source)
+    step = photon_steps if step is None else step
     K = int(cfg.steps_per_round)
     if K < 1:
         raise ValueError(f"cfg.steps_per_round must be >= 1, got {K}")
@@ -227,7 +229,7 @@ def replay_jacobian(volume: Volume, cfg: SimConfig, records, detectors,
 
     ``mesh`` (a sequence of devices, in place of ``device``) splits each
     batch over its devices, ``n_lanes`` lanes a device (at most
-    ``ceil(n_records / len(mesh))``), each in a host thread of its own
+    ``ceil(n_records / len(mesh))``), each in its device's process
     adding into its own int64 Jacobian, and adds those once at the end
     (``core.multidevice.sharded_replay_fn``): the result has the bits of
     the replay on one device of the same type.  ``tracer`` (a
@@ -296,9 +298,9 @@ def replay_jacobian(volume: Volume, cfg: SimConfig, records, detectors,
     # the cells the replay reached (a few percent of the grid), as
     # float64, in one copy to the host
     reached = torch.nonzero(jac).squeeze(1)
-    jacobian_h = np.zeros((nx * ny * nz * jac_cols,), np.float64)
+    jacobian_h = np.zeros((nx * ny * nz * jac_cols,), np.float64)  # reprolint: disable=REP301 - the Jacobian is float64 where it is handed over
     jacobian_h[reached.cpu().numpy()] = from_fixed(
-        jac[reached], spec.FIXED_SHIFT["jac"], torch.float64).cpu().numpy()
+        jac[reached], spec.FIXED_SHIFT["jac"], torch.float64).cpu().numpy()  # reprolint: disable=REP301 - the Jacobian is float64 where it is handed over
     shape_out = ((nx, ny, nz, n_det, ntg) if gate_resolved
                  else (nx, ny, nz, n_det))
     return ReplayResult(

@@ -8,11 +8,12 @@ chunked schedulers survive all of them:
 
   * **Heterogeneous workers**: each :class:`Worker` wraps one
     :class:`DeviceSpec` ``(device, n_lanes, mode)`` and runs its chunks
-    in a host thread of its own (a single-thread executor), so CUDA and
-    CPU workers, or several workers on one card, run at once.  A call of
-    the round loop returns only when its chunk is done (the loop reads
-    the host once a round), so a dispatch submits the chunk to the
-    worker's thread, and a chunk is ready when its future is done.
+    in a process of its own (``core.procs``: a spawned child that builds
+    the round loop and holds the volume on its device), so CUDA and CPU
+    workers, or several workers on one card, run at once, each with its
+    own interpreter.  A dispatch sends the chunk to the worker's
+    process, and a chunk is ready when its reply has come: its int64
+    totals on the CPU, or the error it raised there.
   * **Retries with caps**: a failed dispatch or rejected result is
     requeued through :class:`RetryPolicy` (exponential backoff, honored
     as a non-blocking eligibility gate); a chunk that exhausts its
@@ -23,18 +24,21 @@ chunked schedulers survive all of them:
     re-dispatched to another worker, the first valid result wins, and
     duplicates are discarded by chunk id.  Throttles and injected delays
     are a "not ready before t" gate, not a sleep.
-  * **Abandoned work**: a thread cannot be killed.  A chunk left on a
-    quarantined worker, and every chunk still running when the run
-    ends, gets its cancel event set; its round loop raises at its next
-    round's host read, so no abandoned chunk holds the process at exit,
-    and the run never waits for one.
-  * **Validated merges**: every result is harvested to the host in its
-    worker's thread and run through :func:`validate_chunk` (negative
-    totals, launch count, per-chunk energy balance) before it may touch
-    the accumulator.
+  * **Abandoned work**: a chunk left on a quarantined worker, and every
+    chunk still running when the run ends, is cancelled through its
+    process's cancel slot; its round loop raises at its next round's
+    host read and its reply is dropped unread, so the run never waits
+    for an abandoned chunk.  A process that dies is a failed dispatch
+    on its worker (requeued), never a silent loss; the worker's next
+    dispatch starts a new one.
+  * **Validated merges**: every result comes to the host as int64 totals
+    and runs through :func:`validate_chunk` (negative totals, launch
+    count, per-chunk energy balance) before it may touch the
+    accumulator.
   * **Errors that are not retried**: the kernel's build, load and
     launch errors, what its launches flag and refused arguments
-    (``NOT_RETRIED``) end the run: retrying them on another worker
+    (``NOT_RETRIED``), raised in a worker's process and pickled back
+    with its message, end the run: retrying them on another worker
     would carry the work on off the card because its kernel failed.
     Injected faults and other errors (a lost device) are retried.
   * **Worker health**: healthy -> suspect -> quarantined, with graceful
@@ -50,11 +54,15 @@ chunked schedulers survive all of them:
     the device that ran it.  A worker's class is its device type
     (``"cuda"``, ``"cpu"``); each chunk is bound round-robin to one of
     the pool's classes, so retries and speculation move a chunk only
-    between workers of its class.  If a class loses its last live
-    worker the chunk is re-bound to survive (counted in
+    between workers of its class; a chunk that really failed on a worker
+    (not by an injected fault) is bound to that worker's class even
+    when the pool binds none.  If a class loses its last live worker to
+    scheduled dropouts, its chunks are re-bound to survive (counted in
     ``PoolReport.rebound``: bit-identity then holds only to the
     tolerance between the two devices' arithmetic, for exactly those
-    chunks).
+    chunks); if it lost one to real failures, the run raises
+    :class:`PoolExhaustedError` instead of moving the chunks to another
+    device type (a card's work to the CPU's plain version).
   * **Checkpoints**: every ``checkpoint_every`` merged chunks the
     contiguous merged prefix is saved through the atomic
     ``checkpoint.Checkpointer``, its totals in int64; ``run(resume=True)``
@@ -63,20 +71,20 @@ chunked schedulers survive all of them:
 
 from __future__ import annotations
 
-import concurrent.futures
 import dataclasses
 import json
-import threading
 import time
 from collections import deque
-from typing import Any, Callable, Sequence
+from concurrent.futures import FIRST_COMPLETED
+from concurrent.futures import wait as wait_futures
+from typing import Any, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch.core import procs
 from repro_torch.core import simulator as S
 from repro_torch.core.loadbalance import DeviceModel, model_from_samples
-from repro_torch.core.rng import split_id64
 from repro_torch.core.volume import SimConfig, Volume
 from repro_torch.detectors import as_detectors
 from repro_torch.kernels.photon_step.ops import (resolve_device,
@@ -134,9 +142,10 @@ class DeviceSpec:
 class Worker:
     """One pool member: a spec, its health, and its measured samples."""
 
-    def __init__(self, spec: DeviceSpec, index: int):
+    def __init__(self, spec: DeviceSpec, index: int, slot: int):
         self.spec = spec
         self.device = resolve_device(spec.device)
+        self.slot = slot  # which of its device's processes it runs in
         self.label = spec.label or f"w{index}:{device_label(self.device)}"
         self.health = HEALTHY
         self.consecutive_failures = 0
@@ -146,6 +155,8 @@ class Worker:
         self.failures = 0
         self.samples: list[tuple[float, float]] = []  # (photons, seconds)
         self.busy = False
+        self.dropped = False  # quarantined by a scheduled dropout
+        self.last_error: BaseException | None = None
         self._model: DeviceModel | None = None
 
     @property
@@ -266,16 +277,15 @@ class _Task:
 
 
 class _Inflight:
-    __slots__ = ("task", "worker", "attempt", "future", "cancel", "span",
-                 "t0", "ready_at", "deadline", "speculated")
+    __slots__ = ("task", "worker", "attempt", "future", "span", "t0",
+                 "ready_at", "deadline", "speculated")
 
-    def __init__(self, task, worker, attempt, future, cancel, span, t0,
-                 ready_at, deadline):
+    def __init__(self, task, worker, attempt, future, span, t0, ready_at,
+                 deadline):
         self.task = task
         self.worker = worker
         self.attempt = attempt
-        self.future = future
-        self.cancel = cancel
+        self.future = future  # the request in the worker's process
         self.span = span
         self.t0 = t0
         self.ready_at = ready_at
@@ -285,7 +295,7 @@ class _Inflight:
     def abandon(self, outcome: str) -> None:
         """Stop waiting for this chunk: its round loop stops at its next
         round, and its result, if any, is never read."""
-        self.cancel.set()
+        procs.abandon(self.future)
         if self.span is not None:
             self.span.end(outcome=outcome)
 
@@ -365,14 +375,6 @@ def fixed_from_state(state: dict, like: S.FixedResult,
 NOT_RETRIED = (KernelError, OverflowError, ValueError, TypeError)
 
 
-def _run_chunk(fn, labels, media, count, seed, start_id,
-               cancel) -> S.FixedResult:
-    """A worker thread's job: one chunk through its round loop, its
-    totals harvested to the host in this thread."""
-    return harvest_result(fn(labels, media, count, seed,
-                             *split_id64(start_id), cancel=cancel))
-
-
 class DevicePool:
     """Resilient chunk executor over heterogeneous device workers.
 
@@ -401,7 +403,9 @@ class DevicePool:
             specs = [DeviceSpec(device=d) for d in visible_devices("cuda")]
         if not specs:
             raise ValueError("DevicePool needs at least one DeviceSpec")
-        self.workers = [Worker(spec, i) for i, spec in enumerate(specs)]
+        devices = [resolve_device(spec.device) for spec in specs]
+        self.workers = [Worker(spec, i, slot) for i, (spec, slot) in
+                        enumerate(zip(specs, procs.slots(devices)))]
         labels = [w.label for w in self.workers]
         if len(set(labels)) != len(labels):
             raise ValueError(f"worker labels must be unique, got {labels}")
@@ -420,10 +424,9 @@ class DevicePool:
         self._default_source = as_source(source)
         self.detectors = as_detectors(detectors)
         self.record_detected = int(record_detected)
-        # round loops built per (source, device, lanes, mode), and the
-        # volume's labels and media on each device
-        self._fns: dict[tuple, Callable] = {}
-        self._dev_buffers: dict[Any, tuple] = {}
+        # what the workers' processes build their round loops from, by
+        # (source, lanes, mode)
+        self._works: dict[tuple, procs.Work] = {}
         # deterministic class order for binding: list order of first
         # appearance in `specs`, so the binding depends only on the spec
         # list, never on which workers survive
@@ -435,21 +438,13 @@ class DevicePool:
 
     # -- executors -----------------------------------------------------------
 
-    def _fn_for(self, source, w: Worker):
-        key = (source, w.device, int(w.spec.n_lanes), w.spec.mode)
-        if key not in self._fns:
-            self._fns[key] = S.build_fixed_fn(
-                self.volume.shape, self.volume.unitinmm, self.cfg,
-                w.spec.n_lanes, w.spec.mode, source, w.device,
+    def _work_for(self, source, w: Worker) -> procs.Work:
+        key = (source, int(w.spec.n_lanes), w.spec.mode)
+        if key not in self._works:
+            self._works[key] = procs.sim_work(
+                self.volume, self.cfg, w.spec.n_lanes, w.spec.mode, source,
                 self.detectors, self.record_detected)
-        return self._fns[key]
-
-    def _buffers_for(self, device):
-        if device not in self._dev_buffers:
-            self._dev_buffers[device] = (
-                self.volume.labels.reshape(-1).to(device),
-                self.volume.media.to(device))
-        return self._dev_buffers[device]
+        return self._works[key]
 
     # -- fleet bookkeeping ---------------------------------------------------
 
@@ -554,21 +549,15 @@ class DevicePool:
         pending: deque[_Task] = deque(t for t in tasks if not t.merged
                                       and not t.quarantined)
         inflight: list[_Inflight] = []
-        executors = {
-            w.label: concurrent.futures.ThreadPoolExecutor(
-                max_workers=1, thread_name_prefix=f"pool-{w.label}")
-            for w in self.workers}
         try:
-            acc = self._loop(tasks, pending, inflight, executors, acc,
-                             report, frontier, t_start, deadline_s,
-                             n_photons, chunk_size, seed, src)
+            acc = self._loop(tasks, pending, inflight, acc, report,
+                             frontier, t_start, deadline_s, n_photons,
+                             chunk_size, seed, src)
         finally:
-            # the run waits for no chunk still in a thread: each stops at
-            # its next round, and the threads end with it
+            # the run waits for no chunk still in a worker's process:
+            # each stops at its next round, its reply dropped unread
             for inf in inflight:
                 inf.abandon("abandoned")
-            for ex in executors.values():
-                ex.shutdown(wait=False, cancel_futures=True)
             for w in self.workers:
                 w.busy = False
 
@@ -589,8 +578,8 @@ class DevicePool:
             ) from tasks[[t.chunk for t in tasks].index(qc)].last_error
         return acc, report
 
-    def _loop(self, tasks, pending, inflight, executors, acc, report,
-              frontier, t_start, deadline_s, n_photons, chunk_size, seed,
+    def _loop(self, tasks, pending, inflight, acc, report, frontier,
+              t_start, deadline_s, n_photons, chunk_size, seed,
               src) -> S.FixedResult:
         """Run the chunks to their end; returns the accumulator with
         every merged chunk added."""
@@ -614,6 +603,7 @@ class DevicePool:
             if self.injector is not None:
                 for w in self.live_workers():
                     if self.injector.dropped(w.label, w.n_dispatched):
+                        w.dropped = True
                         self._quarantine_worker(w, report,
                                                 "injected dropout")
                         progressed = True
@@ -704,7 +694,7 @@ class DevicePool:
                     continue
                 pending.remove(task)
                 self._dispatch(w, task, seed, src, report, inflight,
-                               pending, executors[w.label])
+                               pending)
                 progressed = True
 
             if not progressed:
@@ -712,11 +702,10 @@ class DevicePool:
         return acc
 
     def _idle(self, inflight, pending, now, t_start, deadline_s) -> None:
-        """Wait, without the interpreter lock, until a running chunk ends
-        or the next timed event is due (a result's ready gate, a chunk
-        deadline, a retry's backoff, the run's deadline; at most
-        ``_IDLE_S``): polling would take the lock from the workers'
-        threads, which need it between every two device operations."""
+        """Wait until a running chunk's reply comes (or its process
+        dies) or the next timed event is due (a result's ready gate, a
+        chunk deadline, a retry's backoff, the run's deadline; at most
+        ``_IDLE_S``)."""
         events = [inf.ready_at for inf in inflight]
         events += [inf.t0 + inf.deadline for inf in inflight
                    if inf.deadline is not None and not inf.speculated]
@@ -724,11 +713,9 @@ class DevicePool:
         if deadline_s is not None:
             events.append(t_start + deadline_s)
         timeout = min([e - now for e in events if e > now] + [_IDLE_S])
-        running = [inf.future for inf in inflight if not inf.future.done()]
-        if running:
-            concurrent.futures.wait(
-                running, timeout=timeout,
-                return_when=concurrent.futures.FIRST_COMPLETED)
+        if inflight:
+            wait_futures([inf.future for inf in inflight], timeout,
+                         FIRST_COMPLETED)
         else:
             time.sleep(timeout)
 
@@ -743,11 +730,24 @@ class DevicePool:
                 continue
             if task.bound is not None and task.bound != w.bit_class:
                 # the bound class may have lost its last worker; only
-                # then may a foreign worker steal the chunk (bit-identity
-                # degrades to the devices' tolerance for this chunk)
-                if any(lw.bit_class == task.bound
-                       for lw in self.live_workers()):
+                # then, and only to scheduled dropouts, may a foreign
+                # worker steal the chunk (bit-identity degrades to the
+                # devices' tolerance for this chunk)
+                bound = [lw for lw in self.workers
+                         if lw.bit_class == task.bound]
+                if any(lw.health != QUARANTINED for lw in bound):
                     continue
+                if not all(lw.dropped for lw in bound):
+                    raise PoolExhaustedError(
+                        f"every {task.bound} worker is quarantined, not "
+                        f"all by a scheduled dropout, and chunk "
+                        f"{task.chunk.start_id} (+{task.chunk.count}) is "
+                        f"bound to {task.bound}: it does not move to "
+                        f"another device type; worker history: "
+                        f"{[lw.summary() for lw in bound]}"
+                    ) from task.last_error or next(
+                        (lw.last_error for lw in bound if lw.last_error),
+                        None)
                 task.bound = w.bit_class
                 self._report_rebound(task)
             return task
@@ -761,7 +761,7 @@ class DevicePool:
 
     def _dispatch(self, w: Worker, task: _Task, seed: int, src,
                   report: PoolReport, inflight: list[_Inflight],
-                  pending: deque, executor) -> None:
+                  pending: deque) -> None:
         ch = task.chunk
         attempt = task.failures
         w.n_dispatched += 1
@@ -780,8 +780,9 @@ class DevicePool:
                 self.injector.check_dispatch(ch.start_id, attempt, w.label)
                 delay = max(delay, self.injector.delay_for(ch.start_id,
                                                            attempt))
-            labels_dev, media_dev = self._buffers_for(w.device)
-            fn = self._fn_for(src, w)
+            work = self._work_for(src, w)
+            request = procs.child(w.device, w.slot).submit(
+                "sim", work, (ch.count, seed, ch.start_id))
         except InjectedFault as e:
             if span is not None:
                 span.end(outcome="injected-fault")
@@ -798,9 +799,6 @@ class DevicePool:
         except Exception as e:  # a real dispatch error: requeue + surface
             self._dispatch_error(w, task, report, span, e, now, pending)
             return
-        cancel = threading.Event()
-        future = executor.submit(_run_chunk, fn, labels_dev, media_dev,
-                                 ch.count, seed, ch.start_id, cancel)
         deadline = self.chunk_timeout_s
         predicted = w.predict_s(ch.count)
         if predicted is not None:
@@ -810,13 +808,16 @@ class DevicePool:
                         else min(deadline, model_deadline))
         task.inflight += 1
         w.busy = True
-        inflight.append(_Inflight(task, w, attempt, future, cancel, span, now,
+        inflight.append(_Inflight(task, w, attempt, request, span, now,
                                   now + delay, deadline))
 
     def _dispatch_error(self, w, task, report, span, error, now,
                         pending) -> None:
         if span is not None:
             span.end(outcome="error")
+        if task.bound is None:
+            task.bound = w.bit_class  # a real failure: not off its type
+        w.last_error = error
         report.dispatch_failures += 1
         self._mark_failure(w, report, repr(error))
         self._chunk_failed(task, report, f"dispatch: {error!r}", now,
@@ -826,15 +827,17 @@ class DevicePool:
                   now: float, pending: deque) -> None:
         task, w = inf.task, inf.worker
         elapsed = now - inf.t0
-        error = inf.future.exception()
+        reply = procs.reply(inf.future)
+        error = None if reply.ok else reply.value
         settled = task.merged or task.harvest is not None or task.quarantined
         if isinstance(error, NOT_RETRIED):
             if inf.span is not None:
                 inf.span.end(outcome="error")
             raise error
         if error is not None:
-            # the chunk raised in its thread: a failed dispatch, which
-            # requeues the chunk unless a twin already settled it
+            # the chunk raised in its process, or the process died: a
+            # failed dispatch, which requeues the chunk unless a twin
+            # already settled it
             if not settled:
                 self._dispatch_error(w, task, report, inf.span, error, now,
                                      pending)
@@ -853,9 +856,10 @@ class DevicePool:
                 inf.span.end(outcome="duplicate")
             w.record_sample(task.chunk.count, elapsed)
             return
-        harvest = inf.future.result()
-        if self.injector is not None and \
-                self.injector.corrupts(task.chunk.start_id, inf.attempt):
+        harvest = harvest_result(reply.value)
+        injected = self.injector is not None and \
+            self.injector.corrupts(task.chunk.start_id, inf.attempt)
+        if injected:
             harvest = corrupt_harvest(harvest)
             report.injected_faults += 1
         errs = (validate_chunk(harvest, task.chunk.count,
@@ -865,6 +869,8 @@ class DevicePool:
             if inf.span is not None:
                 inf.span.end(outcome="invalid")
             report.validation_failures += 1
+            if task.bound is None and not injected:
+                task.bound = w.bit_class
             self._mark_failure(w, report, errs[0])
             self._chunk_failed(task, report, f"validation: {errs}", now,
                                pending)

@@ -36,10 +36,11 @@ scenario freezes while the others run on, so each scenario's
 
 A device mesh (``mesh=``, a sequence of torch devices) splits each
 group's scenario axis across its devices, padded with zero-photon
-scenarios to a multiple of their count: each device runs its slice as
-one batched call in a host thread of its own, with no collective, and
-each scenario still gets the bits of its own ``simulate_one`` on a
-device of the same type.
+scenarios to a multiple of their count: each device's process
+(``core.procs``) runs its slice as one batched call, with no
+collective, and returns its scenarios' int64 totals, converted in the
+calling process; each scenario still gets the bits of its own
+``simulate_one`` on a device of the same type.
 
 CLI: ``python -m repro_torch.launch.simulate --scenarios '[{...}, ...]'``
 (with ``--devices all``, over every device of ``--device``'s type).
@@ -48,7 +49,6 @@ CLI: ``python -m repro_torch.launch.simulate --scenarios '[{...}, ...]'``
 from __future__ import annotations
 
 import dataclasses
-import functools
 from collections import OrderedDict
 
 import numpy as np
@@ -56,8 +56,9 @@ import torch
 
 from repro_torch.core import volume as V
 from repro_torch.core.rng import split_id64
+from repro_torch.core import procs
 from repro_torch.core.simulator import (SimResult, build_batched_fn,
-                                        build_sim_fn)
+                                        build_sim_fn, to_sim_result)
 from repro_torch.core.volume import SimConfig, Volume
 from repro_torch.detectors import (as_detectors, det_geometry,
                                    validate_detectors)
@@ -363,20 +364,19 @@ def make_batched(scenarios, *, n_lanes: int = 1024, mode: str = "dynamic",
 def _sharded_batched_fn(rep: _Prep, n_lanes, mode, devices):
     """The executor of one group over a mesh: ``fn(per_device_args) ->
     list[SimResult]`` runs each device's stacked slice of the scenario
-    axis as one batched call in a host thread of its own, and returns
-    the results in scenario order."""
-    from repro_torch.core.multidevice import run_on_threads
-
-    fns = [_raw_batched_fn(rep, n_lanes, mode, d) for d in devices]
-
-    def one(f, args, cancel):
-        return f(*args)
+    axis (CPU values) as one batched call in its device's process, which
+    builds the group's round loop, and returns the results in scenario
+    order, converted here from the processes' int64 totals."""
+    vol = rep.sc.volume
+    work = procs.batched_work(vol.shape, vol.unitinmm, rep.sc.cfg, n_lanes,
+                              mode, rep.src_cls, len(rep.dets))
+    slots = procs.slots(devices)
 
     def fn(per_device_args):
-        parts = run_on_threads([
-            functools.partial(one, f, a)
-            for f, a in zip(fns, per_device_args)])
-        return [r for part in parts for r in part]
+        replies = procs.run_all([
+            procs.Job(d, s, "batched", work, args)
+            for d, s, args in zip(devices, slots, per_device_args)])
+        return [to_sim_result(f) for r in replies for f in r.value]
 
     return fn
 
@@ -411,7 +411,7 @@ def simulate_many(scenarios, *, n_lanes: int = 1024, mode: str = "dynamic",
     ``mesh`` (a sequence of devices, in place of ``device``) splits each
     group's scenario axis across its devices (zero-photon padding rounds
     the batch up to the device count), each device's slice one batched
-    call in a host thread of its own; the mesh's device list is part of
+    call in its device's process; the mesh's device list is part of
     the cache key.  ``tracer`` records one ``scenarios.batch`` span per
     group (ended after a device synchronisation; device ``"mesh"`` with
     a mesh), one ``scenarios.compile`` span per cache miss, and
@@ -460,8 +460,8 @@ def simulate_many(scenarios, *, n_lanes: int = 1024, mode: str = "dynamic",
             rows, counts = _padded(members, pad)
             k = s_pad // n_dev
             args = ([_stack_rows(rows[i * k:(i + 1) * k],
-                                 counts[i * k:(i + 1) * k], share, d)
-                     for i, d in enumerate(devices)],)
+                                 counts[i * k:(i + 1) * k], share, "cpu")
+                     for i in range(n_dev)],)
         else:
             args = _stack_group(members, pad, share, dev)
         total_photons = int(sum(m.sc.n_photons for m in members))

@@ -63,14 +63,14 @@ def flight_stream(seed, photon_ids) -> torch.Tensor:
 
 def unit(v) -> np.ndarray:
     """Normalize a static 3-vector in float64, return float32."""
-    d = np.asarray(v, np.float64)
+    d = np.asarray(v, np.float64)  # reprolint: disable=REP301 - static parameters derived in float64, rounded once to float32
     return (d / np.linalg.norm(d)).astype(np.float32)
 
 
 def orthonormal_frame(axis) -> tuple[np.ndarray, np.ndarray]:
     """Two unit float32 vectors spanning the plane perpendicular to a
     static axis (derived in float64)."""
-    a = np.asarray(axis, np.float64)
+    a = np.asarray(axis, np.float64)  # reprolint: disable=REP301 - static parameters derived in float64, rounded once to float32
     a = a / np.linalg.norm(a)
     h = np.array([0.0, 0.0, 1.0]) if abs(a[2]) < 0.9 else np.array(
         [1.0, 0.0, 0.0])

@@ -102,12 +102,12 @@ class _Span:
             self._annotation = torch.profiler.record_function(
                 f"{name}[{label}]")
             self._annotation.__enter__()
-        self.event.t0 = time.monotonic()
+        self.event.t0 = time.monotonic()  # reprolint: disable=REP201 - span times on the host clock, telemetry only
 
     def end(self, **extra_args) -> SpanEvent:
         if self._sync is not None:
             torch.cuda.synchronize(self._sync)
-        self.event.dur = time.monotonic() - self.event.t0
+        self.event.dur = time.monotonic() - self.event.t0  # reprolint: disable=REP201 - span times on the host clock, telemetry only
         if self._annotation is not None:
             self._annotation.__exit__(None, None, None)
             self._annotation = None
@@ -148,6 +148,16 @@ class Tracer:
     def span(self, name: str, device=None, engine: str | None = None,
              **args) -> _Span:
         return _Span(self, name, device, engine, dict(args))
+
+    def complete(self, name: str, t0: float, dur: float, device=None,
+                 engine: str | None = None, **args) -> SpanEvent:
+        """Record a span that has already ended: started at ``t0``
+        (``time.monotonic()``), lasting ``dur`` seconds (another
+        process's wall, say)."""
+        event = SpanEvent(name=name, device=device_label(device), t0=t0,
+                          dur=float(dur), engine=engine, args=dict(args))
+        self._record(event)
+        return event
 
     def _record(self, event: SpanEvent) -> None:
         self.events.append(event)

@@ -39,14 +39,14 @@ beyond the fixed-point range adds nothing and raises through
 ``check_errors``; ``simulate_many`` gives each scenario the bits of
 its own ``simulate_one``.
 
-Above one device: two shards of one card (each in a host thread of its
+Above one device: two shards of one card (each in a process of its
 own) give one run's int64 totals bit for bit; a CPU shard beside a card
 shard is held to the same photons run on the card within the tolerance
 between the two arithmetics (CPU and CUDA float32 functions differ in
 the last bit, so a photon may take another path on each); a pool that
 loses its CPU worker moves that worker's chunks to the card; a pool
-whose card worker cannot build its kernel fails instead of moving the
-work to the CPU; and two threads launching on one card at once each see
+whose card worker cannot build its kernel (in that worker's process)
+fails instead of moving the work to the CPU; and two threads launching on one card at once each see
 only their own error flags.
 """
 
@@ -649,28 +649,42 @@ def test_pool_rebinds_the_chunks_of_a_lost_device_type(cuda_device):
     assert rep.merged == rep.n_chunks == 8
 
 
-@pytest.mark.cuda
-def test_pool_fails_when_the_card_kernel_cannot_build(cuda_device,
-                                                      monkeypatch):
-    """A card worker and a CPU worker, and the kernel's library cannot
-    be built: the run raises the build error instead of retrying the
-    card's chunks and rebinding them to the CPU's plain version."""
-    from repro_torch.resilience import DevicePool, DeviceSpec
+def _library_cannot_build():
+    """In a worker's process: every kernel library fails to build."""
+    from repro_torch.kernels.photon_step import photon_step as K
 
     def fail(groups):
-        raise kernel.KernelError("nvcc failed (1): injected by the test")
+        raise K.KernelError("nvcc failed (1): injected by the test")
 
-    monkeypatch.setattr(kernel, "_LIBRARIES", {})
-    monkeypatch.setattr(kernel, "_load_library", fail)
+    K._LIBRARIES.clear()
+    K._load_library = fail
+
+
+@pytest.mark.cuda
+def test_pool_fails_when_the_card_kernel_cannot_build(cuda_device):
+    """A card worker and a CPU worker, and the kernel's library cannot
+    be built in the card worker's process: the run raises the build
+    error from that process instead of retrying the card's chunks and
+    rebinding them to the CPU's plain version."""
+    from repro_torch.core import procs
+    from repro_torch.resilience import DevicePool, DeviceSpec
+
     vol = V.benchmark_b1((16, 16, 16))
     cfg = dataclasses.replace(V.b1_config(), steps_per_round=8,
                               n_time_gates=3, tmax_ns=0.3)
     specs = [DeviceSpec(device=cuda_device, n_lanes=256, label="card"),
              DeviceSpec(device="cpu", n_lanes=256, label="cpu")]
     pool = DevicePool(vol, cfg, specs)
-    with pytest.raises(kernel.KernelError, match="injected by the test"):
-        pool.run_fixed(2_000, 250, seed=5, deadline_s=120)
-    assert pool.workers[0].health != "quarantined"
+    card = procs.child(cuda_device, pool.workers[0].slot)
+    try:
+        card.call(_library_cannot_build, timeout=120)
+        with pytest.raises(kernel.KernelError,
+                           match="injected by the test") as ei:
+            pool.run_fixed(2_000, 250, seed=5, deadline_s=120)
+        assert f"pid {card.pid}" in "".join(ei.value.__notes__)
+        assert pool.workers[0].health != "quarantined"
+    finally:
+        card.close()
 
 
 @pytest.mark.cuda
@@ -693,7 +707,8 @@ def test_card_and_cpu_shards_hold_the_tolerance_of_two_arithmetics(
     counts = [60_000, 2_000]
     parts = M.sharded_sim_fn(vol, cfg, [8192, 512], [cuda_device, "cpu"],
                              source=src)(counts, M.shard_offsets(counts), 5)
-    assert parts[0].fluence.is_cuda and not parts[1].fluence.is_cuda
+    # each share crossed from its device's process as CPU int64 totals
+    assert not parts[0].fluence.is_cuda and not parts[1].fluence.is_cuda
     card = S.simulate_fixed(vol, cfg, 60_000, 8192, 5, source=src,
                             device=cuda_device)
     for f, x in _int64_totals(card).items():

@@ -62,6 +62,22 @@ def test_scan_sees_the_whole_port():
                  "src/repro_torch/resilience/policy.py",
                  "src/repro_torch/resilience/validate.py",
                  "src/repro_torch/resilience/pool.py",
+                 "src/repro_torch/core/procs.py",
+                 "src/repro_torch/lint/__init__.py",
+                 "src/repro_torch/lint/__main__.py",
+                 "src/repro_torch/lint/astutil.py",
+                 "src/repro_torch/lint/baseline.py",
+                 "src/repro_torch/lint/rules/__init__.py",
+                 "src/repro_torch/lint/rules/mirror.py",
+                 "src/repro_torch/lint/rules/determinism.py",
+                 "src/repro_torch/lint/rules/dtype.py",
+                 "src/repro_torch/lint/rules/hostsync.py",
+                 "src/repro_torch/lint/rules/smem.py",
+                 "src/repro_torch/lint/rules/reach.py",
+                 "src/repro_torch/lint/rules/bench.py",
+                 "src/repro_torch/lint/traced/__init__.py",
+                 "src/repro_torch/lint/traced/rules.py",
+                 "src/repro_torch/lint/traced/targets.py",
                  "chip_smoke.py"):
         assert must in names
 

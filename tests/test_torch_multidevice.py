@@ -232,24 +232,35 @@ def test_merge_fixed_checks_the_range(gated_run):
         S.merge_fixed([])
 
 
+def _raise_key_error(after_s):
+    """A job that fails in its device's process after ``after_s``."""
+    import time
+    time.sleep(after_s)
+    raise KeyError("shard failed")
+
+
 def test_a_failing_shard_cancels_the_others():
-    started = threading.Event()
-
-    def slow(cancel):
-        started.set()
-        while not cancel.is_set():  # a round loop's host read
-            cancel.wait(0.01)
-        raise S.RunCancelled("stopped")
-
-    def bad(cancel):
-        started.wait(30)
-        raise KeyError("shard failed")
-
-    with pytest.raises(KeyError, match="shard failed"):
-        M.run_on_threads([slow, bad])
-    assert M.run_on_threads([lambda c: c]) == [None]  # one: this thread
-    # a cancelled round loop stops at its next round
+    """Two devices' processes: one runs a round loop of 10^9 photons, the
+    other fails; the failure crosses back and is raised, and the long
+    run stops at its next round's host read (through its process's
+    cancel slot) instead of running to its end."""
+    from repro_torch.core import procs
     vol = V.benchmark_b1(SHAPE)
+    work = procs.sim_work(vol, V.b1_config(), 64, source=SRC)
+    cpu = torch.device("cpu")
+    t0 = __import__("time").monotonic()
+    with pytest.raises(KeyError, match="shard failed") as ei:
+        procs.run_all([procs.Job(cpu, 0, "sim", work, (10**9, SEED, 0)),
+                       procs.Job(cpu, 1, "call", None,
+                                 (_raise_key_error, (1.0,)))])
+    assert __import__("time").monotonic() - t0 < 60
+    assert "raised in the process of cpu" in "".join(ei.value.__notes__)
+    # the long run's process is free again: it answers at once
+    assert procs.child(cpu, 0).call(int, "7", timeout=60) == 7
+    # one job runs in the calling process
+    (one,) = procs.run_all([procs.Job(cpu, 0, "call", None, (os.getpid, ()))])
+    assert one.value == os.getpid()
+    # a cancelled round loop stops at its next round
     fn = S.build_fixed_fn(SHAPE, 1.0, V.b1_config(), 64, device="cpu")
     cancel = threading.Event()
     cancel.set()
@@ -280,6 +291,35 @@ def test_launch_counts_survive_many_threads():
             n_threads * n_adds
     finally:
         sys.setswitchinterval(interval)
+        K.photon_step_cuda.launches_by = saved
+
+
+def _count_launches(key, n):
+    from repro_torch.kernels.photon_step import photon_step as K
+    for _ in range(n):
+        K.count_launch(key)
+    return os.getpid()
+
+
+def test_launch_counts_come_back_from_every_process():
+    """Each of four device processes adds to its own launch counts; the
+    replies carry them back and the calling process adds them all: no
+    launch is lost and none is counted twice."""
+    from repro_torch.core import procs
+    from repro_torch.kernels.photon_step import photon_step as K
+    saved = K.photon_step_cuda.launches_by
+    K.reset_launches()
+    n_adds = 2000
+    try:
+        replies = procs.run_all([
+            procs.Job(torch.device("cpu"), i, "call", None,
+                      (_count_launches, (f"v{i % 3}", n_adds)))
+            for i in range(4)])
+        assert len({r.value for r in replies} | {os.getpid()}) == 5
+        assert [sum(r.launches.values()) for r in replies] == [n_adds] * 4
+        assert K.photon_step_cuda.launches_by == {
+            "v0": 2 * n_adds, "v1": n_adds, "v2": n_adds}
+    finally:
         K.photon_step_cuda.launches_by = saved
 
 

@@ -18,7 +18,12 @@ Contracts under test:
     cell (the int64 minimum), a short launch, a negative total, a NaN
     float and a broken energy balance.
   * **Deadlines, speculation, quarantine, exhaustion, overall deadline**,
-    with the abandoned chunk's thread stopped at its next round.
+    with the abandoned chunk stopped in its worker's process at its
+    next round.
+  * **Failures in the workers' processes**: an error raised in a
+    worker's process crosses back pickled, with its message; the
+    kernel's errors end the run, others are retried, and a process that
+    dies is a failed dispatch, never a silent loss.
   * **Checkpoint/restart**: the pool (frontier checkpoints, resume) and
     the elastic simulator (an injected host crash, restore, finish) end
     bit-identical to an uninterrupted campaign, records, round counters
@@ -30,8 +35,9 @@ import dataclasses
 import importlib.util
 import json
 import pathlib
+import os
+import signal
 import sys
-import threading
 import time
 
 import numpy as np
@@ -40,6 +46,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.checkpoint import Checkpointer  # noqa: E402
+from repro_torch.core import procs  # noqa: E402
 from repro_torch.core import simulator as S  # noqa: E402
 from repro_torch.core import volume as V  # noqa: E402
 from repro_torch.core.multidevice import ElasticSimulator  # noqa: E402
@@ -245,8 +252,13 @@ def test_pool_chaos_anchor_bit_identical_to_one_run(one_run):
 
 
 def test_pool_straggler_speculation_first_valid_wins(one_run):
+    """The slow worker's first chunk passes its deadline and runs again
+    on the fast worker; the later of the two results is discarded.  The
+    throttles (latency floors) exceed a chunk's compute (0.4-1.2 s in a
+    CPU worker's process), so the two workers differ whatever the
+    machine's load."""
     vol, cfg, want = one_run
-    specs = [_cpu("slow", throttle_s=0.3), _cpu("fast", throttle_s=0.15)]
+    specs = [_cpu("slow", throttle_s=2.0), _cpu("fast", throttle_s=0.6)]
     pool = DevicePool(vol, cfg, specs, chunk_timeout_s=0.1)
     got, rep = pool.run_fixed(800, 200, seed=SEED, deadline_s=120)
     assert_same_totals(got, want)
@@ -272,91 +284,222 @@ def test_pool_poison_chunk_quarantine(one_run):
     assert int(res.n_launched) == 600  # missing, never silently wrong
 
 
-def _failing_worker(pool, label, run):
-    """Make the round loop of worker ``label`` call ``run()`` in its
-    thread instead of simulating."""
-    built = pool._fn_for
-
-    def fn_for(source, w):
-        return ((lambda *a, **k: run()) if w.label == label
-                else built(source, w))
-
-    pool._fn_for = fn_for
+@pytest.fixture
+def tainted():
+    """Workers' processes a test breaks (``_fail_in``), closed after it
+    so that no later test meets them."""
+    broken = []
+    yield broken
+    for proc in broken:
+        proc.close()
 
 
-def test_pool_real_dispatch_error_is_retried_and_surfaced(one_run):
-    """An error in a worker's thread that a retry may cure (here a
+def _fail_in(pool, label, how, error, tainted):
+    """Make the round loops in the process of worker ``label`` fail at
+    their first photon step as ``how(error)`` makes them fail there."""
+    w = next(w for w in pool.workers if w.label == label)
+    proc = procs.child(w.device, w.slot)
+    tainted.append(proc)
+    proc.call(how, error, timeout=60)
+
+
+def _steps_raise(error):
+    """In a worker's process: every photon step raises ``error``."""
+    from repro_torch.core import simulator as S
+
+    def step(*args, **kw):
+        raise error
+
+    S.photon_steps = step
+
+
+def _library_fails(error):
+    """In a worker's process: the kernel's library cannot be built, and
+    every photon step asks for it, as a launch on the card does."""
+    from repro_torch.core import simulator as S
+    from repro_torch.kernels.photon_step import photon_step as K
+
+    def fail(groups):
+        raise error
+
+    K._LIBRARIES.clear()
+    K._load_library = fail
+    S.photon_steps = lambda *args, **kw: K._library(0)
+
+
+def test_pool_real_dispatch_error_is_retried_and_surfaced(one_run, tainted):
+    """An error in a worker's process that a retry may cure (here a
     RuntimeError, as a lost device raises) is retried up to the policy's
     cap and surfaced as the quarantined chunk's cause."""
     vol, cfg, _ = one_run
     pool = DevicePool(vol, cfg, [_cpu("lost")],
                       retry_policy=RetryPolicy(max_attempts=2))
-
-    def lost():
-        raise RuntimeError("device lost")
-
-    _failing_worker(pool, "lost", lost)
+    _fail_in(pool, "lost", _steps_raise, RuntimeError("device lost"),
+             tainted)
     with pytest.raises(ChunkQuarantinedError) as ei:
         pool.run(100, 100, seed=SEED, deadline_s=60)
     assert isinstance(ei.value.__cause__, RuntimeError)
     assert "device lost" in str(ei.value.__cause__)
 
 
-def _raise(error):
-    def run():
-        raise error
-    return run
-
-
-def _library_fails(monkeypatch):
-    """The kernel's library cannot be built: its first launch raises."""
-    from repro_torch.kernels.photon_step import photon_step as K
-
-    def fail(groups):
-        raise K.KernelError("nvcc failed (1): injected by the test")
-
-    monkeypatch.setattr(K, "_LIBRARIES", {})
-    monkeypatch.setattr(K, "_load_library", fail)
-    return lambda: K._library(0)
-
-
-def _launch_fails(monkeypatch):
+def _kernel_error(msg):
     from repro_torch.kernels.photon_step.photon_step import KernelError
-    return _raise(KernelError("photon_step kernel launch failed: "
-                              "injected by the test (1)"))
+    return KernelError(msg)
 
 
-def _overflow_flagged(monkeypatch):
-    return _raise(OverflowError("a photon-step launch met a fixed-point "
-                                "deposit or sum beyond 2**63 - 1 units "
-                                "(injected by the test)"))
-
-
-def _jac_col_flagged(monkeypatch):
-    return _raise(ValueError("a photon-step launch got a jac_col outside "
-                             "[0, jac_cols) (injected by the test)"))
-
-
-@pytest.mark.parametrize("make_run", [_library_fails, _launch_fails,
-                                      _overflow_flagged, _jac_col_flagged],
-                         ids=["build", "launch", "overflow", "jac_col"])
+@pytest.mark.parametrize("how,error", [
+    (_library_fails, lambda: _kernel_error(
+        "nvcc failed (1): injected by the test")),
+    (_steps_raise, lambda: _kernel_error(
+        "photon_step kernel launch failed: injected by the test (1)")),
+    (_steps_raise, lambda: OverflowError(
+        "a photon-step launch met a fixed-point deposit or sum beyond "
+        "2**63 - 1 units (injected by the test)")),
+    (_steps_raise, lambda: ValueError(
+        "a photon-step launch got a jac_col outside [0, jac_cols) "
+        "(injected by the test)")),
+], ids=["build", "launch", "overflow", "jac_col"])
 def test_pool_raises_kernel_errors_instead_of_moving_the_work(
-        one_run, monkeypatch, make_run):
-    """The kernel's build and launch errors and what its launches flag
-    end the run: a healthy worker beside the failing one must not take
-    its chunks (in a fleet of a card and a CPU, that would carry the
-    card's work on in the plain version).  The first worker stands in
-    for the card, its round loop failing as the kernel would."""
+        one_run, tainted, how, error):
+    """The kernel's build and launch errors and what its launches flag,
+    raised in a worker's process, end the run with that process's
+    message: a healthy worker beside the failing one must not take its
+    chunks (in a fleet of a card and a CPU, that would carry the card's
+    work on in the plain version).  The first worker stands in for the
+    card, its round loop failing in its process as the kernel would."""
     vol, cfg, _ = one_run
     pool = DevicePool(vol, cfg, [_cpu("card", n_lanes=64), _cpu("cpu")],
                       retry_policy=RetryPolicy(max_attempts=12,
                                                quarantine_after=50))
-    _failing_worker(pool, "card", make_run(monkeypatch))
+    _fail_in(pool, "card", how, error(), tainted)
     with pytest.raises((RuntimeError, OverflowError, ValueError),
                        match="injected by the test") as ei:
         pool.run(800, 100, seed=SEED, deadline_s=120)
     assert not isinstance(ei.value, ChunkQuarantinedError)
+    assert type(ei.value) is type(error())
+    assert "raised in the process of cpu:0" in "".join(ei.value.__notes__)
     assert pool.workers[0].failures == 0  # raised, not retried
+
+
+def test_a_pickled_kernel_error_ends_a_pool_run_alone(one_run, tainted):
+    """A KernelError from the only worker's process: the run ends with
+    it, nothing is retried, and no chunk is merged."""
+    from repro_torch.kernels.photon_step.photon_step import KernelError
+    vol, cfg, _ = one_run
+    pool = DevicePool(vol, cfg, [_cpu("card")])
+    _fail_in(pool, "card", _steps_raise,
+             KernelError("photon_step kernel launch failed: in a child"),
+             tainted)
+    with pytest.raises(KernelError, match="in a child") as ei:
+        pool.run(300, 100, seed=SEED, deadline_s=60)
+    pid = procs.child("cpu", 0).pid
+    assert pid != os.getpid()
+    assert f"pid {pid}" in "".join(ei.value.__notes__)
+    assert pool.workers[0].n_merged == 0 and pool.workers[0].failures == 0
+
+
+def test_a_worker_process_killed_mid_run_fails_its_dispatch(one_run,
+                                                            monkeypatch):
+    """The process of a worker is killed right after its first chunk is
+    sent: the dispatch fails (counted, retried on a new process), no
+    chunk is lost, and the totals are one run's bits."""
+    vol, cfg, want = one_run
+    sent = []
+    submit = procs.DeviceProcess.submit
+
+    def kill_first(self, op, work=None, args=()):
+        pending = submit(self, op, work, args)
+        if op == "sim" and not sent:
+            sent.append(self.pid)
+            os.kill(self.pid, signal.SIGKILL)
+        return pending
+
+    monkeypatch.setattr(procs.DeviceProcess, "submit", kill_first)
+    pool = DevicePool(vol, cfg, [_cpu("w")])
+    got, rep = pool.run_fixed(800, 200, seed=SEED, deadline_s=120)
+    assert_same_totals(got, want)
+    assert rep.dispatch_failures == 1 and rep.retries == 1
+    assert rep.merged == rep.n_chunks == 4
+    assert "ended with exit code -9" in rep.chunk_failures[0][0]
+    assert procs.child("cpu", 0).pid not in sent  # a new process
+
+
+def _as_card(monkeypatch):
+    """Worker ``card`` stands for a card: its bit-class is ``cuda``,
+    though its process runs on the CPU."""
+    monkeypatch.setattr(DeviceSpec, "bit_class", property(
+        lambda spec: "cuda" if spec.label == "card" else "cpu"))
+
+
+def _cuda_error():
+    return RuntimeError("CUDA error: an illegal memory access was "
+                        "encountered (injected by the test)")
+
+
+def test_a_cuda_error_in_the_card_worker_ends_the_run_there(
+        one_run, tainted, monkeypatch):
+    """The CUDA runtime's error in the card worker's process (as an
+    asynchronous fault surfaces at the round's host read) ends the run
+    as a KernelError, ends that process, and hands none of the card's
+    chunks to the CPU worker: not retried, not re-bound."""
+    from repro_torch.kernels.photon_step.photon_step import KernelError
+    vol, cfg, _ = one_run
+    _as_card(monkeypatch)
+    rebound = []
+    monkeypatch.setattr(DevicePool, "_report_rebound",
+                        lambda self, task: rebound.append(task))
+    for bind in (True, False):
+        pool = DevicePool(vol, cfg, [_cpu("card", n_lanes=64), _cpu("cpu")],
+                          bind_classes=bind,
+                          retry_policy=RetryPolicy(max_attempts=12,
+                                                   quarantine_after=2))
+        _fail_in(pool, "card", _steps_raise, _cuda_error(), tainted)
+        card = procs.child("cpu", 0)
+        with pytest.raises(KernelError, match="illegal memory access"):
+            pool.run(800, 100, seed=SEED, deadline_s=120)
+        assert not card.alive()  # its context may be broken
+        assert pool.workers[0].failures == 0 and not rebound
+
+
+@pytest.mark.parametrize("lost", ["dropout", "killed"])
+def test_a_lost_card_worker_hands_its_chunks_on_only_after_a_dropout(
+        one_run, monkeypatch, lost):
+    """A card worker and a CPU worker, the chunks bound to the two in
+    turn.  A card worker that leaves by a scheduled dropout has its
+    chunks re-bound to the CPU (the fleet lost the device).  One whose
+    process dies at every chunk is quarantined after its failures, and
+    then its chunks stay the card's: the run raises instead of carrying
+    the card's work on in the CPU's plain version."""
+    vol, cfg, want = one_run
+    _as_card(monkeypatch)
+    inj = None
+    if lost == "dropout":
+        inj = FaultInjector(dropout={"card": 0})
+    else:
+        submit = procs.DeviceProcess.submit
+
+        def kill_card(self, op, work=None, args=()):
+            fut = submit(self, op, work, args)
+            if op == "sim" and self.slot == 0:
+                os.kill(self.pid, signal.SIGKILL)
+            return fut
+
+        monkeypatch.setattr(procs.DeviceProcess, "submit", kill_card)
+    pool = DevicePool(vol, cfg, [_cpu("card"), _cpu("cpu")],
+                      fault_injector=inj,
+                      retry_policy=RetryPolicy(max_attempts=12,
+                                               quarantine_after=2))
+    if lost == "dropout":
+        got, rep = pool.run_fixed(800, 100, seed=SEED, deadline_s=120)
+        assert_same_totals(got, want)
+        assert rep.rebound == 4 and rep.merged == rep.n_chunks == 8
+        return
+    with pytest.raises(PoolExhaustedError,
+                       match="does not move to another device type") as ei:
+        pool.run(800, 100, seed=SEED, deadline_s=120)
+    assert isinstance(ei.value.__cause__, procs.ChildDied)
+    assert pool.workers[0].health == QUARANTINED
+    assert pool.workers[1].n_merged <= 4  # its own chunks only
 
 
 def test_pool_raises_refused_arguments_instead_of_retrying(one_run):
@@ -378,8 +521,8 @@ def test_pool_exhausted_when_every_worker_drops(one_run):
 
 def test_pool_deadline_bounds_a_run_and_stops_its_chunks(one_run):
     """A run past ``deadline_s`` raises instead of waiting, and the chunk
-    still in a worker's thread stops at its next round instead of
-    holding the process."""
+    still in a worker's process stops at its next round instead of
+    holding that process."""
     vol, cfg, _ = one_run
     hung = DevicePool(vol, cfg, [_cpu(throttle_s=30.0)])
     with pytest.raises(TimeoutError, match="deadline_s"):
@@ -388,12 +531,8 @@ def test_pool_deadline_bounds_a_run_and_stops_its_chunks(one_run):
     t0 = time.monotonic()
     with pytest.raises(TimeoutError):
         long.run(10**6, 10**6, seed=SEED, deadline_s=0.5)
-    deadline = time.monotonic() + 30
-    while time.monotonic() < deadline and any(
-            t.name.startswith("pool-") for t in threading.enumerate()):
-        time.sleep(0.05)
-    assert not any(t.name.startswith("pool-")
-                   for t in threading.enumerate())
+    # the worker's process is free again once its chunk has stopped
+    assert procs.child("cpu", 0).call(int, "3", timeout=30) == 3
     assert time.monotonic() - t0 < 30
 
 
@@ -442,6 +581,16 @@ def test_pool_crash_resume_bit_identity(tmp_path):
     other = DevicePool(vol, cfg, [_cpu()], **kw, checkpointer=ckpt)
     with pytest.raises(ValueError, match="different campaign"):
         other.run(600, 150, seed=SEED + 1, resume=True)
+
+
+def test_elastic_round_with_more_chunks_than_devices(one_run):
+    """Four chunks over two devices in one round: two queue on each
+    device's process, and the totals are one run's bits."""
+    vol, cfg, want = one_run
+    sim = ElasticSimulator(vol, cfg, 800, 200, n_lanes=LANES, seed=SEED)
+    assert sim.run_round(devices=["cpu", "cpu"], max_chunks=4) == 4
+    assert not sim.pending
+    assert_same_totals(sim.totals(), want)
 
 
 def test_elastic_requeue_goes_to_the_back_and_caps_attempts():
