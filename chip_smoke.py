@@ -75,6 +75,18 @@ script exits non-zero and prints no result:
            sequential, the cache counters and spans from a Tracer, and
            one mid-run batched launch of each fleet held bit-equal to
            the plain version, timed, with its bound
+  host     the CPU device's kernel (csrc/photon_step_cpu.cpp, built
+           with g++ at first use) on the card machine's host, at the
+           shapes the CPU runs: B1 and B2 base and the detection forward
+           at CPU_LANES lanes (K=16, mid-run), base/x8 and det/x8 batched
+           at as many lanes, and every launch of both replay passes on
+           HOST_RECORDS of the detect run's records; each at one thread
+           and on every core, adding into run totals, every output
+           bit-equal to the plain version, the comparison failing on
+           index mutations; ms a launch at both thread counts and the
+           plain version's, live lane-segments, a bound from the host's
+           vector peak and a measured copy rate; B1 photons/ms on the CPU
+           alone at one thread and on every core
   multidevice  the paths above one device, each device in a process
            of its own (core/procs.py; every process warm before a timed
            run), each against an earlier phase's result: B2 (10^7
@@ -82,7 +94,8 @@ script exits non-zero and prints no result:
            total bit-equal to the main run; the paper's mixed fleet on
            B1: card and CPU fitted by pilots in their processes,
            partitioned S1-S3, the S3 partition run over [cuda:0, cpu]
-           (shares, seconds, predicted and measured makespans); the
+           (shares, the CPU's S3 share, its host-kernel launches,
+           seconds, predicted and measured makespans); the
            CPU's photons run again on the card, cell by cell (CPU
            against CUDA bits); the resilience pool on B1 (2 10^6
            photons, 8 chunks, three workers on the card, one throttled)
@@ -99,7 +112,9 @@ script exits non-zero and prints no result:
            the main, detect and scenario runs, error against the plain
            version, times and bound at the shapes those runs give the
            variant; K1's weighted by the main runs' launches of each
-           template instantiation)
+           template instantiation), and the host kernel's (route "host":
+           its launches in the mixed fleet's CPU share, its times on
+           every core at that shape)
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or without the repository's ``src/`` beside it, the script
@@ -192,23 +207,24 @@ DETECT_ARGV = ["--bench", "B2", "--photons", str(PHOTONS), "--lanes",
                "--replay-gate-resolved", "--collect-stats"]
 # the multidevice phase: B2 over two shards of one card, split 0.7 /
 # 0.3; the mixed CPU+GPU fleet on B1 (the volume of the reference's
-# Fig. 3b pilot; on B2 the CPU's plain version takes over 15 s for the
-# longest trajectories alone), fitted by pilots (the card at the paper's
-# 10^6 and 5 10^6 photons, the CPU, at CPU_LANES lanes, at one and
-# sixteen times its lanes: a CPU pilot's wall is its longest trajectory's
-# segments, ~7.5 s on the card machine's CPU whatever its photons, so
-# the second pilot needs ~6 s of photons beyond it for the slope to
-# stand above that spread; at four times, PR 17 c5 fitted a negative
-# slope) and given the budget whose S3
+# Fig. 3b pilot), fitted by pilots (the card at the paper's 10^6 and
+# 5 10^6 photons, the CPU's host kernel, at CPU_LANES lanes on the cores
+# the card's process leaves, at eight and 32 times its lanes: on the card
+# machine's host 8192 lanes ran B1 fastest on 7 threads, 44.9-45.8
+# photons/ms against 28.1-29.3 at 2048 and 38.1-38.5 at 32768 lanes
+# (launch/multidevice_timing.py), and a pilot of fewer photons is mostly
+# its longest trajectory's rounds: pilots at two and 16 times the lanes
+# fitted 64.7 photons/ms, and the share then ran at 36.2) and given
+# the budget whose S3
 # makespan is the CPU's fitted overhead plus MIXED_MARGIN_S, within
 # MIXED_MAKESPAN_S (the margin sets most of the phase's time); the pool
 # on B1 with POOL_PHOTONS in chunks of POOL_CHUNK, three workers on the
 # card, one throttled, under a seeded chaos schedule
 SHARD_SPLIT = 0.7
-CPU_LANES = 2048
+CPU_LANES = 8192
 GPU_PILOT = (1_000_000, 5_000_000)
 GPU_PILOT_REPEATS = 3
-CPU_PILOT = (CPU_LANES, 16 * CPU_LANES)
+CPU_PILOT = (8 * CPU_LANES, 32 * CPU_LANES)
 MIXED_MARGIN_S, MIXED_MAKESPAN_S = 1.5, (4.0, 15.0)
 POOL_PHOTONS, POOL_CHUNK = 2_000_000, 250_000
 POOL_THROTTLE_S, POOL_TIMEOUT_S = 0.5, 0.3
@@ -217,6 +233,19 @@ POOL_THROTTLE_S, POOL_TIMEOUT_S = 0.5, 0.3
 # worker w1 leaves the fleet after two
 POOL_CHAOS = dict(seed=4, p_fail=0.25, p_nan=0.25, p_delay=0.25,
                   delay_s=0.4, dropout={"w1": 2})
+# the host phase: the host kernel at the shapes the CPU runs (the mixed
+# fleet's share: CPU_LANES lanes, K = 16; the detection forward and two
+# batched fleets of 8 scenarios at as many lanes; HOST_RECORDS of the
+# detect run's records replayed, both passes), at one thread and on
+# every core, against the plain version; B1 on the CPU alone at
+# HOST_SIM_PHOTONS photons.  The host's bound: float32 lanes of a vector
+# at torch's CPU capability, HOST_VECTOR_OPS vector operations a cycle
+# a core (two FMA ports), at the clock /proc/cpuinfo reports, and the
+# memory rate of a copy measured in the phase
+HOST_RECORDS = 2048
+HOST_SIM_PHOTONS = 65536
+HOST_VECTOR_LANES = {"AVX512": 16, "AVX2": 8}
+HOST_VECTOR_OPS = 2
 # the port's tolerance between two arithmetics (its tests against the
 # JAX package, tests/test_torch_simulator.py): totals within 2e-3 of the
 # launched weight, fluence within 1e-3 of its largest cell
@@ -608,6 +637,176 @@ def launched_kernels() -> int:
     return sum(K.photon_step_cuda.launches_by.values())
 
 
+def host_clock_hz() -> float:
+    """The host's fastest core clock, as /proc/cpuinfo reports it."""
+    with open("/proc/cpuinfo") as f:
+        mhz = [float(ln.split(":")[1]) for ln in f if ln.startswith("cpu MHz")]
+    check(bool(mhz), "/proc/cpuinfo reports no clock")
+    return max(mhz) * 1e6
+
+
+def host_memory_rate(threads: int) -> float:
+    """Bytes a second of a 256 MiB float32 copy on the host (read and
+    written), the best of three, on ``threads`` threads."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    try:
+        src = torch.ones(1 << 26)
+        dst = torch.empty_like(src)
+        best = math.inf
+        for _ in range(3):
+            t0 = time.perf_counter()
+            dst.copy_(src)
+            best = min(best, time.perf_counter() - t0)
+    finally:
+        torch.set_num_threads(saved)
+    return 2 * src.numel() * 4 / best
+
+
+def host_phase(card, records, cfg_detect) -> dict:
+    """The host kernel (csrc/photon_step_cpu.cpp, built with g++) on the
+    card machine's CPU, at the shapes the CPU runs: each case at one
+    thread and on every core, every output bit-equal to the plain
+    version and between the two, adding into run totals as the
+    simulator and the replay launch it; the comparison shown to catch
+    index mutations; times per launch, the host's bound; B1 photons/ms
+    on the CPU alone.  Returns the kernels-line row of the mixed fleet's
+    shape (its launches come from the multidevice phase)."""
+    from repro_torch import replay as R
+    from repro_torch.detectors import as_detectors, det_geometry
+    from repro_torch.kernels.photon_step import photon_step_cpu as H
+    from repro_torch.kernels.photon_step import spec
+    from repro_torch.launch import host_timing as HT
+    from repro_torch.launch.simulate import get_bench
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    n_threads = HT.cores()
+    threads = (1, n_threads)
+    build_s = H.load()
+    capability = torch.backends.cpu.get_cpu_capability()
+    clock = host_clock_hz()
+    peak_ops = (n_threads * HOST_VECTOR_LANES.get(capability, 4)
+                * HOST_VECTOR_OPS * clock)
+    mem_rate = host_memory_rate(n_threads)
+    host = HT.cpu_name()
+    emit("host", item="env", card=card, cpu=host, capability=capability,
+         math=H.math_library(), build_s=build_s, threads=list(threads),
+         clock_hz=clock, peak_f32_ops_per_s=peak_ops,
+         memory_bytes_per_s=mem_rate, library=H.library_path().name)
+    rows = {}
+
+    def hold(name, args, kw, reps=HT.REPS, mutations=False):
+        out = HT.time_launch(args, kw, threads, reps)
+        got, want = out.pop("got"), out.pop("want")
+        check(all(out["bit_equal"].values()), f"host kernel, {name}: not "
+              f"bit-equal to the plain version ({out['bit_equal']})")
+        lanes = args[2].w.numel()
+        tol = cell_tol(lanes, args[6])
+        diffs, fails = measure(got, want, tol)
+        check(not fails, f"host kernel, {name}: {fails}")
+        if mutations:
+            out["mutations_seen"] = check_sees_index_errors(
+                got, want, args[3], args[5].n_time_gates, tol)
+        # each lane's state read and written, its escaped and timed-out
+        # weight written, each grid cell the launch reached read and
+        # written once (the run totals it adds into)
+        cells = sum(int((g != 0).sum()) for g in HT.grids(want, kw))
+        moved = (2 * spec.STATE_LANE_BYTES_PORT + 8) * lanes + 16 * cells
+        bound = {"bytes": moved / mem_rate * 1e3,
+                 "operations": (F32_OPS_PER_SEGMENT + MUFU_OPS_PER_SEGMENT)
+                 * out["live_segments"] / peak_ops * 1e3}
+        bound_by = max(bound, key=bound.get)
+        row = {"lanes": lanes, "k": args[6], "scenarios":
+               spec.scenario_count(args[1])[0], "ms": out["ms"][n_threads],
+               "ms_1_thread": out["ms"][1], "plain_ms": out["plain_ms"],
+               "plain_threads": out["plain_threads"],
+               "live_segments": out["live_segments"],
+               "ns_per_segment_thread": out["ns_per_segment_thread"],
+               "cells_reached": cells, "bytes_ms": bound["bytes"],
+               "operations_ms": bound["operations"],
+               "bound_ms": bound[bound_by], "bound_by": bound_by,
+               "max_abs_err": diffs["max_abs_err"]}
+        rows[name] = row
+        emit("host", item=name, card=card, bit_equal=out["bit_equal"],
+             mutations_seen=out.get("mutations_seen"), **row)
+
+    # the mixed fleet's shape and the detection forward, mid-run
+    for name, bench, detect in (("B1 base", "B1", False),
+                                ("B2 base", "B2", False),
+                                ("detection forward", "B2", True)):
+        vol, cfg = HT.case(bench, SIZE, detect)
+        st, pp = HT.mid_flight(vol, cfg, CPU_LANES, detect)
+        hold(name, (vol.labels.reshape(-1), vol.media, st, vol.shape,
+                    vol.unitinmm, cfg, K_MAIN),
+             HT.group_kwargs(vol, CPU_LANES, detect, pp),
+             mutations=not detect)
+
+    # two batched fleets of 8 scenarios, CPU_LANES lanes a launch: B1
+    # replicates (base/x8) and B2 with 50 gates and three detectors
+    # (det/x8), each scenario mid-run from its own seed
+    for name, bench, detect in (("base/x8", "B1", False),
+                                ("det/x8", "B2", True)):
+        vol, cfg = HT.case(bench, SIZE, detect)
+        per = CPU_LANES // SCENARIOS
+        runs = [HT.mid_flight(vol, cfg, per, detect, seed=s)
+                for s in range(SCENARIOS)]
+        st = type(runs[0][0])(*[torch.cat(x) for x in
+                                zip(*[r[0] for r in runs])])
+        kw = {}
+        if detect:
+            kw = dict(ppath=torch.cat([r[1] for r in runs]),
+                      det_geom=det_geometry(as_detectors(DETECTORS))[
+                          None].repeat(SCENARIOS, 1, 1))
+        hold(name, (vol.labels.reshape(-1),
+                    vol.media[None].repeat(SCENARIOS, 1, 1).contiguous(),
+                    st, vol.shape, vol.unitinmm, cfg, K_MAIN), kw)
+
+    # the replay's two passes on HOST_RECORDS of the detect run's records,
+    # each launch kept as the replay makes it, then held on its own inputs
+    vol_d = get_bench("B2", SIZE, cpu)[0]
+    geom = det_geometry(as_detectors(DETECTORS), cpu)
+    jac_cols = len(DETECTORS) * NTG_DETECT
+    kept = collections.defaultdict(list)
+
+    def keep(*args, **kw):
+        kept[PASS_A if "ppath" in kw else PASS_B].append(
+            (args, {k: v for k, v in kw.items() if k != "totals"}))
+        return H.photon_step_host(*args, **kw)
+
+    batch = records[:HOST_RECORDS]
+    n = batch.shape[0]
+    fn = R._build_replay_fn(vol_d.shape, vol_d.unitinmm, cfg_detect, n, None,
+                            geom, jac_cols, step=keep)
+    _, id_lo, id_hi, col, active = R._batch_arrays(batch, 0, n, True,
+                                                   NTG_DETECT)
+    nvox, n_media = SIZE**3, vol_d.media.shape[0]
+
+    def zeros(*size):
+        return torch.zeros(size, dtype=torch.int64)
+
+    fn(vol_d.labels.reshape(-1), vol_d.media, *(torch.tensor(x) for x in (
+        id_lo.astype(np.int64), id_hi.astype(np.int64), col, active)), SEED,
+       zeros(nvox * jac_cols), [zeros(nvox * NTG_DETECT), zeros(SIZE * SIZE),
+                                zeros(len(DETECTORS) * NTG_DETECT),
+                                zeros(len(DETECTORS), n_media)])
+    for g, label in ((PASS_A, "replay pass A"), (PASS_B, "replay pass B")):
+        check(len(kept[g]) >= 1, f"the replay made no {label} launch")
+        for i, (args, kw) in enumerate(kept[g]):
+            hold(f"{label}, launch {i + 1} of {len(kept[g])}", args, kw,
+                 reps=1)
+
+    # B1 on the CPU alone, as the mixed fleet's CPU process runs it
+    vol1, cfg1 = HT.case("B1", SIZE)
+    sims = [HT.sim_rate(vol1, cfg1, HOST_SIM_PHOTONS, CPU_LANES, t)
+            for t in threads]
+    emit("host", item="B1 on the CPU", card=card, cpu=host["model"],
+         size=SIZE, runs=sims)
+    emit("host", item="phase", card=card,
+         seconds=time.perf_counter() - t_phase)
+    return rows["B1 base"]
+
+
 def multidevice_phase(card, main_b2, fleet, fleet_alone, records, replay,
                       cfg_detect, device: str = "cuda") -> None:
     """Items 1-5 of the multidevice phase on ``device`` (the card; the
@@ -615,7 +814,8 @@ def multidevice_phase(card, main_b2, fleet, fleet_alone, records, replay,
     card against the main run, the mixed CPU+GPU fleet partitioned
     S1-S3, the CPU against the card bit for bit, the pool under chaos,
     and the mesh of scenarios and replay against the scenarios and
-    detect phases.  Every check raises."""
+    detect phases.  Every check raises.  Returns the host kernel's
+    launches in the mixed fleet's run (its CPU share)."""
     from repro_torch import replay as R
     from repro_torch import scenarios as SC
     from repro_torch import telemetry as T
@@ -740,6 +940,10 @@ def multidevice_phase(card, main_b2, fleet, fleet_alone, records, replay,
     K.reset_launches()
     shards, wall = timed(lambda: mixed_fn(counts, offsets, SEED))
     mixed_launches = launched("mixed fleet")
+    host_launches = {k: n for k, n in K.photon_step_cuda.launches_by.items()
+                     if k.startswith("host/")}
+    check(sum(host_launches.values()) > 0,
+          "mixed fleet: the CPU's share never launched the host kernel")
     mixed = S.merge_fixed(shards)
     res = S.to_sim_result(mixed)
     bal = A.energy_balance(res)
@@ -757,6 +961,7 @@ def multidevice_phase(card, main_b2, fleet, fleet_alone, records, replay,
          ideal_makespan_s=LB.ideal_makespan(budget, models),
          measured_makespan_s=wall,
          measured_over_predicted_s3=wall / predicted["S3"],
+         cpu_share_s3=counts[1] / budget, host_launches=host_launches,
          shares=[{"device": m.name, "photons": n, "seconds": t,
                   "photons_per_ms": n / t / 1e3,
                   "predicted_s": m.predict(n),
@@ -895,6 +1100,7 @@ def multidevice_phase(card, main_b2, fleet, fleet_alone, records, replay,
          processes={f"{lab}/{slot}": p.pid
                     for (lab, slot), p in procs.children().items()},
          parent_pid=os.getpid())
+    return sum(host_launches.values())
 
 
 def lint_phase(card) -> None:
@@ -1710,8 +1916,11 @@ def main() -> None:
              plain_ms=plain_ms, live_segments=live, captures=captures,
              cells_touched=touched, **bound, **diffs)
 
+    # --- host: the CPU device's kernel against the plain version -------------
+    host_row = host_phase(card, rec, cfg_detect)
+
     # --- multidevice: shards, the mixed fleet, the pool, the mesh --------------
-    multidevice_phase(
+    host_launches = multidevice_phase(
         card, main_runs["B2"], fleet=fleets["optode sweep"][0],
         fleet_alone=alone_runs["optode sweep"], records=rec,
         replay=rep_detect, cfg_detect=cfg_detect)
@@ -1777,7 +1986,18 @@ def main() -> None:
         "ms": row["ms"], "host_loop_ms": row["host_loop_ms"],
         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": None}
-        for fleet_name, row in scen_rows.items()]}), flush=True)
+        for fleet_name, row in scen_rows.items()] + [{
+        "name": "photon_step_host", "route": "host",
+        "source": "src/repro_torch/kernels/photon_step/csrc/"
+                  "photon_step_cpu.cpp",
+        "replaces": "src/repro/kernels/photon_step/photon_step.py:396",
+        "device": "cpu", "variant": "host/noreflect/exact/base",
+        "path": "multidevice: the mixed fleet's CPU share (B1)",
+        "launches": host_launches, "max_abs_err": host_row["max_abs_err"],
+        "ms": host_row["ms"], "ms_1_thread": host_row["ms_1_thread"],
+        "plain_ms": host_row["plain_ms"], "bound_ms": host_row["bound_ms"],
+        "bound_by": host_row["bound_by"], "library_ms": None,
+        "lanes": host_row["lanes"], "k": host_row["k"]}]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,11 +27,12 @@ lock to each other between every two of them.  A child process:
 Children live in a registry keyed by ``(device label, slot)`` (the
 slot tells apart two workers of one device), are reused across calls
 and closed at exit, so a test module or a smoke phase pays the spawn
-(about 2 s on the CPU) once.  A CPU child runs on one intra-op
-thread: on the card machine's host one ran the plain version as fast
-as seven at 2048 and 32768 lanes and 1.4-1.8 times faster at 8192
-(``launch/multidevice_timing.py``), and it leaves each card's process
-its cores.
+(about 2 s on the CPU) once.  A CPU child runs the host kernel on the
+cores the run's card processes leave (:func:`cpu_threads`: this
+process's cores less one for each card process of the run, shared among
+the run's CPU processes): each request carries its run's device types,
+and the child sets torch's intra-op threads from them before it runs.
+The bits do not depend on the thread count.
 
 :func:`run_all` runs one request a device and returns when every one
 has ended: a single request runs in the calling process, as the
@@ -370,8 +371,25 @@ class Reply(NamedTuple):
 _CHILD: dict = {}
 
 
+def cpu_threads(run: Sequence[str]) -> int:
+    """Intra-op threads of a CPU process of a run whose processes run
+    on the device types ``run`` (``"cuda"``, ``"cpu"``, one a process):
+    the cores this process may use, less one for each card process (its
+    host thread), shared among the run's CPU processes; at least one."""
+    cards = sum(t == "cuda" for t in run)
+    cpus = max(1, sum(t == "cpu" for t in run))
+    return max(1, (len(os.sched_getaffinity(0)) - cards) // cpus)
+
+
+def run_types(devices) -> tuple[str, ...]:
+    """The device type of each process of a run on ``devices``."""
+    return tuple(torch.device(d).type for d in devices)
+
+
 def _init_child(device_name: str, label: str, cancel_slot) -> None:
-    """A child's initializer: the state it keeps for its device."""
+    """A child's initializer: the state it keeps for its device.  A CPU
+    child starts on one intra-op thread; each request of a run sets its
+    share (:func:`cpu_threads`)."""
     if torch.device(device_name).type == "cpu":
         torch.set_num_threads(1)
     _CHILD.update(state=_State(torch.device(device_name)),
@@ -379,8 +397,9 @@ def _init_child(device_name: str, label: str, cancel_slot) -> None:
                   cancel=cancel_slot)
 
 
-def _serve(token: int, op: str, key, work, args) -> Reply:
-    """One request in a child.  Every error becomes the reply's value.
+def _serve(token: int, op: str, key, work, args, run=()) -> Reply:
+    """One request in a child; ``run`` is its run's device types, which
+    set a CPU child's threads.  Every error becomes the reply's value.
     The CUDA runtime's own errors become a ``KernelError`` and end the
     process, whose context they may have broken: the work must not go
     on there, nor anywhere off the card."""
@@ -388,6 +407,8 @@ def _serve(token: int, op: str, key, work, args) -> Reply:
 
     state, where = _CHILD["state"], _CHILD["where"]
     dev = state.device
+    if dev.type == "cpu" and run:
+        torch.set_num_threads(cpu_threads(run))
     before = _launch_counts()
     t0 = time.perf_counter()  # reprolint: disable=REP201 - a request's wall seconds and deadlines, beside the result
     events = None
@@ -445,6 +466,9 @@ class DeviceProcess:
         (self._proc,) = self._pool._processes.values()
         self._tokens = itertools.count(1)
         self._sent: set[str] = set()
+        # the device type of each process of the run this one serves
+        # (run_types), set by the caller: a CPU child's threads
+        self.run: tuple[str, ...] = ()
         self.dead: str | None = None
 
     @property
@@ -463,14 +487,17 @@ class DeviceProcess:
 
     def submit(self, op: str, work: Work | None = None, args=()) -> Future:
         """Send one request; returns its future at once.  The work's
-        arrays cross only the first time this child is sent that work."""
+        arrays cross only the first time this child is sent that work.
+        The request carries ``self.run``, from which a CPU child takes
+        its threads."""
         token = next(self._tokens)
         key = None if work is None else work.key
         send = work if work is not None and key not in self._sent else None
         try:
             if self.dead is not None:
                 raise BrokenProcessPool(self.dead)
-            fut = self._pool.submit(_serve, token, op, key, send, args)
+            fut = self._pool.submit(_serve, token, op, key, send, args,
+                                    self.run)
         except (BrokenProcessPool, RuntimeError) as e:
             raise ChildDied(self._died()) from e
         if key is not None:
@@ -649,10 +676,12 @@ def run_all(jobs: Sequence[Job], timeout: float | None = None) -> list[Reply]:
         return [Reply(0, True, value, _launch_counts() - before, wall, wall,
                       os.getpid(), torch.get_num_threads())]
     futures = []
+    run = run_types(j.device for j in jobs)
     try:
         for j in jobs:
-            futures.append(child(j.device, j.slot).submit(j.op, j.work,
-                                                          j.args))
+            proc = child(j.device, j.slot)
+            proc.run = run
+            futures.append(proc.submit(j.op, j.work, j.args))
     except BaseException:
         for f in futures:
             abandon(f)

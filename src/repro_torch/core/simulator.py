@@ -12,7 +12,7 @@ The loop runs in fused rounds of ``K = cfg.steps_per_round`` transport
 segments: regeneration runs once per round, then one photon-step call
 advances every lane K segments and adds the round's fluence and
 exitance into the run's totals.  On a CUDA device that call is the
-hand-written kernel, on the CPU its plain PyTorch version
+hand-written CUDA kernel, on the CPU the hand-written host kernel
 (``kernels/photon_step/ops.py``).
 
 The round loop runs S scenarios at once (``build_batched_fn``, which

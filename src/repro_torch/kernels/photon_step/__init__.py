@@ -1,1 +1,2 @@
-"""Photon-step kernel: CUDA kernel, plain PyTorch version, dispatcher."""
+"""Photon-step kernel: CUDA kernel, host kernel, plain PyTorch version,
+dispatcher."""

@@ -1,9 +1,12 @@
 """Public entry points of the photon-step kernel.
 
 ``photon_steps`` dispatches by the device of the photon state: CUDA
-tensors go to the hand-written kernel (``photon_step.photon_step_cuda``),
-CPU tensors to its plain PyTorch version (``ref.photon_steps_ref``).
-There is no fallback from one to the other.
+tensors go to the hand-written CUDA kernel
+(``photon_step.photon_step_cuda``), CPU tensors to the hand-written host
+kernel (``photon_step_cpu.photon_step_host``).  There is no fallback
+from either to the other or to the plain PyTorch version
+(``ref.photon_steps_ref``), which only direct calls reach: the tests,
+``chip_smoke.py`` and the traced lint.
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ from repro_torch.core import photon as ph
 from repro_torch.core import rng as xrng
 from repro_torch.core.volume import SimConfig, Volume
 from repro_torch.kernels.photon_step.photon_step import photon_step_cuda
-from repro_torch.kernels.photon_step.ref import photon_steps_ref
+from repro_torch.kernels.photon_step.photon_step_cpu import photon_step_host
 from repro_torch.sources import as_source
 
 
@@ -26,7 +29,7 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(
             "a CUDA device was requested (the default) but "
             "torch.cuda.is_available() is false; pass device='cpu' to run "
-            "the plain PyTorch version")
+            "the host kernel on the CPU")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
@@ -50,13 +53,13 @@ def photon_steps(labels_flat, media, state, shape, unitinmm, cfg: SimConfig,
     timed_per_lane)`` and the optional output groups the arguments ask
     for (see ``ref.photon_steps_ref``: int64 fixed-point grids, added
     into ``totals`` when given, and a leading scenario axis for a
-    ``(S, n_media, 4)`` media table): the kernel for CUDA tensors, the
-    plain version for CPU tensors."""
+    ``(S, n_media, 4)`` media table): the CUDA kernel for CUDA tensors,
+    the host kernel for CPU tensors."""
     dev = state.w.device
     if dev.type == "cuda":
         fn = photon_step_cuda
     elif dev.type == "cpu":
-        fn = photon_steps_ref
+        fn = photon_step_host
     else:
         raise ValueError(f"unsupported device {dev}")
     return fn(labels_flat, media, state, shape, unitinmm, cfg, n_steps,

@@ -1,7 +1,8 @@
 """Photon-step kernel output contract.
 
 The plain version (``ref.photon_steps_ref``), the CUDA wrapper
-(``photon_step.photon_step_cuda``), the dispatcher (``ops.photon_steps``)
+(``photon_step.photon_step_cuda``), the host wrapper
+(``photon_step_cpu.photon_step_host``), the dispatcher (``ops.photon_steps``)
 and the round executor in ``repro_torch.core.simulator`` produce the same
 output groups, in the same order, gated by the same flags, and each
 asserts ``output_arity``.  The constants are plain literals, equal to
@@ -47,8 +48,8 @@ EXT_PARAMS = ("ppath", "det_geom", "record", "jac_w", "jac_col",
 #                             most 2**27 = 1.34e8 weight * mm in one cell
 # A deposit of DEPOSIT_LIMIT units or more (256 weight or weight * mm,
 # 65536 weight * mm for det_ppath), or a sum past 2**63 - 1 units,
-# raises: the kernel flags its error word (``photon_step.check_errors``),
-# the plain version raises at once, and the simulator and the replay
+# raises: the CUDA kernel flags its error word (``photon_step.check_errors``),
+# the host kernel's wrapper and the plain version raise at once, and the simulator and the replay
 # check the sign of every total at the end of a run.  A launch runs at
 # most MAX_STEPS segments, so a block's cached sum of 256 lanes' deposits
 # stays below 2**64 and its sign shows an overflow.

@@ -18,9 +18,10 @@ JSON line each, with the card's name and power limit:
                 from its process's reply
   cpu beside    the card's process running a B1 shard with the CPU's
                 process idle (zero photons), then beside a CPU shard
-                running at once: the card shard's wall, device seconds
-                and slowdown, and the CPU shard's wall and the threads
-                its process ran on
+                running at once on the cores the card's process leaves
+                (``procs.cpu_threads``): the card shard's wall, device
+                seconds and slowdown, and the CPU shard's wall and the
+                threads its process ran on
   cpu threads   the CPU's process alone running the B1 shard at
                 THREAD_LANES lanes, on one thread and on the cores a
                 card's process leaves: wall and photons/ms of each
@@ -31,7 +32,6 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-import os
 import subprocess
 import time
 
@@ -84,8 +84,8 @@ def main(argv=None) -> None:
     ap.add_argument("--photons", type=int, default=10_000_000)
     ap.add_argument("--card-photons", type=int, default=20_000_000,
                     help="photons of the card shard beside a CPU shard")
-    ap.add_argument("--cpu-photons", type=int, default=4096)
-    ap.add_argument("--cpu-lanes", type=int, default=2048)
+    ap.add_argument("--cpu-photons", type=int, default=131072)
+    ap.add_argument("--cpu-lanes", type=int, default=8192)
     ap.add_argument("--no-cpu", action="store_true",
                     help="time only the two shards of one card, not the "
                          "card beside a CPU shard")
@@ -149,9 +149,11 @@ def main(argv=None) -> None:
              cpu_shard_s=beside[1].wall_s, both_s=wall,
              slowdown=beside[0].wall_s / alone[0].wall_s)
 
-    # the CPU process's threads: its one, and what a card's process leaves
+    # the CPU process's threads: one, and what a card's process leaves;
+    # set here, not by a run's device types
     proc = procs.child(cpu, 0)
-    share = max(1, len(os.sched_getaffinity(0)) - 1)
+    proc.run = ()
+    share = procs.cpu_threads(("cuda", "cpu"))
     for lanes in THREAD_LANES:
         work = procs.sim_work(vol1, cfg1, lanes)
         for threads in (1, share):

@@ -42,7 +42,9 @@ bits of one run on one device of the same type.
 
 Runs on the CUDA device by default, where each fused round (forward,
 and both replay passes) is one launch of the CUDA photon-step kernel;
-``--device cpu`` runs the plain PyTorch version instead.
+``--device cpu`` runs each round as one launch of the host kernel
+instead (C++ built with ``g++`` at first use, on torch's intra-op
+threads).
 """
 
 from __future__ import annotations
@@ -277,8 +279,9 @@ def run(argv=None) -> Run:
                          "Perfetto; per-device photons/s feeds "
                          "telemetry.fit_device_models)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                    help="cuda: the CUDA kernel (default); cpu: the plain "
-                         "PyTorch version")
+                    help="cuda: the CUDA kernel (default); cpu: the host "
+                         "kernel (C++ built with g++ at first use, on "
+                         "torch's intra-op threads)")
     ap.add_argument("--devices", default="one", choices=["one", "all"],
                     help="all: shard the photons, the replay's records and "
                          "the scenario axis over every device of --device's "

@@ -11,8 +11,8 @@ the kernel's static shared memory fits a Hopper block.  This package
 turns them into rules, in two tiers:
 
 * the AST tier (REP101-REP701, :mod:`repro_torch.lint.rules`) parses
-  ``src/repro_torch/**`` and ``chip_smoke.py`` (and the kernel's
-  ``.cu`` as text) and never imports the code under analysis;
+  ``src/repro_torch/**`` and ``chip_smoke.py`` (and the kernels' ``.cu``
+  and ``.cpp`` as text) and never imports the code under analysis;
 * the traced tier (REP801-REP805, :mod:`repro_torch.lint.traced`)
   records the aten operations that real calls issue on the CPU.
 
@@ -23,7 +23,8 @@ Usage::
     PYTHONPATH=src python -m repro_torch.lint --format json
 
 Findings are suppressed by a same-line pragma ``# reprolint:
-disable=REP301 - why`` (``// reprolint: ...`` in the ``.cu``), the
+disable=REP301 - why`` (``// reprolint: ...`` in the ``.cu`` and the
+``.cpp``), the
 committed ``.reprolint-torch.json`` baseline (kept empty), or
 ``--rules`` selection; the traced tier by ``.tracelint-torch-allow.json``
 entries, each with a ``why`` and a ``max``.
@@ -47,7 +48,8 @@ from repro_torch.lint import astutil
 __all__ = [
     "Finding", "Module", "Context", "Rule", "LintReport", "run_lint",
     "discover_modules", "traced_closure", "normalize_line", "pragma_rules",
-    "TRACED_ENTRYPOINTS", "KERNEL_SOURCE",
+    "TRACED_ENTRYPOINTS", "KERNEL_SOURCE", "HOST_KERNEL_SOURCE",
+    "KERNEL_SOURCES",
 ]
 
 # Modules whose import closure runs photons: everything reachable (by
@@ -66,6 +68,11 @@ TRACED_ENTRYPOINTS = (
 
 # The CUDA source the mirror, determinism and shared-memory rules read
 KERNEL_SOURCE = "src/repro_torch/kernels/photon_step/csrc/photon_step.cu"
+# The host kernel's C++ source, which the mirror, determinism and dtype
+# rules read as they read the CUDA source
+HOST_KERNEL_SOURCE = ("src/repro_torch/kernels/photon_step/csrc/"
+                      "photon_step_cpu.cpp")
+KERNEL_SOURCES = (KERNEL_SOURCE, HOST_KERNEL_SOURCE)
 
 _PRAGMA_RE = re.compile(r"(?:#|//)\s*reprolint:\s*disable=([A-Za-z0-9_,\s]+)")
 

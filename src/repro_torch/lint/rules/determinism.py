@@ -17,8 +17,9 @@ which has the same bits in any order of its adds.  So:
   ``scatter_add_``, ``scatter_reduce_`` or ``index_put_(...,
   accumulate=True)`` that adds anything but int64 fixed point (a value
   made by ``to_fixed`` or converted to ``torch.int64``);
-* in the kernel's ``.cu``: every ``atomicAdd`` adds an integer type
-  (a float atomic add is order-dependent).
+* in the kernels' ``.cu`` and ``.cpp``: every ``atomicAdd`` (CUDA) and
+  ``__atomic_fetch_add`` / ``__atomic_add_fetch`` (GCC's host atomics)
+  adds an integer type (a float atomic add is order-dependent).
 
 Host-side code in a traced module (a deadline, a wall time reported
 beside a result) carries ``# reprolint: disable=REP201 - why``.
@@ -30,7 +31,7 @@ import ast
 import re
 from typing import Iterator
 
-from repro_torch.lint import KERNEL_SOURCE, Context, Finding, Module, Rule
+from repro_torch.lint import KERNEL_SOURCES, Context, Finding, Module, Rule
 from repro_torch.lint.astutil import matches_prefix, resolve_dotted
 
 BANNED_PREFIXES = (
@@ -173,21 +174,27 @@ class DeterminismRule(Rule):
             f"its adds")
 
     def _check_kernel(self, ctx: Context) -> Iterator[Finding]:
-        lines = ctx.text_lines(KERNEL_SOURCE)
-        if lines is None:
-            return
-        text = "\n".join(_code(line) for line in lines)
-        for m in re.finditer(r"\batomicAdd\s*\(", text):
-            line = text.count("\n", 0, m.start()) + 1
-            value = _last_argument(text, m.end())
-            kind = _declared_type(text[:m.start()], value)
-            if kind is None or kind not in _INT_TYPES:
-                yield Finding(
-                    rule=self.id, name=self.name, severity=self.severity,
-                    path=KERNEL_SOURCE, line=line, col=0,
-                    message=f"atomicAdd of `{value}` ({kind or 'type not '
-                            f'found'}): only integer atomics keep a sum "
-                            f"independent of the order of its adds")
+        for source in KERNEL_SOURCES:
+            lines = ctx.text_lines(source)
+            if lines is None:
+                continue
+            text = "\n".join(_code(line) for line in lines)
+            for m in _ATOMIC_ADD.finditer(text):
+                line = text.count("\n", 0, m.start()) + 1
+                # atomicAdd(p, v); __atomic_fetch_add(p, v, order)
+                args = _arguments(text, m.end())
+                value = args[-1] if m.group(1) == "atomicAdd" else (
+                    args[1] if len(args) > 1 else "")
+                kind = _declared_type(text[:m.start()], value)
+                if kind is None or kind not in _INT_TYPES:
+                    kind = kind or "type not found"
+                    yield Finding(
+                        rule=self.id, name=self.name,
+                        severity=self.severity, path=source, line=line,
+                        col=0,
+                        message=f"{m.group(1)} of `{value}` ({kind}): only "
+                                f"integer atomics keep a sum independent "
+                                f"of the order of its adds")
 
 
 def _code(line: str) -> str:
@@ -195,29 +202,36 @@ def _code(line: str) -> str:
     return line.split("//", 1)[0]
 
 
-def _last_argument(text: str, start: int) -> str:
-    """The last argument of the call whose ``(`` ends at ``start``."""
-    depth, arg_start = 0, start
+_ATOMIC_ADD = re.compile(
+    r"\b(atomicAdd|__atomic_fetch_add|__atomic_add_fetch)\s*\(")
+
+
+def _arguments(text: str, start: int) -> list[str]:
+    """The arguments of the call whose ``(`` ends at ``start``."""
+    depth, arg_start, args = 0, start, []
     for i in range(start, len(text)):
         ch = text[i]
         if ch in "([{":
             depth += 1
         elif ch in ")]}":
             if depth == 0:
-                return text[arg_start:i].strip()
+                return args + [text[arg_start:i].strip()]
             depth -= 1
         elif ch == "," and depth == 0:
+            args.append(text[arg_start:i].strip())
             arg_start = i + 1
-    return text[arg_start:].strip()
+    return args + [text[arg_start:].strip()]
 
 
 def _declared_type(before: str, value: str) -> str | None:
     """The type of the nearest declaration of the name ``value`` in the
-    text before its use (``const u64 u = ...``, ``u64 u,``), or of a
-    cast ``(float)x``."""
+    text before its use (``const u64 u = ...``, ``u64 u,``), of a cast
+    ``(float)x``, or ``int`` for an integer literal (``1``, ``1LL``)."""
     cast = re.match(r"\(\s*([A-Za-z_][\w ]*?)\s*\)", value)
     if cast:
         return cast.group(1)
+    if re.fullmatch(r"\d+[uUlL]*", value):
+        return "int"
     if not re.fullmatch(r"[A-Za-z_]\w*", value):
         return None
     decls = [m.group(1) for m in re.finditer(

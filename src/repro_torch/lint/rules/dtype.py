@@ -17,7 +17,8 @@ Flagged forms, in ``repro_torch`` modules:
   ``dtype="float64"``;
 * a bare ``float`` passed to an array constructor or ``.astype``;
 
-and, in the kernel's ``.cu`` (comments aside), the type ``double``.
+and, in the kernels' ``.cu`` and ``.cpp`` (comments aside), the type
+``double``.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import ast
 import re
 from typing import Iterator
 
-from repro_torch.lint import KERNEL_SOURCE, Context, Finding, Module, Rule
+from repro_torch.lint import KERNEL_SOURCES, Context, Finding, Module, Rule
 from repro_torch.lint.astutil import resolve_dotted
 
 F64_NAMES = ("numpy.float64", "numpy.double", "numpy.longdouble",
@@ -54,12 +55,13 @@ class DtypeRule(Rule):
 
     def check(self, ctx: Context) -> Iterator[Finding]:
         yield from super().check(ctx)
-        for i, line in enumerate(ctx.text_lines(KERNEL_SOURCE) or (), 1):
-            if re.search(r"\bdouble\b", line.split("//", 1)[0]):
-                yield Finding(rule=self.id, name=self.name,
-                              severity=self.severity, path=KERNEL_SOURCE,
-                              line=i, col=0,
-                              message=f"`double` in the kernel: {_WHY}")
+        for source in KERNEL_SOURCES:
+            for i, line in enumerate(ctx.text_lines(source) or (), 1):
+                if re.search(r"\bdouble\b", line.split("//", 1)[0]):
+                    yield Finding(rule=self.id, name=self.name,
+                                  severity=self.severity, path=source,
+                                  line=i, col=0,
+                                  message=f"`double` in the kernel: {_WHY}")
 
     def check_module(self, mod: Module, ctx: Context) -> Iterator[Finding]:
         for node in ast.walk(mod.tree):

@@ -6,10 +6,12 @@ groups ``OUTPUT_GROUPS`` after the state and ``BASE_OUTPUTS``, the
 entry points' ``CORE_PARAMS`` and ``EXT_PARAMS``) is written out by
 hand in five places, which this rule reads without importing them:
 
-* the CUDA entry point ``photon_step_launch`` (the ``.cu``, as text):
+* the CUDA entry point ``photon_step_launch`` (the ``.cu``, as text)
+  and the host entry point ``photon_step_cpu_launch`` (the ``.cpp``):
   the first optional ``in`` / ``out`` slots (``i_in``, ``i_out``) and,
-  under each ``PS_GROUPS`` bit (``kDet``, ``kRecord``, ``kJac``,
-  ``kStats``), the slots it reads, in order;
+  under each group flag (``kDet``, ``kRecord``, ``kJac``, ``kStats``:
+  ``PS_GROUPS`` bits in the ``.cu``, launch flags in the ``.cpp``), the
+  slots it reads, in order;
 * the wrapper's packing (``photon_step.prepare``): the base and guarded
   ``outs += [...]`` appends and the guarded ``ins += [...]`` inputs;
 * the plain version (``ref.photon_steps_ref``): the base ``out`` tuple
@@ -19,8 +21,8 @@ hand in five places, which this rule reads without importing them:
   read may be absent, but order and arity must match; ``collect`` is
   the loop's name for ``stats``);
 * the signatures of ``ops.photon_steps``, ``photon_step_cuda``,
-  ``prepare`` and ``photon_steps_ref``: ``CORE_PARAMS`` first, then
-  ``EXT_PARAMS`` in order.
+  ``photon_step_host``, ``prepare`` and ``photon_steps_ref``:
+  ``CORE_PARAMS`` first, then ``EXT_PARAMS`` in order.
 
 Silent when the tree has no ``spec.py`` (fixture trees of other rules);
 a mirror that is missing or cannot be read is itself a finding.
@@ -32,7 +34,8 @@ import ast
 import re
 from typing import Iterator
 
-from repro_torch.lint import KERNEL_SOURCE, Context, Finding, Module, Rule
+from repro_torch.lint import (HOST_KERNEL_SOURCE, KERNEL_SOURCE, Context,
+                              Finding, Module, Rule)
 from repro_torch.lint.astutil import (find_function, is_subsequence,
                                       load_literal_constants, param_names,
                                       test_flag_names)
@@ -42,11 +45,15 @@ SPEC = f"{_PKG}.spec"
 # (module, function) of each mirror
 SIGNATURES = ((f"{_PKG}.ops", "photon_steps"),
               (f"{_PKG}.photon_step", "photon_step_cuda"),
+              (f"{_PKG}.photon_step_cpu", "photon_step_host"),
               (f"{_PKG}.photon_step", "prepare"),
               (f"{_PKG}.ref", "photon_steps_ref"))
-# the .cu's PS_GROUPS bits and the spec flag each stands for
+# the kernels' group flags and the spec flag each stands for
 CU_FLAGS = {"kDet": "n_det", "kRecord": "record", "kJac": "jac_cols",
             "kStats": "stats"}
+# each kernel source and its C entry point
+ENTRY_POINTS = ((KERNEL_SOURCE, "photon_step_launch"),
+                (HOST_KERNEL_SOURCE, "photon_step_cpu_launch"))
 
 
 class _Contract:
@@ -140,9 +147,10 @@ class MirrorRule(Rule):
     id = "REP101"
     name = "mirror-drift"
     severity = "error"
-    description = ("the CUDA entry point, the wrapper's packing, the plain "
-                   "version, the round loop's unpack and the entry points' "
-                   "signatures must match kernels/photon_step/spec.py")
+    description = ("the CUDA and host entry points, the wrapper's packing, "
+                   "the plain version, the round loop's unpack and the "
+                   "entry points' signatures must match "
+                   "kernels/photon_step/spec.py")
 
     def check(self, ctx: Context) -> Iterator[Finding]:
         spec_mod = ctx.module(SPEC)
@@ -159,7 +167,8 @@ class MirrorRule(Rule):
         yield from self._ref(ctx, contract)
         yield from self._wrapper(ctx, contract)
         yield from self._round_loop(ctx, contract)
-        yield from self._kernel(ctx, contract)
+        for source, entry in ENTRY_POINTS:
+            yield from self._kernel(ctx, contract, source, entry)
 
     def _function(self, ctx, module: str, name: str):
         mod = ctx.module(module)
@@ -268,21 +277,22 @@ class MirrorRule(Rule):
         if bad:
             yield bad
 
-    def _kernel(self, ctx, c: _Contract) -> Iterator[Finding]:
-        lines = ctx.text_lines(KERNEL_SOURCE)
+    def _kernel(self, ctx, c: _Contract, source: str,
+                entry: str) -> Iterator[Finding]:
+        lines = ctx.text_lines(source)
         if lines is None:
             return
         text = "\n".join(line.split("//", 1)[0] for line in lines)
 
         def finding(pos, message):
             return Finding(rule=self.id, name=self.name,
-                           severity=self.severity, path=KERNEL_SOURCE,
+                           severity=self.severity, path=source,
                            line=text.count("\n", 0, pos) + 1, col=0,
                            message=message)
 
-        m = re.search(r"\bint\s+photon_step_launch\s*\(", text)
+        m = re.search(r"\bint\s+" + entry + r"\s*\(", text)
         if m is None:
-            yield finding(0, "entry point `photon_step_launch` not found")
+            yield finding(0, f"entry point `{entry}` not found")
             return
         body = text[m.start():]
         cursors = re.search(r"int\s+i_in\s*=\s*(\d+)\s*,\s*i_out\s*=\s*(\d+)",
@@ -291,7 +301,7 @@ class MirrorRule(Rule):
         n_out = len(c.state) + len(c.base)
         if cursors is None or (int(cursors.group(1)),
                                int(cursors.group(2))) != (n_in, n_out):
-            yield finding(m.start(), f"photon_step_launch's optional slots "
+            yield finding(m.start(), f"{entry}'s optional slots "
                           f"must start at in[{n_in}] and out[{n_out}] (the "
                           f"state and spec.BASE_OUTPUTS)")
             return
@@ -305,18 +315,18 @@ class MirrorRule(Rule):
                 continue
             g = c.group_of({flag})
             for slot, side in re.findall(
-                    r"grp\.(\w+)\s*=\s*\([^)]*\)\s*(in|out)\[i_(?:in|out)"
+                    r"\w+\.(\w+)\s*=\s*\([^)]*\)\s*(in|out)\[i_(?:in|out)"
                     r"\+\+\]", blk.group(2)):
                 name = re.sub(r"_(in|out)$", "", slot)
                 (outs if side == "out" else ins).append((g, name))
         want_out = [(i, name) for i, (_, members) in enumerate(c.groups)
                     for name in members]
         if outs != want_out:
-            yield finding(m.start(), f"photon_step_launch's optional out "
+            yield finding(m.start(), f"{entry}'s optional out "
                           f"slots {[n for _, n in outs]}, "
                           f"spec.OUTPUT_GROUPS "
                           f"{[n for _, n in want_out]}")
         if tuple(n for _, n in ins) != c.ext_tensors:
-            yield finding(m.start(), f"photon_step_launch's optional in "
+            yield finding(m.start(), f"{entry}'s optional in "
                           f"slots {[n for _, n in ins]}, spec.EXT_PARAMS' "
                           f"tensors {list(c.ext_tensors)}")

@@ -2,8 +2,8 @@
 
 The counter-seeded RNG makes every photon's trajectory a function of
 ``(seed, photon_id)`` alone, and the port computes each step with one
-strict IEEE float32 code path (the CUDA kernel and its plain version
-agree bit for bit).  The record buffer of a forward run
+strict IEEE float32 code path (the CUDA kernel, the host kernel and
+their plain version agree bit for bit).  The record buffer of a forward run
 (``SimResult.det_rec``) says which photon ids reached each detector.
 Together they give the absorption sensitivity (Jacobian) of each
 detector reading, what image reconstruction consumes.
@@ -13,7 +13,7 @@ voxel ``v`` (exact Beer-Lambert deposition),
 ``w = w0 * exp(-sum_v mua_v * L_v)``, so ``dw/dmua_v = -w * L_v``.
 :func:`replay_jacobian` relaunches exactly the recorded ids in two
 lock-step passes through ``ops.photon_steps`` (the CUDA kernel on the
-card, its plain version on the CPU):
+card, the host kernel on the CPU):
 
   pass A  re-runs the trajectories with detectors and capture records
           on, and reads off each packet's exit weight, detector and

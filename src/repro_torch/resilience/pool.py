@@ -62,7 +62,7 @@ chunked schedulers survive all of them:
     tolerance between the two devices' arithmetic, for exactly those
     chunks); if it lost one to real failures, the run raises
     :class:`PoolExhaustedError` instead of moving the chunks to another
-    device type (a card's work to the CPU's plain version).
+    device type (a card's work to the CPU's host kernel).
   * **Checkpoints**: every ``checkpoint_every`` merged chunks the
     contiguous merged prefix is saved through the atomic
     ``checkpoint.Checkpointer``, its totals in int64; ``run(resume=True)``
@@ -781,8 +781,9 @@ class DevicePool:
                 delay = max(delay, self.injector.delay_for(ch.start_id,
                                                            attempt))
             work = self._work_for(src, w)
-            request = procs.child(w.device, w.slot).submit(
-                "sim", work, (ch.count, seed, ch.start_id))
+            proc = procs.child(w.device, w.slot)
+            proc.run = procs.run_types(v.device for v in self.workers)
+            request = proc.submit("sim", work, (ch.count, seed, ch.start_id))
         except InjectedFault as e:
             if span is not None:
                 span.end(outcome="injected-fault")

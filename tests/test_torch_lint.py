@@ -30,8 +30,9 @@ from repro_torch.lint.traced import rules as TR  # noqa: E402
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PKG = "src/repro_torch/kernels/photon_step"
 MIRRORS = (f"{PKG}/spec.py", f"{PKG}/ops.py", f"{PKG}/photon_step.py",
-           f"{PKG}/ref.py", "src/repro_torch/core/simulator.py",
-           L.KERNEL_SOURCE)
+           f"{PKG}/photon_step_cpu.py", f"{PKG}/ref.py",
+           "src/repro_torch/core/simulator.py", L.KERNEL_SOURCE,
+           L.HOST_KERNEL_SOURCE)
 
 
 def _tree(tmp_path, files: dict, copy=()) -> pathlib.Path:
@@ -72,6 +73,21 @@ MIRROR_BREAKS = {
         "    grp.cap_det = (int32_t*)out[i_out++];")]),
     "kernel first slot": (L.KERNEL_SOURCE, [("int i_in = 11, i_out = 12",
                                              "int i_in = 11, i_out = 13")]),
+    "host kernel out slots": (L.HOST_KERNEL_SOURCE, [(
+        "a.cap_det = (int32_t*)out[i_out++];\n"
+        "    a.cap_gate = (int32_t*)out[i_out++];",
+        "a.cap_gate = (int32_t*)out[i_out++];\n"
+        "    a.cap_det = (int32_t*)out[i_out++];")]),
+    "host kernel in slots": (L.HOST_KERNEL_SOURCE, [(
+        "a.jac_w = (const float*)in[i_in++];\n"
+        "    a.jac_col = (const int32_t*)in[i_in++];",
+        "a.jac_col = (const int32_t*)in[i_in++];\n"
+        "    a.jac_w = (const float*)in[i_in++];")]),
+    "host kernel entry point": (L.HOST_KERNEL_SOURCE, [(
+        "int photon_step_cpu_launch(", "int photon_step_host_launch(")]),
+    "host signature": (f"{PKG}/photon_step_cpu.py", [(
+        "def photon_step_host(labels_flat, media,",
+        "def photon_step_host(labels, media,")]),
     "wrapper in slots": (f"{PKG}/photon_step.py",
                          [("ins += [jac_w, jac_col]",
                            "ins += [jac_col, jac_w]")]),
@@ -156,6 +172,28 @@ def test_the_real_kernel_adds_only_integers(tmp_path):
                  "REP201") == []
 
 
+@pytest.mark.parametrize("cpp,n", [
+    ("void f(int64_t* p, float v) {\n"
+     "  __atomic_fetch_add(p, v, __ATOMIC_RELAXED);\n}\n", 1),
+    ("void f(float* p) {\n"
+     "  __atomic_add_fetch(p, (float)1, __ATOMIC_RELAXED);\n}\n", 1),
+    ("void f(uint64_t* p, int64_t u) {\n"
+     "  __atomic_fetch_add(p, (uint64_t)u, __ATOMIC_RELAXED);\n"
+     "  __atomic_fetch_add(p, 1LL, __ATOMIC_RELAXED);\n"
+     "  __atomic_fetch_or(p, 1, __ATOMIC_RELAXED);\n}\n"
+     "// __atomic_fetch_add(p, v, 0) in a comment\n", 0),
+], ids=["float value", "float cast", "uint64"])
+def test_determinism_reads_the_host_kernels_atomics(tmp_path, cpp, n):
+    found = _rule(_tree(tmp_path, {L.HOST_KERNEL_SOURCE: cpp}), "REP201")
+    assert len(found) == n
+    assert all(f.path == L.HOST_KERNEL_SOURCE for f in found)
+
+
+def test_the_real_host_kernel_adds_only_integers(tmp_path):
+    assert _rule(_tree(tmp_path, {}, copy=[L.HOST_KERNEL_SOURCE]),
+                 "REP201") == []
+
+
 @pytest.mark.parametrize("code", [
     "import torch\nx = torch.zeros(3, dtype=torch.float64)\n",
     "import numpy as np\nx = np.float64(1)\n",
@@ -179,6 +217,16 @@ def test_dtype_is_quiet_on_float32_and_pragmas_and_reads_the_kernel(
     assert _rule(root, "REP301") == []
     root = _tree(tmp_path / "b", {L.KERNEL_SOURCE: "double a = 1.0;\n"})
     assert [f.line for f in _rule(root, "REP301")] == [1]
+
+
+def test_dtype_reads_the_host_kernel(tmp_path):
+    root = _tree(tmp_path, {L.HOST_KERNEL_SOURCE:
+                            "float a;  // double in a comment\n"
+                            "static double b = 1.0;\n"})
+    found = _rule(root, "REP301")
+    assert [(f.path, f.line) for f in found] == [(L.HOST_KERNEL_SOURCE, 2)]
+    assert _rule(_tree(tmp_path / "b", {}, copy=[L.HOST_KERNEL_SOURCE]),
+                 "REP301") == []
 
 
 ROUND = """

@@ -204,9 +204,14 @@ def test_spec_constants_equal_reference():
 
 
 def test_cpu_dispatch_is_the_plain_version():
+    """CPU tensors run the host kernel (its launch is counted), which
+    gives the plain version's bits."""
     _, tv, _, tcfg, _, tst = _setup("B2", 1)
     args = (tv.labels.reshape(-1), tv.media, tst, SHAPE, 1.0, tcfg, K)
+    tkernel.reset_launches()
     a = ops.photon_steps(*args)
+    assert tkernel.photon_step_cuda.launches_by == {
+        "host/reflect/exact/base": 1}
     b = tref.photon_steps_ref(*args)
     for x, y in zip(a[0], b[0]):
         assert torch.equal(x, y)
@@ -221,7 +226,9 @@ def test_cuda_tensor_goes_to_the_kernel_and_never_falls_back(monkeypatch):
     seen = []
     monkeypatch.setattr(ops, "photon_step_cuda",
                         lambda *a, **k: seen.append(a) or "kernel")
-    monkeypatch.setattr(ops, "photon_steps_ref",
+    monkeypatch.setattr(ops, "photon_step_host",
+                        lambda *a, **k: pytest.fail("fell back to the CPU"))
+    monkeypatch.setattr(tref, "photon_steps_ref",
                         lambda *a, **k: pytest.fail("fell back to plain"))
     assert ops.photon_steps(tv.labels.reshape(-1), tv.media, fake, SHAPE,
                             1.0, tcfg, K) == "kernel"

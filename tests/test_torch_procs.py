@@ -159,6 +159,26 @@ def test_slots_and_cpu_threads():
     assert got.value == got.threads == 1
 
 
+def test_a_cpu_child_runs_on_the_cores_its_run_leaves():
+    """A request of a run sets a CPU child's threads: its cores less one
+    for each card process of the run, shared among the run's CPU
+    processes, at least one; the reply says the threads it ran on."""
+    cores = len(os.sched_getaffinity(0))
+    assert procs.run_types([CPU, "cuda:1", "cpu"]) == ("cpu", "cuda", "cpu")
+    assert procs.cpu_threads(("cuda", "cpu")) == max(1, cores - 1)
+    assert procs.cpu_threads(("cpu", "cpu", "cuda")) == max(
+        1, (cores - 1) // 2)
+    assert procs.cpu_threads(("cuda",) * (cores + 2) + ("cpu",)) == 1
+    proc = procs.child(CPU, 0)
+    try:
+        proc.run = ("cuda", "cpu")
+        got = procs.reply(proc.submit("call", None, (_threads, ())), 60)
+        assert got.value == got.threads == max(1, cores - 1)
+    finally:
+        proc.run = ()
+        proc.call(torch.set_num_threads, 1, timeout=60)
+
+
 def _big(n):
     return np.zeros(n, np.uint8)
 
