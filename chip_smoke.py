@@ -105,6 +105,22 @@ script exits non-zero and prints no result:
            mesh of two (every output bit-equal); the phase's seconds
            and its processes; each line with the card's name and power
            limit
+  examples  the reference's four example scripts as modules of the port
+           (repro_torch.examples), each through its run() at the
+           reference's own sizes on the card (K = 16 where the reference
+           runs K = 1: the same bits in a sixteenth of the rounds):
+           quickstart (B1 60^3, 5 10^4 photons: exact accounting,
+           residue < 1e-4, fitted mu_eff within 0.9-1.25 x diffusion
+           theory), source_gallery (every source on B1 40^3, 2 10^4
+           photons each: exact accounting, residues), heterogeneous_lb
+           (pilot fit with a positive slope, S1-S3 partitions summing to
+           the photons, the run over the local devices and the chunk
+           scheduler, whose int64 totals equal the local run's) and
+           fault_tolerant_campaign (the chaos drill and the crash and
+           restart, each bit-equal to the clean run, every chunk merged,
+           at least one retry); a line each with its seconds and
+           photons/ms, and the phase's seconds, each with the card's
+           name and power limit
   lint     both tiers of the port's lint on this tree (clean), and the
            lint's ``sim`` target recorded once more with its round loop
            on the card: device operations and host reads a round
@@ -246,6 +262,19 @@ HOST_RECORDS = 2048
 HOST_SIM_PHOTONS = 65536
 HOST_VECTOR_LANES = {"AVX512": 16, "AVX2": 8}
 HOST_VECTOR_OPS = 2
+# the examples phase: each of the reference's example scripts at its own
+# sizes (the defaults of repro_torch.examples, which run
+# examples.STEPS_PER_ROUND segments a round), on the card
+EXAMPLES = {
+    "quickstart": dict(size=60, photons=50_000, lanes=4096),
+    "source_gallery": dict(size=40, photons=20_000, lanes=2048),
+    "heterogeneous_lb": dict(size=40, photons=40_000, pilot=(4000, 20_000),
+                             lanes=2048, chunk_lanes=1024),
+    "fault_tolerant_campaign": dict(size=30, photons=20_000, chunk=2_000,
+                                    lanes=1024),
+}
+# B1's axial attenuation against diffusion theory (PERF.md section 2)
+MU_EFF_RATIO = (0.9, 1.25)
 # the port's tolerance between two arithmetics (its tests against the
 # JAX package, tests/test_torch_simulator.py): totals within 2e-3 of the
 # launched weight, fluence within 1e-3 of its largest cell
@@ -1103,6 +1132,107 @@ def multidevice_phase(card, main_b2, fleet, fleet_alone, records, replay,
     return sum(host_launches.values())
 
 
+def examples_phase(card, device: str = "cuda", sizes=None) -> None:
+    """Each module of ``repro_torch.examples`` through its ``run`` at
+    ``sizes`` (default EXAMPLES, the reference's own) on ``device`` (the
+    card; the CPU only to rehearse the phase at a small size), each
+    against the reference script's own checks and the port's bit
+    contract.  Every check raises."""
+    from repro_torch.examples import (fault_tolerant_campaign,
+                                      heterogeneous_lb, quickstart,
+                                      source_gallery)
+
+    sizes = EXAMPLES if sizes is None else sizes
+    on_card = device == "cuda"
+    t_phase = time.perf_counter()
+
+    def timed(name, module):
+        K.reset_launches()
+        t0 = time.perf_counter()
+        out = module.run(device=device, **sizes[name])
+        seconds = time.perf_counter() - t0
+        n = launched_kernels()
+        check(n > 0 or not on_card, f"{name}: no kernel launched")
+        return out, seconds, n
+
+    name = "quickstart"
+    q, seconds, n = timed(name, quickstart)
+    photons = sizes[name]["photons"]
+    ratio = q["mu_fit"] / q["mu_theory"]
+    check(int(q["result"].n_launched) == photons,
+          f"{name}: {int(q['result'].n_launched)} photons launched")
+    check(abs(q["balance"]["residue_frac"]) < 1e-4,
+          f"{name}: residue {q['balance']['residue_frac']}")
+    check(MU_EFF_RATIO[0] <= ratio <= MU_EFF_RATIO[1],
+          f"{name}: fitted mu_eff {ratio:.3f} x diffusion theory")
+    emit("examples", example=name, card=card, seconds=seconds,
+         photons_per_ms=q["photons_per_ms"], kernel_launches=n,
+         residue_frac=q["balance"]["residue_frac"], mu_fit=q["mu_fit"],
+         mu_theory=q["mu_theory"], mu_ratio=ratio)
+
+    name = "source_gallery"
+    rows, seconds, n = timed(name, source_gallery)
+    photons = sizes[name]["photons"]
+    for row in rows:
+        check(int(row["result"].n_launched) == photons,
+              f"{name} {row['name']}: {int(row['result'].n_launched)} "
+              f"photons launched")
+        check(abs(row["balance"]["residue_frac"]) < 1e-4,
+              f"{name} {row['name']}: residue "
+              f"{row['balance']['residue_frac']}")
+    emit("examples", example=name, card=card, seconds=seconds,
+         kernel_launches=n, sources=len(rows),
+         photons_per_ms={r["name"]: r["photons_per_ms"] for r in rows},
+         steps={r["name"]: r["steps"] for r in rows},
+         residue_frac={r["name"]: r["balance"]["residue_frac"]
+                       for r in rows})
+
+    name = "heterogeneous_lb"
+    h, seconds, n = timed(name, heterogeneous_lb)
+    photons = sizes[name]["photons"]
+    check(h["model"].a > 0, f"{name}: pilot slope {h['model'].a}")
+    for strat in ("S1", "S2", "S3"):
+        part = h["partitions"][strat]["partition"]
+        check(sum(part) == photons, f"{name}: {strat} partition {part}")
+    check(sum(h["local_photons"].values()) == photons
+          and int(h["local"].n_launched) == photons,
+          f"{name}: the local run's photons {h['local_photons']}")
+    check(sum(h["chunk_photons"].values()) == photons,
+          f"{name}: the chunk scheduler's photons {h['chunk_photons']}")
+    differ = fixed_differences(h["chunked"], h["local"])
+    check(not differ, f"{name}: the chunk scheduler's {differ} differ from "
+          f"the local run's")
+    emit("examples", example=name, card=card, seconds=seconds,
+         kernel_launches=n, pilot_a_s=h["model"].a, pilot_t0_s=h["model"].t0,
+         pilot_photons_per_ms=h["pilot_photons_per_ms"],
+         partitions=h["partitions"],
+         devices=h["devices"], local_photons=h["local_photons"],
+         local_seconds=h["local_seconds"],
+         local_photons_per_ms=h["local_photons_per_ms"],
+         chunk_photons=h["chunk_photons"], chunk_seconds=h["chunk_seconds"],
+         chunk_photons_per_ms=h["chunk_photons_per_ms"],
+         chunked_bit_equal_to_local=True)
+
+    name = "fault_tolerant_campaign"
+    c, seconds, n = timed(name, fault_tolerant_campaign)
+    rep = c["report"]
+    for what in ("chaos", "resumed"):
+        differ = fixed_differences(c[what], c["reference"])
+        check(not differ, f"{name}: the {what} run's {differ} differ from "
+              f"the clean run's")
+    check(rep.merged == rep.n_chunks,
+          f"{name}: {rep.merged}/{rep.n_chunks} chunks merged")
+    check(rep.retries >= 1, f"{name}: the chaos drill retried nothing")
+    check(c["crash"] is not None, f"{name}: the campaign did not crash")
+    emit("examples", example=name, card=card, seconds=seconds,
+         kernel_launches=n, photons_per_ms=c["photons_per_ms"],
+         part_seconds=c["seconds"], chaos=rep.counters(),
+         crash=c["crash"], restored=list(c["restored"]),
+         bit_equal_to_clean=["chaos", "resumed"])
+    emit("examples", item="phase", card=card,
+         seconds=time.perf_counter() - t_phase)
+
+
 def lint_phase(card) -> None:
     """Both tiers of the port's lint on this tree (``python -m
     repro_torch.lint --tier all``), then the ``sim`` target's run once
@@ -1924,6 +2054,9 @@ def main() -> None:
         card, main_runs["B2"], fleet=fleets["optode sweep"][0],
         fleet_alone=alone_runs["optode sweep"], records=rec,
         replay=rep_detect, cfg_detect=cfg_detect)
+
+    # --- examples: the reference's four scripts as modules of the port -------
+    examples_phase(card)
 
     # --- lint: both tiers, and the round's operations on the card --------------
     lint_phase(card)

@@ -728,3 +728,27 @@ def test_card_and_cpu_shards_hold_the_tolerance_of_two_arithmetics(
     assert int(merged.n_launched) == 62_000
     assert torch.equal(merged.fluence, parts[0].fluence.cpu()
                        + parts[1].fluence)
+
+
+@pytest.mark.cuda
+def test_examples_run_on_the_card(cuda_device, tmp_path):
+    """quickstart and fault_tolerant_campaign at a small size on the
+    card: exact accounting, the conservation residue, the axial decay
+    fitted, and the campaign's own bit-identity checks (which raise)
+    with the chaos drill merging every chunk after a retry."""
+    from repro_torch.examples import fault_tolerant_campaign as campaign
+    from repro_torch.examples import quickstart
+
+    kernel.reset_launches()
+    out = quickstart.run(size=30, photons=20_000, lanes=4096)
+    assert sum(kernel.photon_step_cuda.launches_by.values()) > 0
+    assert out["result"].energy.is_cuda
+    assert int(out["result"].n_launched) == 20_000
+    assert abs(out["balance"]["residue_frac"]) < 1e-4
+    assert math.isfinite(out["mu_fit"]) and out["mu_fit"] > 0
+    out = campaign.run(size=16, photons=4000, chunk=500, lanes=512,
+                       checkpoint_dir=str(tmp_path))
+    rep = out["report"]
+    assert rep.n_chunks == rep.merged == 8 and rep.retries >= 1
+    assert out["crash"] is not None and out["restored"] == (4, 4)
+    assert int(out["resumed"].n_launched) == 4000

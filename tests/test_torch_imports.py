@@ -79,6 +79,11 @@ def test_scan_sees_the_whole_port():
                  "src/repro_torch/lint/traced/__init__.py",
                  "src/repro_torch/lint/traced/rules.py",
                  "src/repro_torch/lint/traced/targets.py",
+                 "src/repro_torch/examples/__init__.py",
+                 "src/repro_torch/examples/quickstart.py",
+                 "src/repro_torch/examples/source_gallery.py",
+                 "src/repro_torch/examples/heterogeneous_lb.py",
+                 "src/repro_torch/examples/fault_tolerant_campaign.py",
                  "chip_smoke.py"):
         assert must in names
 
