@@ -1,0 +1,7 @@
+"""Device milliseconds of every kernel, copy and set but the photon
+step, over the profiled solutions' rounds: regeneration and totals."""
+
+
+def read(run):
+    t, rounds = run["trace"], sum(s["rounds"] for s in run["profiled"])
+    return None if t is None or not rounds else t.other_s * 1e3 / rounds
