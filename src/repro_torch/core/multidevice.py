@@ -56,7 +56,7 @@ from repro_torch.resilience.pool import (_engine, add_fixed,
                                          fixed_from_state, fixed_state,
                                          zero_fixed)
 from repro_torch.sources import as_source
-from repro_torch.telemetry.trace import device_label
+from repro_torch.telemetry.trace import clock, device_label
 
 
 # ---------------------------------------------------------------------------
@@ -118,7 +118,7 @@ def sharded_sim_fn(volume: Volume, cfg: SimConfig, n_lanes, mesh,
         if len(counts) != len(devices) or len(offsets) != len(devices):
             raise ValueError(f"need one count and one offset for each of "
                              f"the {len(devices)} shards")
-        t0 = time.monotonic()
+        t0 = clock()
         replies = procs.run_all([
             procs.Job(d, s, "sim", w, (int(c), seed, int(o)))
             for d, s, w, c, o in zip(devices, slots, works, counts,
@@ -460,7 +460,7 @@ class ElasticSimulator:
             jobs.append(procs.Job(dev, slots[i % len(devices)], "sim",
                                   self._work,
                                   (ch.count, self.seed, ch.start_id)))
-        t0 = time.monotonic()
+        t0 = clock()
         replies = procs.run_all(jobs) if jobs else []
         n_done = 0
         requeue = []

@@ -75,6 +75,7 @@ from repro_torch.kernels.photon_step.photon_step import check_errors
 from repro_torch.sources import PhotonSource, as_source
 from repro_torch.sources.base import staged_tensors
 from repro_torch.telemetry.stats import RoundStats
+from repro_torch.telemetry.trace import capture, phase
 
 MODES = ("dynamic", "static")
 
@@ -145,7 +146,13 @@ class RunCancelled(RuntimeError):
 def to_sim_result(fixed: FixedResult) -> SimResult:
     """The float32 ``SimResult`` of a fixed-point result, on its device:
     each total converted once (``core.fixed.from_fixed``), the record and
-    step fields passed through."""
+    step fields passed through.  Under a ``torch.profiler`` capture it is
+    a ``convert`` span (``telemetry.capture_tracer``)."""
+    with phase(capture(), "convert", fixed.fluence.device):
+        return _convert(fixed)
+
+
+def _convert(fixed: FixedResult) -> SimResult:
     fw = spec.FIXED_SHIFT
     tot = lambda x: from_fixed(x, spec.TOTAL_SHIFT)  # noqa: E731
     escaped, timed_out = tot(fixed.escaped), tot(fixed.timed_out)
@@ -338,6 +345,14 @@ def build_round_loop(shape: tuple[int, int, int], unitinmm: float,
     ``threading.Event``, or a device process's cancel slot,
     ``core.procs``) is tested at each round's host read: once it is set
     the run raises :class:`RunCancelled`.
+
+    Under a ``torch.profiler`` capture (read once a call) the call is a
+    ``run`` span of the process-wide tracer (``telemetry.capture_tracer``;
+    args photons, scenarios, lanes, K and rounds) holding, for each
+    round, the spans ``round.host_read`` (the loop condition's read and
+    the cancel test), ``round.regenerate``, ``round.step`` (the host side
+    of the photon-step call) and ``round.totals``, then ``run.finish``
+    (everything after the loop).  None of them synchronises the device.
     """
     if mode not in MODES:
         raise ValueError(f"unknown workload mode: {mode}")
@@ -363,6 +378,20 @@ def build_round_loop(shape: tuple[int, int, int], unitinmm: float,
 
     def fn(labels, media, det_geom, n_photons, seeds, id_lo, id_hi,
            cancel=None) -> list[FixedResult]:
+        cap = capture()
+        args = (labels, media, det_geom, n_photons, seeds, id_lo, id_hi,
+                cancel)
+        if cap is None:
+            return loop(None, *args)
+        with cap.span("run", dev, sync=False,
+                      photons=sum(int(n) for n in n_photons),
+                      scenarios=len(n_photons), lanes=n_lanes, K=K) as span:
+            out = loop(cap, *args)
+            span.note(rounds=max(f.steps for f in out) // K)
+        return out
+
+    def loop(cap, labels, media, det_geom, n_photons, seeds, id_lo, id_hi,
+             cancel) -> list[FixedResult]:
         S = len(n_photons)
         labels = labels.to(dev).contiguous()
         media = media.to(device=dev, dtype=torch.float32).contiguous()
@@ -426,94 +455,101 @@ def build_round_loop(shape: tuple[int, int, int], unitinmm: float,
 
         steps = 0
         while steps < cfg.max_steps:
-            alive = state.alive.view(S, n_lanes)
-            if mode == "dynamic":
-                has_work = alive.any(1) | (remaining > 0)
-            else:
-                has_work = (alive | (launched < quota)).any(1)
-            if not bool(has_work.any()):  # reprolint: disable=REP401 - the round's one host read
-                break
-            if cancel is not None and cancel.is_set():
-                raise RunCancelled(f"run cancelled after {steps} steps")
-            # a scenario with no work left is frozen: it relaunches
-            # nothing, its lanes are dead, and its rounds stop here
-            rounds += has_work.to(torch.int64)
-            prev_lo = next_id[0]
-            state, remaining, launched, next_id, w_new, *extra = _regenerate(
-                state, remaining, launched, next_id, quota, sample,
-                seed_col, mode, shape, ppath, lane_ids)
-            if n_det:
-                ppath = extra.pop(0)
-            if record:
-                lane_ids = extra.pop(0)
-            outs = photon_steps(labels, media, state, shape, unitinmm,
-                                cfg, K, ppath=ppath, det_geom=det_geom,
-                                record=record, stats=collect, totals=grids)
-            state, _, _, esc, timed = outs[:5]
-            escaped += _total_rows(esc, S)
-            timed_out += _total_rows(timed, S)
-            launched_w += w_new
-            cur = 5
-            if n_det:
-                ppath = outs[cur]
-                cur += 3
-            if record:
-                _append_records(rec, rec_n, rec_overflow, lane_ids,
-                                outs[cur], outs[cur + 1], capacity)
-                cur += 2
-            if collect:
-                # launches per round stay < 2**31, so the low-word
-                # difference is exact across a 2**32 boundary
-                rel = (next_id[0] - prev_lo) & xrng.MASK32
-                counters["regen_rounds"] += (rel > 0).to(torch.int64)
-                counters["relaunched"] += rel
-                counters["live_segments"] += outs[cur][:, 0].to(
-                    torch.int64).view(S, n_lanes).sum(1)
+            with phase(cap, "round.host_read", dev):
+                alive = state.alive.view(S, n_lanes)
+                if mode == "dynamic":
+                    has_work = alive.any(1) | (remaining > 0)
+                else:
+                    has_work = (alive | (launched < quota)).any(1)
+                if not bool(has_work.any()):  # reprolint: disable=REP401 - the round's one host read
+                    break
+                if cancel is not None and cancel.is_set():
+                    raise RunCancelled(f"run cancelled after {steps} steps")
+            with phase(cap, "round.regenerate", dev):
+                prev_lo = next_id[0]
+                state, remaining, launched, next_id, w_new, *extra = \
+                    _regenerate(state, remaining, launched, next_id, quota,
+                                sample, seed_col, mode, shape, ppath,
+                                lane_ids)
+                if n_det:
+                    ppath = extra.pop(0)
+                if record:
+                    lane_ids = extra.pop(0)
+            with phase(cap, "round.step", dev):
+                outs = photon_steps(labels, media, state, shape, unitinmm,
+                                    cfg, K, ppath=ppath, det_geom=det_geom,
+                                    record=record, stats=collect,
+                                    totals=grids)
+            with phase(cap, "round.totals", dev):
+                # a scenario with no work left is frozen: it relaunches
+                # nothing, its lanes are dead, and its rounds stop here
+                rounds += has_work.to(torch.int64)
+                state, _, _, esc, timed = outs[:5]
+                escaped += _total_rows(esc, S)
+                timed_out += _total_rows(timed, S)
+                launched_w += w_new
+                cur = 5
+                if n_det:
+                    ppath = outs[cur]
+                    cur += 3
+                if record:
+                    _append_records(rec, rec_n, rec_overflow, lane_ids,
+                                    outs[cur], outs[cur + 1], capacity)
+                    cur += 2
+                if collect:
+                    # launches per round stay < 2**31, so the low-word
+                    # difference is exact across a 2**32 boundary
+                    rel = (next_id[0] - prev_lo) & xrng.MASK32
+                    counters["regen_rounds"] += (rel > 0).to(torch.int64)
+                    counters["relaunched"] += rel
+                    counters["live_segments"] += outs[cur][:, 0].to(
+                        torch.int64).view(S, n_lanes).sum(1)
             steps += K
 
-        # weight still in flight when the max_steps cap fires is retired
-        # deterministically, like the time gate
-        timed_out += _total_rows(torch.where(
-            state.alive, state.w, torch.zeros_like(state.w)), S)
-        # a fixed-point total past 2**63 - 1 shows a negative value: the
-        # kernel flags what its blocks add from their caches, this checks
-        # every total once (one host read)
-        if bool(torch.stack([t.min() for t in grids + [
-                escaped, timed_out, launched_w]]).lt(0).any()):
-            raise OverflowError("a run total passed the fixed-point range "
-                                "of 2**63 - 1 units")
-        if dev.type == "cuda":
-            check_errors(dev)
-        # launches per run stay < 2**31, so the low-word difference is
-        # the exact count even across a 2**32 boundary
-        n_launched = (next_id[0] - first_lo) & xrng.MASK32
-        steps_s = (rounds * K).tolist()
-        if collect:
-            counters = torch.stack(
-                [rounds] + [counters[k] for k in COUNTER_FIELDS[1:4]]
-                + [rounds * (K * n_lanes)], dim=1)
-        grid_shape = tuple(shape) + ((ntg,) if ntg > 1 else ())
-        if n_det:
-            det_w = grids[2].view(S, n_det, ntg)
-            det_ppath = grids[3]
-        else:
-            det_w = torch.zeros((S, 0, ntg), **i64)
-            det_ppath = torch.zeros((S, 0, n_media), **i64)
-        return [FixedResult(
-            fluence=grids[0][i].view(grid_shape),
-            exitance=grids[1][i].view(nx, ny),
-            escaped=escaped[i],
-            timed_out=timed_out[i],
-            launched_w=launched_w[i],
-            n_launched=n_launched[i],
-            steps=steps_s[i],
-            det_w=det_w[i],
-            det_ppath=det_ppath[i],
-            det_rec=rec[i, :capacity],
-            det_rec_n=rec_n[i],
-            det_rec_overflow=rec_overflow[i],
-            counters=counters[i] if collect else None,
-        ) for i in range(S)]
+        with phase(cap, "run.finish", dev):
+            # weight still in flight when the max_steps cap fires is retired
+            # deterministically, like the time gate
+            timed_out += _total_rows(torch.where(
+                state.alive, state.w, torch.zeros_like(state.w)), S)
+            # a fixed-point total past 2**63 - 1 shows a negative value: the
+            # kernel flags what its blocks add from their caches, this checks
+            # every total once (one host read)
+            if bool(torch.stack([t.min() for t in grids + [
+                    escaped, timed_out, launched_w]]).lt(0).any()):
+                raise OverflowError("a run total passed the fixed-point range "
+                                    "of 2**63 - 1 units")
+            if dev.type == "cuda":
+                check_errors(dev)
+            # launches per run stay < 2**31, so the low-word difference is
+            # the exact count even across a 2**32 boundary
+            n_launched = (next_id[0] - first_lo) & xrng.MASK32
+            steps_s = (rounds * K).tolist()
+            if collect:
+                counters = torch.stack(
+                    [rounds] + [counters[k] for k in COUNTER_FIELDS[1:4]]
+                    + [rounds * (K * n_lanes)], dim=1)
+            grid_shape = tuple(shape) + ((ntg,) if ntg > 1 else ())
+            if n_det:
+                det_w = grids[2].view(S, n_det, ntg)
+                det_ppath = grids[3]
+            else:
+                det_w = torch.zeros((S, 0, ntg), **i64)
+                det_ppath = torch.zeros((S, 0, n_media), **i64)
+            return [FixedResult(
+                fluence=grids[0][i].view(grid_shape),
+                exitance=grids[1][i].view(nx, ny),
+                escaped=escaped[i],
+                timed_out=timed_out[i],
+                launched_w=launched_w[i],
+                n_launched=n_launched[i],
+                steps=steps_s[i],
+                det_w=det_w[i],
+                det_ppath=det_ppath[i],
+                det_rec=rec[i, :capacity],
+                det_rec_n=rec_n[i],
+                det_rec_overflow=rec_overflow[i],
+                counters=counters[i] if collect else None,
+            ) for i in range(S)]
 
     return fn
 
@@ -656,11 +692,14 @@ def simulate(volume: Volume, cfg: SimConfig, n_photons: int,
     legacy pencil :class:`Source`, or a ``sources.to_dict``-style dict;
     ``None`` is the paper's pencil beam.  ``detectors`` enables TPSF
     recording on the z=0 face; ``record_detected`` sets the capacity of
-    the detected-photon record buffer for replay.
+    the detected-photon record buffer for replay.  Under a
+    ``torch.profiler`` capture it is a ``simulate`` span, the root of the
+    run's and the conversion's spans.
     """
-    return to_sim_result(simulate_fixed(
-        volume, cfg, n_photons, n_lanes, seed, source, mode, device,
-        detectors, record_detected))
+    with phase(capture(), "simulate", photons=int(n_photons)):
+        return to_sim_result(simulate_fixed(
+            volume, cfg, n_photons, n_lanes, seed, source, mode, device,
+            detectors, record_detected))
 
 
 # ---------------------------------------------------------------------------

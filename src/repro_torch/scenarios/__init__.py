@@ -50,6 +50,7 @@ from __future__ import annotations
 
 import dataclasses
 from collections import OrderedDict
+from contextlib import nullcontext
 
 import numpy as np
 import torch
@@ -64,7 +65,7 @@ from repro_torch.detectors import (as_detectors, det_geometry,
                                    validate_detectors)
 from repro_torch.kernels.photon_step.ops import resolve_device
 from repro_torch.sources import stage_source
-from repro_torch.telemetry.trace import device_label
+from repro_torch.telemetry.trace import capture, device_label, phase
 
 __all__ = [
     "CompileCache",
@@ -415,7 +416,12 @@ def simulate_many(scenarios, *, n_lanes: int = 1024, mode: str = "dynamic",
     the cache key.  ``tracer`` records one ``scenarios.batch`` span per
     group (ended after a device synchronisation; device ``"mesh"`` with
     a mesh), one ``scenarios.compile`` span per cache miss, and
-    ``scenarios.cache.{hit,miss,evictions,hit_rate}`` counters.
+    ``scenarios.cache.{hit,miss,evictions,hit_rate}`` counters.  Under a
+    ``torch.profiler`` capture the call is a ``simulate_many`` span of
+    the process-wide tracer (``telemetry.capture_tracer``), and the
+    batch and compile spans go there too, so each group's round loop
+    spans (``run``, ``round.*``) hang below its ``scenarios.batch``;
+    without ``tracer`` they end without a synchronisation.
 
     Returns per-scenario ``SimResult``\\ s in input order, each
     bit-identical to its own :func:`simulate_one` on a device of the
@@ -443,46 +449,48 @@ def simulate_many(scenarios, *, n_lanes: int = 1024, mode: str = "dynamic",
     n_dev = len(devices)
     out: list = [None] * len(scenarios)
     evictions0 = cache.evictions
-    for gkey, members in groups.items():
-        share = _share_labels(members)
-        pad = (-len(members)) % n_dev
-        s_pad = len(members) + pad
-        key = (gkey, s_pad, share,
-               _mesh_signature(devices if mesh is not None else None))
-        fn = cache.get(key)
-        hit = fn is not None
-        if not hit:
-            fn = (_sharded_batched_fn(members[0], n_lanes, mode, devices)
-                  if mesh is not None
-                  else _raw_batched_fn(members[0], n_lanes, mode, dev))
-            cache.put(key, fn)
-        if mesh is not None:
-            rows, counts = _padded(members, pad)
-            k = s_pad // n_dev
-            args = ([_stack_rows(rows[i * k:(i + 1) * k],
-                                 counts[i * k:(i + 1) * k], share, "cpu")
-                     for i in range(n_dev)],)
-        else:
-            args = _stack_group(members, pad, share, dev)
-        total_photons = int(sum(m.sc.n_photons for m in members))
-        bspan = cspan = None
-        if tracer is not None:
-            tracer.counter("scenarios.cache." + ("hit" if hit else "miss"),
-                           1, engine=engine, scenarios=len(members))
-            bspan = tracer.span("scenarios.batch",
-                                device="mesh" if mesh is not None else dev,
-                                engine=engine, photons=total_photons,
-                                scenarios=len(members), cache_hit=hit)
+    cap = capture()
+    with phase(cap, "simulate_many", label, scenarios=len(scenarios)):
+        for gkey, members in groups.items():
+            share = _share_labels(members)
+            pad = (-len(members)) % n_dev
+            s_pad = len(members) + pad
+            key = (gkey, s_pad, share,
+                   _mesh_signature(devices if mesh is not None else None))
+            fn = cache.get(key)
+            hit = fn is not None
             if not hit:
-                cspan = tracer.span("scenarios.compile", device=dev,
-                                    engine=engine, scenarios=s_pad)
-        res = fn(*args)
-        if cspan is not None:
-            cspan.end()
-        if bspan is not None:
-            bspan.end()
-        for j, m in enumerate(members):
-            out[m.idx] = res[j]
+                fn = (_sharded_batched_fn(members[0], n_lanes, mode, devices)
+                      if mesh is not None
+                      else _raw_batched_fn(members[0], n_lanes, mode, dev))
+                cache.put(key, fn)
+            if mesh is not None:
+                rows, counts = _padded(members, pad)
+                k = s_pad // n_dev
+                args = ([_stack_rows(rows[i * k:(i + 1) * k],
+                                     counts[i * k:(i + 1) * k], share, "cpu")
+                         for i in range(n_dev)],)
+            else:
+                args = _stack_group(members, pad, share, dev)
+            total_photons = int(sum(m.sc.n_photons for m in members))
+            if tracer is not None:
+                tracer.counter("scenarios.cache." + ("hit" if hit
+                                                     else "miss"),
+                               1, engine=engine, scenarios=len(members))
+            owner = tracer if tracer is not None else cap
+            # a capture alone adds no synchronisation to what it measures
+            opts = dict(engine=engine, sync=tracer is not None,
+                        also=cap if owner is tracer else None)
+            with (nullcontext() if owner is None else owner.span(
+                    "scenarios.batch", photons=total_photons,
+                    device="mesh" if mesh is not None else dev,
+                    scenarios=len(members), cache_hit=hit, **opts)):
+                with (nullcontext() if owner is None or hit else owner.span(
+                        "scenarios.compile", device=dev, scenarios=s_pad,
+                        **opts)):
+                    res = fn(*args)
+            for j, m in enumerate(members):
+                out[m.idx] = res[j]
     if tracer is not None:
         st = cache.stats()
         tracer.counter("scenarios.cache.hit_rate", st["hit_rate"],

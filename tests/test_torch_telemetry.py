@@ -82,9 +82,18 @@ def test_tracer_sinks_and_chrome_round_trip(tmp_path):
     assert T.device_label(None) == JT.device_label(None) == "host"
     assert T.device_label("mesh") == "mesh"
     assert T.device_label(torch.device("cpu")) == "cpu:0"
-    with pytest.raises(RuntimeError):  # the profiler bracket needs no card
-        with T.Tracer(profiler=True).span("x", device="cpu:0"):
-            raise RuntimeError("propagates")
+    # under a capture a span is a profiler range, which needs no card; an
+    # exception inside it propagates and closes the range
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with pytest.raises(RuntimeError):
+            with T.Tracer().span("x", device="cpu:0"):
+                raise RuntimeError("propagates")
+        with T.Tracer().span("y") as after:
+            pass
+    assert after.event.parent is None
+    assert [e.name for e in prof.events()
+            if e.name in ("x", "y")] == ["x", "y"]
 
 
 def test_fit_device_models_and_partitioners_match_reference(tmp_path):
