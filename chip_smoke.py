@@ -38,10 +38,18 @@ script exits non-zero and prints no result:
            off, and the checks failing a detector index swapped, a gate
            off by one and a Jacobian column off by one; times and bounds
            as for K1
+  regenerate  the regeneration kernel (csrc/regenerate.cu) at the
+           benchmark cells' shapes, b1.cw (a pencil, 262144 lanes) and
+           b2.sweep (8 disks of 32768 lanes, per-lane paths), on a
+           mid-run round with one lane in twelve dead: every field and
+           counter bit-equal to the plain _regenerate on the card;
+           device µs a call, host µs a call, the plain path's device
+           and host ms, and the bytes bound
   main     repro_torch.launch.simulate for B1 and B2 at 60^3 with 10^7
            photons, 262144 lanes, K=16: exact photon accounting,
            energy-balance residue < 1e-4, the kernel launched at least
-           once per round, B1's axial decay against diffusion theory
+           once per round and the regeneration kernel once a round,
+           B1's axial decay against diffusion theory
   detect   the detection path at the same size: B2 with 50 gates over
            5 ns, three detectors, 2^20 record slots, gate-resolved replay
            and round stats: exact accounting, no record overflow, every
@@ -156,6 +164,7 @@ import torch
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 try:
     from repro_torch.kernels.photon_step import photon_step as K
+    from repro_torch.kernels.photon_step import regenerate as RG
 except ModuleNotFoundError:
     sys.exit("chip_smoke.py needs the repository's src/ beside it")
 
@@ -666,6 +675,13 @@ def launched_kernels() -> int:
     return sum(K.photon_step_cuda.launches_by.values())
 
 
+def step_launches() -> int:
+    """Photon-step launches alone (the regeneration kernel's calls are
+    counted under ``regenerate/...`` beside them)."""
+    return sum(n for k, n in K.photon_step_cuda.launches_by.items()
+               if not k.startswith("regenerate/"))
+
+
 def host_clock_hz() -> float:
     """The host's fastest core clock, as /proc/cpuinfo reports it."""
     with open("/proc/cpuinfo") as f:
@@ -690,6 +706,107 @@ def host_memory_rate(threads: int) -> float:
     finally:
         torch.set_num_threads(saved)
     return 2 * src.numel() * 4 / best
+
+
+# The regeneration kernel at the benchmark cells' shapes: b1.cw (a pencil,
+# 262144 lanes, one scenario) and b2.sweep (8 disks stepping along x,
+# 32768 lanes each, three detectors), mid-run, where about one lane in
+# twelve relaunches a round
+REGEN_CELLS = {"b1.cw": ("B1", 1, LANES), "b2.sweep": ("B2", SCENARIOS,
+                                                       SCENARIO_LANES)}
+REGEN_DEAD = 1 / 12
+# the bytes a relaunched lane writes: pos, dir, ivox, w, s_left, t, rng,
+# alive, and its launch count read and written
+REGEN_LANE_BYTES = 12 + 12 + 12 + 4 + 4 + 4 + 32 + 1 + 16
+
+
+def regenerate_phase(card, reps: int = 200) -> dict:
+    """The regeneration kernel (csrc/regenerate.cu) at each of
+    ``REGEN_CELLS``: a mid-run round's lanes, one in twelve dead, every
+    field and counter bit-equal to the plain ``_regenerate`` on the card;
+    device µs a call (CUDA events behind a spin kernel, less the copy
+    that makes the same lanes dead again before each call), the host's
+    µs a call as the loop issues it, the plain path's device and host ms
+    at the same shape, and the bytes bound.  Returns each cell's row."""
+    from repro_torch import sources as SRC
+    from repro_torch.core import photon as ph
+    from repro_torch.core import simulator as S
+    from repro_torch.core import volume as V
+    from repro_torch.sources.base import StagedSampler
+
+    dev = torch.device("cuda")
+    rows = {}
+    for cell, (bench, n_sc, n) in REGEN_CELLS.items():
+        vol = (V.benchmark_b1 if bench == "B1" else V.benchmark_b2)(
+            (SIZE,) * 3, dev)
+        srcs = ([SRC.Pencil()] if n_sc == 1 else [
+            SRC.Disk(pos=(16.0 + 2.0 * i, 30.0, 0.0), radius=2.0)
+            for i in range(n_sc)])
+        staged = [x.stage() for x in srcs]
+        sample = StagedSampler(type(srcs[0]), {k: torch.as_tensor(np.stack(
+            [np.asarray(st[k], np.float32) for st in staged]), device=dev)
+            for k in staged[0]})
+        N, i64 = n_sc * n, dict(dtype=torch.int64, device=dev)
+        n_media = vol.media.shape[0] if n_sc > 1 else 0
+        seeds = torch.full((n_sc, 1), SEED, **i64)
+        ids = torch.arange(N, **i64).view(n_sc, n)
+        pos, direc, w0, rng = (x.reshape((N,) + x.shape[2:]) for x in sample(
+            S.xrng.PhotonId(ids, torch.zeros_like(ids)), seeds))
+        g = torch.Generator().manual_seed(SEED)
+        alive = (torch.rand(N, generator=g) >= REGEN_DEAD).to(dev)
+        state = ph.launch(pos, direc, w0, rng, alive, vol.shape)
+        remaining = torch.full((n_sc,), PHOTONS, **i64)
+        launched = torch.ones((n_sc, n), **i64)
+        quota = torch.ones((n_sc, n), **i64)
+        next_id = (torch.full((n_sc,), N, **i64), torch.zeros((n_sc,), **i64))
+        launched_w = torch.zeros((n_sc,), **i64)
+        ppath = (torch.rand((N, n_media), generator=g).to(dev)
+                 if n_media else None)
+        plain = functools.partial(
+            S._regenerate, state, remaining, launched, next_id, quota,
+            sample, seeds, "dynamic", vol.shape, ppath)
+        want = plain()
+        st = ph.PhotonState(*(x.clone() for x in state))
+        rem, lau, lw = remaining.clone(), launched.clone(), launched_w.clone()
+        pp = None if ppath is None else ppath.clone()
+        regen = RG.Regeneration(sample, "dynamic", vol.shape, rem, lau, quota,
+                                lw, seeds, n_media)
+        got_id = regen(st, next_id, pp)
+        torch.cuda.synchronize()
+        for name, x, y in zip(ph.PhotonState._fields, st, want[0]):
+            check(torch.equal(x.view(torch.int32) if x.is_floating_point()
+                              else x, y.view(torch.int32)
+                              if y.is_floating_point() else y),
+                  f"regenerate {cell}: {name} differs from _regenerate")
+        check(torch.equal(rem, want[1]) and torch.equal(lau, want[2])
+              and torch.equal(got_id[0], want[3][0])
+              and torch.equal(got_id[1], want[3][1])
+              and torch.equal(lw, launched_w + want[4])
+              and (pp is None or torch.equal(pp.view(torch.int32),
+                                             want[5].view(torch.int32))),
+              f"regenerate {cell}: a counter differs from _regenerate")
+        relaunched = int((~alive).sum())
+        check(int(want[1].sum()) == n_sc * PHOTONS - relaunched,
+              f"regenerate {cell}: {relaunched} dead lanes, budget "
+              f"{int(want[1].sum())}")
+        def call():
+            st.alive.copy_(alive)
+            regen(st, next_id, pp)
+
+        copy_ms = time_cuda(lambda: st.alive.copy_(alive), reps)
+        device_us = (time_cuda(call, reps) - copy_ms) * 1e3
+        host_us = time_cuda(call, reps, backlog=False) * 1e3
+        plain_ms = time_cuda(plain, 20)
+        plain_host_ms = time_cuda(plain, 20, backlog=False)
+        moved = N + relaunched * (REGEN_LANE_BYTES + 4 * n_media)
+        rows[cell] = dict(
+            source=type(srcs[0]).type_name, scenarios=n_sc, lanes=N,
+            relaunched=relaunched, device_us=device_us, host_us=host_us,
+            plain_device_ms=plain_ms, plain_host_ms=plain_host_ms,
+            bytes=moved, bound_us=moved / HBM_BYTES_PER_S * 1e6,
+            bound_by="bytes", bit_equal=True)
+        emit("regenerate", cell=cell, card=card, **rows[cell])
+    return rows
 
 
 def host_phase(card, records, cfg_detect) -> dict:
@@ -1543,9 +1660,13 @@ def main() -> None:
         emit("groups", case=what, variant=K.variant_name(FORWARD, c),
              lanes=s0.w.numel(), **diffs)
 
+    # --- regenerate: the regeneration kernel at the cells' shapes -----------
+    regen_rows = regenerate_phase(card)
+
     # --- main path ------------------------------------------------------------
     launches = {}
     main_runs = {}
+    regen_calls = 0
     for bench in ("B1", "B2"):
         K.reset_launches()
         t0 = time.perf_counter()
@@ -1555,7 +1676,7 @@ def main() -> None:
         res = main_runs[bench].result
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        n = sum(K.photon_step_cuda.launches_by.values())
+        n = step_launches()
         rounds = res.steps // K_MAIN
         bal = A.energy_balance(res)
         check(int(res.n_launched) == PHOTONS, "n_launched != photons")
@@ -1563,6 +1684,10 @@ def main() -> None:
         check(abs(bal["residue_frac"]) < 1e-4,
               f"energy residue {bal['residue_frac']:.3e}")
         check(n >= rounds >= 1, f"{n} kernel launches for {rounds} rounds")
+        regen = K.photon_step_cuda.launches_by[RG.source_key(SRC.Pencil, 1)]
+        check(regen == rounds, f"{regen} regeneration calls for {rounds} "
+              f"rounds")
+        regen_calls += regen
         check(bool(torch.isfinite(res.energy).all())
               and tuple(res.energy.shape) == shape, "energy grid malformed")
         extra = {}
@@ -1865,7 +1990,7 @@ def main() -> None:
                            json.dumps(SRC.to_dict(src))])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        n = sum(K.photon_step_cuda.launches_by.values())
+        n = step_launches()
         rounds = res.steps // K_MAIN
         bal = A.energy_balance(res)
         check(int(res.n_launched) == SOURCE_PHOTONS,
@@ -1953,7 +2078,9 @@ def main() -> None:
         batched_launches = dict(K.photon_step_cuda.launches_by)
         variant = K.variant_name(groups, fleet[0].cfg)
         rounds = max(r.steps for r in many) // K_MAIN
-        check(batched_launches == {f"{variant}/x{SCENARIOS}": rounds},
+        src_cls = type(SRC.as_source(fleet[0].source))
+        check(batched_launches == {f"{variant}/x{SCENARIOS}": rounds,
+                                   RG.source_key(src_cls, SCENARIOS): rounds},
               f"{fleet_name}: batched launches {batched_launches} for "
               f"{rounds} rounds")
         K.reset_launches()
@@ -1964,7 +2091,7 @@ def main() -> None:
         torch.cuda.synchronize()
         sequential_s = time.perf_counter() - t0
         alone_runs[fleet_name] = alone
-        seq_launches = sum(K.photon_step_cuda.launches_by.values())
+        seq_launches = step_launches()
         for i, (got, want) in enumerate(zip(many, alone)):
             for name, x, y in zip(got._fields, got, want):
                 same = (torch.equal(x, y) if isinstance(x, torch.Tensor)
@@ -2120,6 +2247,10 @@ def main() -> None:
         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": None}
         for fleet_name, row in scen_rows.items()] + [{
+        "name": "regenerate", "route": "cuda",
+        "source": "src/repro_torch/kernels/photon_step/csrc/regenerate.cu",
+        "replaces": None, "launches": regen_calls, "library_ms": None,
+        "cells": regen_rows}] + [{
         "name": "photon_step_host", "route": "host",
         "source": "src/repro_torch/kernels/photon_step/csrc/"
                   "photon_step_cpu.cpp",

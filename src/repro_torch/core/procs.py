@@ -190,15 +190,12 @@ def _op_batched(state, built, work, args, cancel):
     ``(labels, media, staged, det_geom, n_photons, seeds, id_lo,
     id_hi)``; returns a ``FixedResult`` a scenario."""
     from repro_torch.core import simulator as S
+    from repro_torch.sources.base import StagedSampler
 
     p, dev = work.params, state.device
     labels, media, staged, det_geom, n_photons, seeds, id_lo, id_hi = args
-    staged = {k: _on(v, dev) for k, v in staged.items()}
-    src_cls = p["src_cls"]
-
-    def sample(ids, seed_col):
-        return src_cls.sample_staged(staged, ids, seed_col)
-
+    sample = StagedSampler(p["src_cls"],
+                           {k: _on(v, dev) for k, v in staged.items()})
     run = S.build_round_loop(p["shape"], p["unitinmm"], p["cfg"],
                              p["n_lanes"], p["mode"], sample, dev, p["n_det"])
     return run(_on(labels, dev), _on(media, dev),

@@ -37,11 +37,16 @@ per-lane block of live segments that feeds the ``RoundStats`` counters.
 
 Regeneration runs every round, also when no lane relaunches: an
 all-False relaunch mask leaves every value as it was, and skipping it
-would need a host read.  The one host read per round is the loop
-condition; the record cursor, the overflow count and the counters stay
-on the device.  Photon ids are 64-bit, carried as (lo, hi) 32-bit words
-with the carry propagated, so campaigns beyond 2**32 photons keep
-distinct RNG streams.
+would need a host read.  On a CUDA device, for a source of staged
+parameters (``sources.base.StagedSampler``), it is one call of the
+hand-written regeneration kernel a round
+(``kernels/photon_step/regenerate.py``), which updates the lanes and
+counters in place with the bits of the plain ``_regenerate``; on the
+CPU, or for a source without ``stage()``, ``_regenerate`` runs.  The
+one host read per round is the loop condition; the record cursor, the
+overflow count and the counters stay on the device.  Photon ids are
+64-bit, carried as (lo, hi) 32-bit words with the carry propagated, so
+campaigns beyond 2**32 photons keep distinct RNG streams.
 
 The round loop returns a :class:`FixedResult`: the run's int64
 fixed-point totals, records and counters, still on its device.
@@ -72,8 +77,9 @@ from repro_torch.detectors import (as_detectors, det_geometry,
 from repro_torch.kernels.photon_step import spec
 from repro_torch.kernels.photon_step.ops import photon_steps, resolve_device
 from repro_torch.kernels.photon_step.photon_step import check_errors
+from repro_torch.kernels.photon_step.regenerate import Regeneration, supports
 from repro_torch.sources import PhotonSource, as_source
-from repro_torch.sources.base import staged_tensors
+from repro_torch.sources.base import StagedSampler, staged_tensors
 from repro_torch.telemetry.stats import RoundStats
 from repro_torch.telemetry.trace import capture, phase
 
@@ -240,7 +246,9 @@ def _total_rows(x: torch.Tensor, S: int) -> torch.Tensor:
 
 def _regenerate(state, remaining, launched_per_lane, next_id, quota,
                 sample, seeds, mode, shape, ppath=None, lane_ids=None):
-    """Relaunch photons in dead lanes according to the workload mode.
+    """Relaunch photons in dead lanes according to the workload mode:
+    the plain path of the CPU and of sources without ``stage()``, and
+    the yardstick the card tests hold the regeneration kernel to.
 
     Lanes are ``(S, n)``, scenario-major, in flat ``(S * n, ...)``
     state; ``remaining`` is ``(S,)``, ``launched_per_lane`` and
@@ -452,6 +460,13 @@ def build_round_loop(shape: tuple[int, int, int], unitinmm: float,
         if collect:
             counters = {k: torch.zeros((S,), **i64) for k in (
                 "regen_rounds", "relaunched", "live_segments")}
+        # on the card, a staged source regenerates in one kernel call a
+        # round (in place); elsewhere the plain _regenerate runs
+        regen = None
+        if supports(sample, dev):
+            regen = Regeneration(sample, mode, shape, remaining, launched,
+                                 quota, launched_w, seed_col,
+                                 n_media if n_det else 0, lane_ids)
 
         steps = 0
         while steps < cfg.max_steps:
@@ -467,14 +482,18 @@ def build_round_loop(shape: tuple[int, int, int], unitinmm: float,
                     raise RunCancelled(f"run cancelled after {steps} steps")
             with phase(cap, "round.regenerate", dev):
                 prev_lo = next_id[0]
-                state, remaining, launched, next_id, w_new, *extra = \
-                    _regenerate(state, remaining, launched, next_id, quota,
-                                sample, seed_col, mode, shape, ppath,
-                                lane_ids)
-                if n_det:
-                    ppath = extra.pop(0)
-                if record:
-                    lane_ids = extra.pop(0)
+                if regen is not None:
+                    next_id = regen(state, next_id, ppath)
+                else:
+                    state, remaining, launched, next_id, w_new, *extra = \
+                        _regenerate(state, remaining, launched, next_id,
+                                    quota, sample, seed_col, mode, shape,
+                                    ppath, lane_ids)
+                    launched_w += w_new
+                    if n_det:
+                        ppath = extra.pop(0)
+                    if record:
+                        lane_ids = extra.pop(0)
             with phase(cap, "round.step", dev):
                 outs = photon_steps(labels, media, state, shape, unitinmm,
                                     cfg, K, ppath=ppath, det_geom=det_geom,
@@ -487,7 +506,6 @@ def build_round_loop(shape: tuple[int, int, int], unitinmm: float,
                 state, _, _, esc, timed = outs[:5]
                 escaped += _total_rows(esc, S)
                 timed_out += _total_rows(timed, S)
-                launched_w += w_new
                 cur = 5
                 if n_det:
                     ppath = outs[cur]
@@ -572,12 +590,12 @@ def build_batched_fn(shape: tuple[int, int, int], unitinmm: float,
 
 def source_sampler(source, device):
     """``sample(ids, seeds)`` of one scenario's source for the round
-    loop: ``sample_staged`` on its staged parameters, or, for a source
+    loop: a ``StagedSampler`` of its staged parameters, or, for a source
     without ``stage()``, its ``sample`` (one scenario only)."""
     source = as_source(source)
     if hasattr(source, "stage"):
-        cls, staged = type(source), staged_tensors(source.stage(), device)
-        return lambda ids, seeds: cls.sample_staged(staged, ids, seeds)
+        return StagedSampler(type(source),
+                             staged_tensors(source.stage(), device))
 
     def sample(ids, seeds):
         one = source.sample(xrng.PhotonId(ids.lo[0], ids.hi[0]),

@@ -17,8 +17,11 @@ The source is compiled with ``nvcc`` for ``sm_90a`` once per set of
 output groups (``PS_GROUPS``, a mask of ``GROUP_BITS``), at first use,
 into ``build/repro_torch/`` at the root of the checkout (git-ignored),
 under a name keyed by a hash of the source and the flags, and loaded
-with ``ctypes`` through a plain C entry point.  ``build_all`` starts
-every variant's ``nvcc`` at once.
+with ``ctypes`` through a plain C entry point.  The regeneration
+kernel (``csrc/regenerate.cu``, bound in ``regenerate.py``) is built the
+same way, as the target ``REGENERATE``.  ``build_all`` starts every
+variant's ``nvcc`` and the regeneration kernel's at once, and ``load``
+builds through it.
 
 ``photon_step_cuda`` checks its inputs and allocates its outputs
 (``prepare``: the kernel zeroes the accumulated ones on the stream
@@ -62,6 +65,9 @@ from repro_torch.core.volume import SimConfig
 from repro_torch.kernels.photon_step import spec
 
 _SRC = pathlib.Path(__file__).resolve().parent / "csrc" / "photon_step.cu"
+# The regeneration kernel's source and its build target
+REGEN_SRC = _SRC.with_name("regenerate.cu")
+REGENERATE = "regenerate"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[4] / "build" / "repro_torch"
 # -lineinfo adds line tables only (for sass.py); the code is the same.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -119,29 +125,38 @@ def _nvcc() -> str:
                       "the photon-step kernel")
 
 
-def _flags(groups: int) -> tuple[str, ...]:
+def _flags(groups) -> tuple[str, ...]:
+    if groups == REGENERATE:
+        return NVCC_FLAGS
     if groups not in VALID_GROUPS:
         raise ValueError(f"no photon-step kernel for output-group mask "
                          f"{groups}; valid masks: {VALID_GROUPS}")
     return NVCC_FLAGS + (f"-DPS_GROUPS={groups}",)
 
 
-def library_path(groups: int = 0) -> pathlib.Path:
-    """Where the built kernel library of a group mask lives, keyed by
-    source and flags."""
-    key = hashlib.sha256(_SRC.read_bytes() + " ".join(_flags(groups)).encode())
-    return BUILD_DIR / f"photon_step_g{groups}_{key.hexdigest()[:16]}.so"
+def _source(groups) -> pathlib.Path:
+    return REGEN_SRC if groups == REGENERATE else _SRC
 
 
-def _start_build(groups: int):
-    """Start ``nvcc`` for one group mask; returns ``(out, tmp, cmd,
-    process)``, or ``None`` when the library is already built."""
+def library_path(groups=0) -> pathlib.Path:
+    """Where the built kernel library of a group mask (or of
+    ``REGENERATE``) lives, keyed by source and flags."""
+    key = hashlib.sha256(_source(groups).read_bytes()
+                         + " ".join(_flags(groups)).encode())
+    stem = REGENERATE if groups == REGENERATE else f"photon_step_g{groups}"
+    return BUILD_DIR / f"{stem}_{key.hexdigest()[:16]}.so"
+
+
+def _start_build(groups):
+    """Start ``nvcc`` for one group mask (or ``REGENERATE``); returns
+    ``(out, tmp, cmd, process)``, or ``None`` when the library is already
+    built."""
     out = library_path(groups)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_flags(groups), "-o", str(tmp), str(_SRC)]
+    cmd = [_nvcc(), *_flags(groups), "-o", str(tmp), str(_source(groups))]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return out, tmp, cmd, proc
@@ -157,11 +172,11 @@ def _finish_build(started) -> None:
     os.replace(tmp, out)
 
 
-def build_library(groups: int = 0) -> pathlib.Path:
-    """Compile one group mask's kernel if it is not built yet; returns
-    its path.  The compiler's output (``-Xptxas -v``: registers,
-    spills) is kept beside it in a ``.log`` file.  A failed build
-    raises."""
+def build_library(groups=0) -> pathlib.Path:
+    """Compile one group mask's kernel (or ``REGENERATE``) if it is not
+    built yet; returns its path.  The compiler's output (``-Xptxas -v``:
+    registers, spills) is kept beside it in a ``.log`` file.  A failed
+    build raises."""
     with _build_lock():
         started = _start_build(groups)
         if started is not None:
@@ -188,11 +203,13 @@ def _build_lock():
 
 
 def build_all(groups=VALID_GROUPS) -> float:
-    """Build the kernels of several group masks, one ``nvcc`` each, all
-    started together; returns seconds.  Any failed build raises."""
+    """Build the kernels of several group masks and the regeneration
+    kernel, one ``nvcc`` each, all started together; returns seconds.
+    Any failed build raises."""
     t0 = time.perf_counter()  # reprolint: disable=REP201 - build and load seconds, reported
     with _build_lock():
-        started = [x for x in map(_start_build, groups) if x is not None]
+        started = [x for x in map(_start_build, (*groups, REGENERATE))
+                   if x is not None]
         errors = []
         for x in started:
             try:
@@ -235,9 +252,11 @@ def _load_library(groups: int) -> ctypes.CDLL:
 
 
 def load(groups=(0,)) -> float:
-    """Build (if needed) and load the kernel libraries of ``groups``;
+    """Build (if needed, in one ``build_all`` batch with the
+    regeneration kernel) and load the kernel libraries of ``groups``;
     returns seconds."""
     t0 = time.perf_counter()  # reprolint: disable=REP201 - build and load seconds, reported
+    build_all(groups)
     for g in groups:
         _library(g)
     return time.perf_counter() - t0  # reprolint: disable=REP201 - build and load seconds, reported

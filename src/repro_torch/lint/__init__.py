@@ -49,7 +49,7 @@ __all__ = [
     "Finding", "Module", "Context", "Rule", "LintReport", "run_lint",
     "discover_modules", "traced_closure", "normalize_line", "pragma_rules",
     "TRACED_ENTRYPOINTS", "KERNEL_SOURCE", "HOST_KERNEL_SOURCE",
-    "KERNEL_SOURCES",
+    "REGEN_KERNEL_SOURCE", "KERNEL_SOURCES",
 ]
 
 # Modules whose import closure runs photons: everything reachable (by
@@ -72,7 +72,11 @@ KERNEL_SOURCE = "src/repro_torch/kernels/photon_step/csrc/photon_step.cu"
 # rules read as they read the CUDA source
 HOST_KERNEL_SOURCE = ("src/repro_torch/kernels/photon_step/csrc/"
                       "photon_step_cpu.cpp")
-KERNEL_SOURCES = (KERNEL_SOURCE, HOST_KERNEL_SOURCE)
+# The regeneration kernel's CUDA source, which the determinism and dtype
+# rules read as they read the others
+REGEN_KERNEL_SOURCE = ("src/repro_torch/kernels/photon_step/csrc/"
+                       "regenerate.cu")
+KERNEL_SOURCES = (KERNEL_SOURCE, HOST_KERNEL_SOURCE, REGEN_KERNEL_SOURCE)
 
 _PRAGMA_RE = re.compile(r"(?:#|//)\s*reprolint:\s*disable=([A-Za-z0-9_,\s]+)")
 

@@ -65,6 +65,7 @@ from repro_torch.detectors import (as_detectors, det_geometry,
                                    validate_detectors)
 from repro_torch.kernels.photon_step.ops import resolve_device
 from repro_torch.sources import stage_source
+from repro_torch.sources.base import StagedSampler
 from repro_torch.telemetry.trace import capture, device_label, phase
 
 __all__ = [
@@ -268,11 +269,8 @@ def _raw_batched_fn(rep: _Prep, n_lanes, mode, device):
     n_det = len(rep.dets)
 
     def fn(labels, media, staged, det_geom, n_photons, seeds, id_lo, id_hi):
-        def sample(ids, seed_col):
-            return src_cls.sample_staged(staged, ids, seed_col)
-
         run = build_batched_fn(vol.shape, vol.unitinmm, cfg, n_lanes, mode,
-                               sample, device, n_det)
+                               StagedSampler(src_cls, staged), device, n_det)
         return run(labels, media, det_geom, n_photons, seeds, id_lo, id_hi)
 
     return fn

@@ -182,6 +182,22 @@ class StagedSource:
         return sample_one(self.source_cls, self.staged, photon_ids, seed)
 
 
+class StagedSampler:
+    """The round loop's ``sample(ids, seeds)``: ``source_cls``'s
+    ``sample_staged`` on ``staged``, a dict of ``(S, ...)`` tensors on
+    the run's device.  The loop reads both attributes to hand them to the
+    regeneration kernel (``kernels/photon_step/regenerate.py``)."""
+
+    __slots__ = ("source_cls", "staged")
+
+    def __init__(self, source_cls: type, staged: dict):
+        self.source_cls = source_cls
+        self.staged = staged
+
+    def __call__(self, photon_ids, seeds):
+        return self.source_cls.sample_staged(self.staged, photon_ids, seeds)
+
+
 def stage_source(source) -> tuple[type, dict]:
     """Coerce and stage: returns ``(source class, staged dict)``, the
     dict's values float32 numpy arrays."""

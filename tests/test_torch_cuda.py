@@ -60,6 +60,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import analysis as A  # noqa: E402
+from repro_torch.core import photon as ph  # noqa: E402
 from repro_torch.core import simulator as S  # noqa: E402
 from repro_torch.core import volume as V  # noqa: E402
 from repro_torch.detectors import as_detectors, det_geometry  # noqa: E402
@@ -752,3 +753,202 @@ def test_examples_run_on_the_card(cuda_device, tmp_path):
     assert rep.n_chunks == rep.merged == 8 and rep.retries >= 1
     assert out["crash"] is not None and out["restored"] == (4, 4)
     assert int(out["resumed"].n_launched) == 4000
+
+
+# --- the regeneration kernel (csrc/regenerate.cu) -------------------------
+
+def _regen_sources():
+    """The seven source types, planar with and without a pattern, line
+    as a slit and isotropic; a scenario's parameters differ by ``i``, and
+    some launch positions fall outside the volume (clamped)."""
+    from repro_torch import sources as SR
+
+    return {
+        "pencil": lambda i: SR.Pencil(pos=(12.0 + i, 10.0, 0.0),
+                                      dir=(0.0, 0.1 * i, 1.0)),
+        "isotropic": lambda i: SR.IsotropicPoint(pos=(12.0, 10.0 + i, 8.0)),
+        "cone": lambda i: SR.Cone(pos=(12.0, 10.0, 0.0),
+                                  dir=(0.1 * i, 0.2, 1.0),
+                                  half_angle_deg=10.0 + 3 * i),
+        "gaussian": lambda i: SR.GaussianBeam(pos=(2.0 + i, 10.0, 0.0),
+                                              dir=(0.0, 0.1, 1.0),
+                                              waist=2.0 + 0.25 * i),
+        "disk": lambda i: SR.Disk(pos=(1.0 + 2 * i, 10.0, 0.0), radius=3.0),
+        "planar": lambda i: SR.Planar(pos=(-2.0, 4.0, 0.0),
+                                      v1=(10.0 + i, 0.0, 0.0),
+                                      v2=(0.0, 8.0, 1.0)),
+        "planar+pattern": lambda i: SR.Planar(
+            pos=(4.0, 4.0, 0.0), v1=(12.0, 0.0, 0.0), v2=(0.0, 8.0, 0.0),
+            pattern=((1.0, 0.1 * (i + 1), 1.0), (0.5, 1.0, 0.25))),
+        "line (slit)": lambda i: SR.Line(start=(-2.0 + i, 10.0, 0.0),
+                                         end=(30.0, 10.0, 0.0)),
+        "line (isotropic)": lambda i: SR.Line(start=(4.0, 10.0, 8.0),
+                                              end=(20.0, 10.0 - i, 8.0),
+                                              dir=None),
+    }
+
+
+def _staged_sampler(name, n_sc, dev):
+    """A ``StagedSampler`` of ``n_sc`` scenarios of one source type, stacked as
+    ``simulate_many`` stacks them."""
+    from repro_torch.sources.base import StagedSampler, stage_source
+
+    staged = [stage_source(_regen_sources()[name](i)) for i in range(n_sc)]
+    return StagedSampler(staged[0][0], {
+        k: torch.as_tensor(np.stack([np.asarray(s[k], np.float32)
+                                     for _, s in staged]), device=dev)
+        for k in staged[0][1]})
+
+
+def _bits(x):
+    """A tensor's bits: float32 as int32 words, so -0.0 != 0.0."""
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def _regen_inputs(n_sc, n, extras, dev, seed):
+    """A round's inputs: lanes dead at random, launch counts around
+    their quotas, budgets below, above and at zero, id low words that
+    carry across 2**32 (and a high word that wraps), seeds above 2**31."""
+    g = torch.Generator().manual_seed(seed)
+    N = n_sc * n
+    state = ph.PhotonState(
+        pos=torch.rand((N, 3), generator=g) * 10,
+        dir=torch.rand((N, 3), generator=g) - 0.5,
+        ivox=torch.randint(0, 9, (N, 3), generator=g, dtype=torch.int32),
+        w=torch.rand((N,), generator=g),
+        s_left=torch.rand((N,), generator=g),
+        t=torch.rand((N,), generator=g),
+        rng=torch.randint(0, 2**32, (N, 4), generator=g),
+        alive=torch.rand((N,), generator=g) < 0.6)
+    dead = (~state.alive).view(n_sc, n).sum(1)
+    remaining = torch.stack([dead[s] // 2 if s % 3 == 0 else (
+        dead[s] + 7 if s % 3 == 1 else torch.zeros_like(dead[s]))
+        for s in range(n_sc)])
+    launched = torch.randint(0, 3, (n_sc, n), generator=g)
+    quota = torch.randint(0, 4, (n_sc, n), generator=g)
+    next_id = (torch.tensor([2**32 - 40 - s for s in range(n_sc)]),
+               torch.tensor([5] + [2**32 - 1 if s == 1 else 7 * s
+                                   for s in range(1, n_sc)]))
+    seeds = torch.randint(2**31, 2**32, (n_sc, 1), generator=g)
+    launched_w = torch.randint(0, 2**40, (n_sc,), generator=g)
+    ppath = torch.rand((N, 3), generator=g) if extras else None
+    lane_ids = torch.randint(0, 2**32, (N, 2), generator=g) if extras else None
+
+    def on(x):
+        return None if x is None else x.to(dev)
+
+    return (ph.PhotonState(*map(on, state)), on(remaining), on(launched),
+            tuple(map(on, next_id)), on(quota), on(launched_w), on(seeds),
+            on(ppath), on(lane_ids))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extras", [False, True])
+@pytest.mark.parametrize("scenarios", [1, 8])
+@pytest.mark.parametrize("mode", ["dynamic", "static"])
+@pytest.mark.parametrize("source", list(_regen_sources()))
+def test_regeneration_kernel_matches_plain_regenerate(cuda_device, source,
+                                                      mode, scenarios,
+                                                      extras):
+    """One kernel call gives every field and counter the plain
+    ``_regenerate`` gives on the card, bit for bit, at a lane count that
+    is no multiple of the block size, and counts one launch."""
+    from repro_torch.kernels.photon_step import regenerate as RG
+
+    n = 300
+    (state, remaining, launched, next_id, quota, launched_w, seeds, ppath,
+     lane_ids) = _regen_inputs(scenarios, n, extras, cuda_device,
+                               seed=scenarios + 3)
+    sample = _staged_sampler(source, scenarios, cuda_device)
+    want = S._regenerate(state, remaining, launched, next_id, quota, sample,
+                         seeds, mode, SHAPE, ppath, lane_ids)
+    clone = (lambda x: None if x is None else x.clone())
+    st = ph.PhotonState(*map(clone, state))
+    rem, lau, lw, pp, ids = map(clone, (remaining, launched, launched_w,
+                                        ppath, lane_ids))
+    ids_before = tuple(x.clone() for x in next_id)
+    key = RG.source_key(sample.source_cls, scenarios)
+    before = kernel.photon_step_cuda.launches_by[key]
+    regen = RG.Regeneration(sample, mode, SHAPE, rem, lau, quota, lw, seeds,
+                            3 if extras else 0, ids)
+    got_id = regen(st, next_id, pp)
+    assert kernel.photon_step_cuda.launches_by[key] == before + 1
+    for name, x, y in zip(ph.PhotonState._fields, st, want[0]):
+        assert torch.equal(_bits(x), _bits(y)), name
+    assert torch.equal(rem, want[1])
+    assert torch.equal(lau, want[2])
+    for x, y in zip(got_id, want[3]):
+        assert torch.equal(x, y)
+    assert torch.equal(lw, launched_w + want[4])
+    if extras:
+        assert torch.equal(_bits(pp), _bits(want[5]))
+        assert torch.equal(ids, want[6])
+    # the old ids are left as they were; some lanes did relaunch
+    assert all(torch.equal(x, y) for x, y in zip(next_id, ids_before))
+    assert int((want[3][0] - next_id[0]).abs().sum()) > 0
+
+
+def _fleet(vol, cfg, photons, sources, dets):
+    from repro_torch import scenarios as SC
+
+    return [SC.Scenario(vol, cfg, photons, seed=2**31 + 11, source=src,
+                        detectors=dets, id_offset=2**32 - 3000 + k * photons)
+            for k, src in enumerate(sources)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["b1", "b2-detect-static", "fleet"])
+def test_runs_with_the_regeneration_kernel_match_the_plain_path(
+        cuda_device, case, monkeypatch):
+    """A whole run regenerating with the kernel gives every field of the
+    plain path's run (``_regenerate`` on the card) bit for bit, and calls
+    the kernel once a round: a small B1 pencil run whose ids cross
+    2**32, a B2 detection forward in static mode with records and
+    counters, and a b2.sweep-shaped fleet of 8 disks in one batch."""
+    from repro_torch import scenarios as SC
+
+    def run():
+        kernel.reset_launches()
+        if case == "b1":
+            vol = V.benchmark_b1(SHAPE)
+            cfg = dataclasses.replace(V.b1_config(), steps_per_round=8)
+            out = [S.simulate_fixed(vol, cfg, 20_000, 2048, seed=7,
+                                    source=SRC, device=cuda_device,
+                                    id_offset=2**32 - 5_000)]
+        elif case == "b2-detect-static":
+            vol = V.benchmark_b2(SHAPE)
+            cfg = dataclasses.replace(V.b2_config(), steps_per_round=8,
+                                      n_time_gates=4, tmax_ns=1.0,
+                                      collect_stats=True)
+            out = [S.simulate_fixed(
+                vol, cfg, 12_000, 1000, seed=2**31 + 5, mode="static",
+                source={"type": "disk", "pos": [12.0, 10.0, 0.0],
+                        "radius": 3}, device=cuda_device, detectors=DETS,
+                record_detected=4096)]
+        else:
+            vol = V.benchmark_b2((30, 30, 30))
+            cfg = dataclasses.replace(V.b2_config(), steps_per_round=16,
+                                      n_time_gates=50, tmax_ns=5.0)
+            fleet = _fleet(vol, cfg, 4000, [
+                {"type": "disk", "pos": [8.0 + 2 * k, 15.0, 0.0],
+                 "radius": 2} for k in range(8)],
+                [(18.0, 15.0, 2.0), (21.0, 15.0, 2.0), (24.0, 15.0, 2.0)])
+            out = SC.simulate_many(fleet, n_lanes=1024, device=cuda_device,
+                                   cache=SC.CompileCache())
+        return out, dict(kernel.photon_step_cuda.launches_by)
+
+    got, launches = run()
+    rounds = max(int(torch.as_tensor(r.steps).max()) for r in got) // (
+        16 if case == "fleet" else 8)
+    key = {"b1": "regenerate/pencil", "b2-detect-static": "regenerate/disk",
+           "fleet": "regenerate/disk/x8"}[case]
+    assert launches[key] == rounds
+    monkeypatch.setattr(S, "supports", lambda *a: False)
+    want, plain = run()
+    assert not any(k.startswith("regenerate/") for k in plain)
+    for a, b in zip(got, want):
+        for name, x, y in zip(a._fields, a, b):
+            if isinstance(x, torch.Tensor):
+                assert torch.equal(x, y), name
+            else:
+                assert x == y, name

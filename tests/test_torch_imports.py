@@ -45,6 +45,7 @@ def test_scan_sees_the_whole_port():
     for must in ("src/repro_torch/core/simulator.py",
                  "src/repro_torch/kernels/photon_step/photon_step.py",
                  "src/repro_torch/kernels/photon_step/photon_step_cpu.py",
+                 "src/repro_torch/kernels/photon_step/regenerate.py",
                  "src/repro_torch/replay/__init__.py",
                  "src/repro_torch/detectors/__init__.py",
                  "src/repro_torch/telemetry/stats.py",
