@@ -14,6 +14,12 @@ The paper's benchmarks, with the published optical properties:
   * B2a - the physics of B2; the paper uses it to time atomic fluence
           accumulation, which is what the CUDA kernel does for every
           benchmark.
+
+And MCX's skin-vessel example (``example/skinvessel``; mcxlab's
+``demo_mcxyz_skinvessel.m``), S. Jacques' mcxyz skin-vessel at 532 nm:
+200^3 voxels of 5 um built from MCX shapes (``core/shapes.py``), a
+water layer over epidermis over dermis, crossed by a blood vessel along
+x; a disk beam, no reflection, one gate to 50 ns.
 """
 
 from __future__ import annotations
@@ -22,6 +28,10 @@ import dataclasses
 
 import numpy as np
 import torch
+
+# MCX's shape primitives, re-exported beside cube_with_sphere
+from repro_torch.core.shapes import (cylinder, grid, rasterize,  # noqa: F401
+                                     zlayers)
 
 C_MM_PER_NS = 299.792458  # speed of light in vacuum, mm/ns
 
@@ -133,6 +143,44 @@ def benchmark_b2(shape: tuple[int, int, int] = (60, 60, 60),
                             device=device)
 
 
+def volume_from_shapes(shape_list, media_list: list[Medium],
+                       unitinmm: float = 1.0, device="cpu") -> Volume:
+    """A Volume from an MCX ``Shapes`` list (``core/shapes.py``); row
+    ``t`` of ``media_list`` is tag ``t``, row 0 the exterior."""
+    labels = rasterize(shape_list)
+    if int(labels.max()) >= len(media_list):
+        raise ValueError(f"tag {int(labels.max())} has no medium among "
+                         f"{len(media_list)} rows")
+    return Volume(labels=torch.as_tensor(labels, device=device),
+                  media=pack_media(media_list, device), unitinmm=unitinmm)
+
+
+# MCX example/skinvessel: tags 1 water, 2 blood, 3 dermis, 4 epidermis
+SKINVESSEL_MEDIA = (
+    AIR,
+    Medium(mua=3.564e-05, mus=1.0, g=1.0, n=1.37),
+    Medium(mua=23.05426549, mus=9.398496241, g=0.90, n=1.37),
+    Medium(mua=0.04584957865, mus=35.65405549, g=0.90, n=1.37),
+    Medium(mua=1.657237447, mus=37.59398496, g=0.90, n=1.37),
+)
+SKINVESSEL_SHAPES = (
+    {"Grid": {"Tag": 1, "Size": [200, 200, 200]}},
+    {"ZLayers": [[1, 20, 1], [21, 32, 4], [33, 200, 3]]},
+    {"Cylinder": {"Tag": 2, "C0": [0, 100.5, 100.5],
+                  "C1": [200, 100.5, 100.5], "R": 20}},
+)
+SKINVESSEL_UNITINMM = 0.005
+# the source's disk beam, in voxel units (MCX's issrcfrom0 = 1)
+SKINVESSEL_SOURCE = {"type": "disk", "pos": [100.0, 100.0, 20.0],
+                     "dir": [0.0, 0.0, 1.0], "radius": 60.0}
+
+
+def benchmark_skinvessel(device="cpu") -> Volume:
+    """MCX's skin-vessel volume at its published 200^3 voxels of 5 um."""
+    return volume_from_shapes(SKINVESSEL_SHAPES, list(SKINVESSEL_MEDIA),
+                              SKINVESSEL_UNITINMM, device)
+
+
 @dataclasses.dataclass(frozen=True)
 class Source:
     """Legacy pencil-beam source (the paper's configuration).
@@ -187,3 +235,9 @@ def b1_config() -> SimConfig:
 
 def b2_config() -> SimConfig:
     return SimConfig(do_reflect=True)
+
+
+def skinvessel_config() -> SimConfig:
+    """No reflection (the demo is compared against mcxyz, which models no
+    index mismatch), one gate to 50 ns."""
+    return SimConfig(do_reflect=False, tmax_ns=50.0)

@@ -47,7 +47,7 @@ from repro_torch import telemetry
 from repro_torch.core import simulator as S
 from repro_torch.detectors import as_detectors
 from repro_torch.kernels.photon_step import photon_step as K
-from repro_torch.launch.simulate import get_bench
+from repro_torch.launch.simulate import BENCHES, bench_source, get_bench
 
 DEVICE_CATS = {"kernel": "kernel", "gpu_memcpy": "memcpy",
                "gpu_memset": "memset"}
@@ -176,10 +176,11 @@ def clock_offset_us(spans, trace_events, base_ns: int) -> float | None:
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--bench", default="B1", choices=["B1", "B2", "B2a"])
+    ap.add_argument("--bench", default="B1", choices=BENCHES)
     ap.add_argument("--photons", type=int, default=1_000_000)
     ap.add_argument("--lanes", type=int, default=262_144)
-    ap.add_argument("--size", type=int, default=60)
+    ap.add_argument("--size", type=int, default=None,
+                    help="voxels a side of B1/B2 (default 60)")
     ap.add_argument("--seed", type=int, default=1234)
     ap.add_argument("--steps-per-round", type=int, default=16)
     ap.add_argument("--time-gates", type=int, default=1)
@@ -206,7 +207,8 @@ def main(argv=None) -> dict:
 
     def run():
         res = S.simulate(vol, cfg, args.photons, args.lanes, args.seed,
-                         device=dev, detectors=detectors,
+                         source=bench_source(args.bench), device=dev,
+                         detectors=detectors,
                          record_detected=args.save_detected)
         torch.cuda.synchronize(dev)
         return res

@@ -68,15 +68,57 @@ from repro_torch.detectors import as_detectors
 from repro_torch.kernels.photon_step.ops import resolve_device, visible_devices
 from repro_torch.replay import (ReplayResult, detected_records,
                                 replay_jacobian)
+from repro_torch.telemetry.trace import phase
 
 
-def get_bench(name: str, size: int, device="cpu"):
-    shape = (size, size, size)
+BENCHES = ("B1", "B2", "B2a", "skinvessel")
+# MCX's skin-vessel volume is offered at its published size only
+SKINVESSEL_SIZE = 200
+
+
+def get_bench(name: str, size: int | None = None, device="cpu"):
+    """``(volume, config)`` of a benchmark; ``size`` (voxels a side)
+    scales B1 and B2 (default 60), and must be 200 or ``None`` for the
+    skin-vessel volume, whose shapes are MCX's own."""
+    if name == "skinvessel":
+        if size not in (None, SKINVESSEL_SIZE):
+            raise ValueError(f"skinvessel is MCX's {SKINVESSEL_SIZE}^3 "
+                             f"grid only; got --size {size}")
+        return V.benchmark_skinvessel(device), V.skinvessel_config()
+    shape = (size or 60,) * 3
     if name == "B1":
         return V.benchmark_b1(shape, device), V.b1_config()
     if name in ("B2", "B2a"):
         return V.benchmark_b2(shape, device), V.b2_config()
     raise ValueError(name)
+
+
+def bench_source(name: str):
+    """A benchmark's own source: the skin-vessel disk beam, else None
+    (the paper's pencil beam)."""
+    return dict(V.SKINVESSEL_SOURCE) if name == "skinvessel" else None
+
+
+def build_bench(name: str, size: int | None, device, n_time_gates: int,
+                tracer=None):
+    """:func:`get_bench` inside a ``volume.shapes`` span (recorded in
+    ``tracer`` and, while a ``torch.profiler`` capture runs, in the
+    capture's tracer; never synchronising), then the counters
+    ``volume.voxels``, ``volume.media`` and ``volume.grid_bytes`` (the
+    int64 fluence and exitance grids a run of ``n_time_gates`` gates
+    holds) in ``tracer``."""
+    cap = T.capture()
+    with phase(tracer or cap, "volume.shapes", device,
+               also=cap if tracer is not None else None, bench=name):
+        vol, cfg = get_bench(name, size, device)
+    if tracer is not None:
+        nx, ny, nz = vol.shape
+        nvox = nx * ny * nz
+        tracer.counter("volume.voxels", nvox, bench=name)
+        tracer.counter("volume.media", int(vol.media.shape[0]), bench=name)
+        tracer.counter("volume.grid_bytes", 8 * (nvox * n_time_gates
+                                                 + nx * ny), bench=name)
+    return vol, cfg
 
 
 class Run(NamedTuple):
@@ -215,10 +257,12 @@ def run(argv=None) -> Run:
     """Parse the CLI arguments, run, print the report; returns the
     forward result and, with ``--replay``, the replay result."""
     ap = argparse.ArgumentParser()
-    ap.add_argument("--bench", default="B1", choices=["B1", "B2", "B2a"])
+    ap.add_argument("--bench", default="B1", choices=BENCHES)
     ap.add_argument("--photons", type=int, default=100_000)
     ap.add_argument("--lanes", type=int, default=4096)
-    ap.add_argument("--size", type=int, default=60)
+    ap.add_argument("--size", type=int, default=None,
+                    help="voxels a side of B1/B2 (default 60); skinvessel "
+                         "is MCX's 200^3 grid only")
     ap.add_argument("--seed", type=int, default=1234)
     ap.add_argument("--steps-per-round", type=int, default=1,
                     help="K: fused transport segments per regeneration/"
@@ -247,7 +291,8 @@ def run(argv=None) -> Run:
                          "--replay)")
     ap.add_argument("--tmax-ns", type=float, default=None,
                     help="time-of-flight cutoff in ns (default: the "
-                         "benchmark config's 5.0); weight still in "
+                         "benchmark config's 5.0, skinvessel's 50.0); "
+                         "weight still in "
                          "flight at the cutoff is retired as timed-out")
     ap.add_argument("--collect-stats", action="store_true",
                     help="accumulate round counters (lane occupancy, "
@@ -257,7 +302,8 @@ def run(argv=None) -> Run:
     ap.add_argument("--source", default=None,
                     help="JSON source spec (repro_torch.sources), e.g. "
                          '\'{"type": "disk", "pos": [30, 30, 0], '
-                         '"radius": 5}\'; default: pencil beam')
+                         '"radius": 5}\'; default: the pencil beam, or '
+                         "skinvessel's own disk beam")
     ap.add_argument("--autotune", action="store_true",
                     help="Opt2: pilot-sweep the lane count (at the chosen "
                          "steps-per-round) and run with the fastest")
@@ -352,10 +398,15 @@ def run(argv=None) -> Run:
     tracer = T.Tracer(sinks=sinks) if (args.trace_out or sinks) else None
     if args.scenarios:
         return _run_scenarios(args, ap, dev, tracer, sinks)
-    source = json.loads(args.source) if args.source else None
+    source = (json.loads(args.source) if args.source
+              else bench_source(args.bench))
     detectors = as_detectors(
         json.loads(args.detectors)) if args.detectors else None
-    vol, cfg = get_bench(args.bench, args.size, dev)
+    try:
+        vol, cfg = build_bench(args.bench, args.size, dev, args.time_gates,
+                               tracer)
+    except ValueError as e:  # a --size the benchmark does not offer
+        ap.error(str(e))
     cfg = dataclasses.replace(cfg, steps_per_round=args.steps_per_round,
                               n_time_gates=args.time_gates,
                               collect_stats=args.collect_stats)

@@ -53,6 +53,7 @@ def test_scan_sees_the_whole_port():
                  "src/repro_torch/telemetry/sinks.py",
                  "src/repro_torch/telemetry/__init__.py",
                  "src/repro_torch/core/loadbalance.py",
+                 "src/repro_torch/core/shapes.py",
                  "src/repro_torch/scenarios/__init__.py",
                  "src/repro_torch/sources/types.py",
                  "src/repro_torch/sources/base.py",

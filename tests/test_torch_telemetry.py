@@ -163,8 +163,8 @@ def test_cli_source_trace_and_metrics(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "trace timeline" in out and "energy balance" in out
     events = T.load_chrome_trace(trace)
-    assert [e.name for e in events] == ["simulate"]
-    assert events[0].args["photons"] == 300
+    assert [e.name for e in events] == ["volume.shapes", "simulate"]
+    assert events[1].args["photons"] == 300
     rows = [json.loads(x) for x in metrics.read_text().splitlines()]
     assert rows[0]["type"] == "span" and rows[-1]["name"] == "photons_per_s"
 
