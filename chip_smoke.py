@@ -314,6 +314,15 @@ def check(ok: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def issued_rounds(rounds: int) -> int:
+    """Rounds a run issues for ``rounds`` with work: the loop reads the
+    host once every ``ROUNDS_PER_READ`` rounds, and the rounds after the
+    last with work up to the next read are no-ops."""
+    from repro_torch.core.simulator import ROUNDS_PER_READ as every
+
+    return -(-rounds // every) * every
+
+
 # ~0.1 s of spinning at the 1.98 GHz boost clock
 SPIN_CYCLES = 200_000_000
 
@@ -1373,7 +1382,7 @@ def lint_phase(card) -> None:
     lint_s = time.perf_counter() - t0
     K.reset_launches()
     rounds = make_sim("cuda")(None).per_round()
-    check(rounds["rounds"] > 0 and set(rounds["host_reads"]) == {1},
+    check(rounds["rounds"] > 0 and max(rounds["host_reads"]) <= 1,
           f"the round loop on the card reads the host {rounds['host_reads']} "
           f"times a round")
     check(launched_kernels() >= rounds["rounds"],
@@ -1685,8 +1694,8 @@ def main() -> None:
               f"energy residue {bal['residue_frac']:.3e}")
         check(n >= rounds >= 1, f"{n} kernel launches for {rounds} rounds")
         regen = K.photon_step_cuda.launches_by[RG.source_key(SRC.Pencil, 1)]
-        check(regen == rounds, f"{regen} regeneration calls for {rounds} "
-              f"rounds")
+        check(regen == issued_rounds(rounds), f"{regen} regeneration "
+              f"calls for {rounds} rounds")
         regen_calls += regen
         check(bool(torch.isfinite(res.energy).all())
               and tuple(res.energy.shape) == shape, "energy grid malformed")
@@ -1756,7 +1765,7 @@ def main() -> None:
         check(by_variant.get(name, 0) >= 1, f"{name} ({where}) never launched")
     rounds = res.steps // K_MAIN
     fwd_variant = K.variant_name(DET | RECORD | STATS, cfg_detect)
-    check(by_variant[fwd_variant] == rounds,
+    check(by_variant[fwd_variant] == issued_rounds(rounds),
           f"{by_variant[fwd_variant]} forward launches for {rounds} rounds")
     emit("detect", argv=DETECT_ARGV, seconds=wall,
          forward_seconds=run.seconds,

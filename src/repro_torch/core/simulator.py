@@ -43,8 +43,12 @@ hand-written regeneration kernel a round
 (``kernels/photon_step/regenerate.py``), which updates the lanes and
 counters in place with the bits of the plain ``_regenerate``; on the
 CPU, or for a source without ``stage()``, ``_regenerate`` runs.  The
-one host read per round is the loop condition; the record cursor, the
-overflow count and the counters stay on the device.  Photon ids are
+loop reads the host once every ``ROUNDS_PER_READ`` rounds, for its
+condition: each round leaves on the device whether any scenario has
+work left, and the record cursor, the overflow count and the counters
+stay there too.  With the regeneration kernel on the card a round is a
+fixed chain of launches, so the loop captures it once a run as a CUDA
+graph and replays it between reads (``graph_applies``).  Photon ids are
 64-bit, carried as (lo, hi) 32-bit words with the carry propagated, so
 campaigns beyond 2**32 photons keep distinct RNG streams.
 
@@ -61,7 +65,9 @@ their ``FixedResult`` values and convert once.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 import time
 from typing import NamedTuple, Sequence
 
@@ -76,7 +82,9 @@ from repro_torch.detectors import (as_detectors, det_geometry,
                                    validate_detectors)
 from repro_torch.kernels.photon_step import spec
 from repro_torch.kernels.photon_step.ops import photon_steps, resolve_device
-from repro_torch.kernels.photon_step.photon_step import check_errors
+from repro_torch.kernels.photon_step.photon_step import (add_launches,
+                                                         check_errors,
+                                                         deferred_launches)
 from repro_torch.kernels.photon_step.regenerate import Regeneration, supports
 from repro_torch.sources import PhotonSource, as_source
 from repro_torch.sources.base import StagedSampler, staged_tensors
@@ -333,6 +341,68 @@ def _append_records(rec, rec_n, overflow, lane_ids, capd, capg,
     rec_n.copy_(new_n)
 
 
+# Rounds the loop issues between two host reads of its condition.  A read
+# waits for the device to drain, so the rounds between reads run back to
+# back (on the card, replays of one captured round: ``graph_applies``).
+# A run overshoots its last round with work by at most R - 1 rounds in
+# which no scenario has work: each is a no-op for every output (nothing
+# relaunches, dead lanes deposit nothing, the round is not counted) and
+# costs ~0.05 ms of device time at the cells' 262144 lanes (the step's
+# dead warps draw their uniforms and leave, three regeneration launches,
+# the small totals): at most ~0.75 ms against the 600-1000 rounds of
+# ~0.16 ms of a 10^7-photon solution.  Each read leaves the device idle
+# while the host reads the flag and issues the next replay, once in R
+# rounds: ~40-60 reads a solution.
+ROUNDS_PER_READ = 16
+
+
+def graph_applies(device, regen) -> bool:
+    """Whether the round loop captures its round as a CUDA graph and
+    replays it: on a CUDA device with the regeneration kernel, where a
+    round is a fixed chain of launches on buffers fixed for the run and
+    reads nothing on the host.  Elsewhere (the CPU's host kernel, sources
+    without ``stage()``) each round is issued eagerly."""
+    return torch.device(device).type == "cuda" and regen is not None
+
+
+class _Captures(threading.local):
+    """Each thread's capture stream and last round graph, one a device:
+    the thread's next capture runs on the same stream and shares the
+    last graph's memory pool (a run's graph is never replayed once the
+    run has returned), so the pool's blocks, which the allocator hands
+    out again only on the stream that freed them, serve solution after
+    solution instead of growing with each."""
+
+    def __init__(self):
+        self.by_device: dict = {}
+
+
+_CAPTURES = _Captures()
+
+
+def capture_round(round_fn, device):
+    """Capture one round as a CUDA graph: ``round_fn()`` issues the
+    round's launches on a side stream under capture, which runs none of
+    them.  Returns the graph and the launch counts it holds
+    (``launches_by`` keys), which each replay adds."""
+    stream, last = _CAPTURES.by_device.get(device) or (
+        torch.cuda.Stream(device), None)
+    graph = torch.cuda.CUDAGraph()
+    stream.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(stream), deferred_launches() as counts:
+        graph.capture_begin(pool=None if last is None else last.pool(),
+                            capture_error_mode="thread_local")
+        try:
+            round_fn()
+        except BaseException:
+            with contextlib.suppress(RuntimeError):
+                graph.capture_end()
+            raise
+        graph.capture_end()
+    _CAPTURES.by_device[device] = (stream, graph)
+    return graph, counts
+
+
 def build_round_loop(shape: tuple[int, int, int], unitinmm: float,
                      cfg: SimConfig, n_lanes: int, mode: str = "dynamic",
                      sample=None, device=None, n_det: int = 0,
@@ -351,15 +421,26 @@ def build_round_loop(shape: tuple[int, int, int], unitinmm: float,
     runs ``n_lanes`` lanes; the result of each is the same bits as the
     scenario alone (S = 1).  ``cancel`` (anything with ``is_set()``: a
     ``threading.Event``, or a device process's cancel slot,
-    ``core.procs``) is tested at each round's host read: once it is set
-    the run raises :class:`RunCancelled`.
+    ``core.procs``) is tested at each host read: once it is set the run
+    raises :class:`RunCancelled`.
+
+    The loop reads the host once every ``ROUNDS_PER_READ`` rounds: a
+    flag each round leaves on the device (whether any scenario has work
+    left), and the cancel test.  Where :func:`graph_applies`, the first
+    round runs eagerly (its launches reach every lane), the round is
+    then captured as a CUDA graph, and every later round is a replay;
+    the step writes the lane state back in place, so each replay reads
+    what the one before wrote.  ``launches_by`` counts a replay under
+    ``round_graph`` and the graph's launches under their own keys, as
+    the device runs them.
 
     Under a ``torch.profiler`` capture (read once a call) the call is a
     ``run`` span of the process-wide tracer (``telemetry.capture_tracer``;
-    args photons, scenarios, lanes, K and rounds) holding, for each
-    round, the spans ``round.host_read`` (the loop condition's read and
-    the cancel test), ``round.regenerate``, ``round.step`` (the host side
-    of the photon-step call) and ``round.totals``, then ``run.finish``
+    args photons, scenarios, lanes, K, rounds, host_reads and replays)
+    holding ``round.host_read`` at each read, ``round.regenerate``,
+    ``round.step`` (the host side of the photon-step call) and
+    ``round.totals`` for each round issued eagerly and for the capture,
+    ``round.replay`` around each graph launch, then ``run.finish``
     (everything after the loop).  None of them synchronises the device.
     """
     if mode not in MODES:
@@ -382,7 +463,8 @@ def build_round_loop(shape: tuple[int, int, int], unitinmm: float,
         raise ValueError(f"cfg.n_time_gates must be >= 1, got {ntg}")
     collect = bool(cfg.collect_stats)
     n_lanes = int(n_lanes)
-    fw = spec.FIXED_SHIFT
+    # rounds of K segments until the segments reach cfg.max_steps
+    max_rounds = -(-int(cfg.max_steps) // K)
 
     def fn(labels, media, det_geom, n_photons, seeds, id_lo, id_hi,
            cancel=None) -> list[FixedResult]:
@@ -390,16 +472,17 @@ def build_round_loop(shape: tuple[int, int, int], unitinmm: float,
         args = (labels, media, det_geom, n_photons, seeds, id_lo, id_hi,
                 cancel)
         if cap is None:
-            return loop(None, *args)
+            return loop(None, *args)[0]
         with cap.span("run", dev, sync=False,
                       photons=sum(int(n) for n in n_photons),
                       scenarios=len(n_photons), lanes=n_lanes, K=K) as span:
-            out = loop(cap, *args)
-            span.note(rounds=max(f.steps for f in out) // K)
+            out, reads, replays = loop(cap, *args)
+            span.note(rounds=max(f.steps for f in out) // K,
+                      host_reads=reads, replays=replays)
         return out
 
     def loop(cap, labels, media, det_geom, n_photons, seeds, id_lo, id_hi,
-             cancel) -> list[FixedResult]:
+             cancel) -> tuple[list[FixedResult], int, int]:
         S = len(n_photons)
         labels = labels.to(dev).contiguous()
         media = media.to(device=dev, dtype=torch.float32).contiguous()
@@ -421,7 +504,9 @@ def build_round_loop(shape: tuple[int, int, int], unitinmm: float,
         photons = torch.tensor([int(v) for v in n_photons], **i64)
         seed_col = words(seeds)[:, None]
         first_lo = words(id_lo)
-        next_id = (first_lo, words(id_hi))
+        # each scenario's next photon id, low and high words
+        ids = torch.stack([first_lo, words(id_hi)])
+        next_id = (ids[0], ids[1])
         # static mode: equal shares, the remainder spread over the first
         # (n_photons mod n_lanes) lanes, so exactly n_photons launch
         lane_idx = torch.arange(n_lanes, **i64)
@@ -457,6 +542,10 @@ def build_round_loop(shape: tuple[int, int, int], unitinmm: float,
         rec_overflow = torch.zeros((S,), **i64)
         lane_ids = torch.zeros((N, 2), **i64) if record else None
         rounds = torch.zeros((S,), **i64)
+        # which scenarios have work at the start of the next round, and
+        # whether any has: the flag the host reads
+        work = torch.zeros((S,), dtype=torch.bool, device=dev)
+        more = torch.zeros((), dtype=torch.bool, device=dev)
         if collect:
             counters = {k: torch.zeros((S,), **i64) for k in (
                 "regen_rounds", "relaunched", "live_segments")}
@@ -467,29 +556,29 @@ def build_round_loop(shape: tuple[int, int, int], unitinmm: float,
             regen = Regeneration(sample, mode, shape, remaining, launched,
                                  quota, launched_w, seed_col,
                                  n_media if n_det else 0, lane_ids)
+        graphed = graph_applies(dev, regen)
 
-        steps = 0
-        while steps < cfg.max_steps:
-            with phase(cap, "round.host_read", dev):
-                alive = state.alive.view(S, n_lanes)
-                if mode == "dynamic":
-                    has_work = alive.any(1) | (remaining > 0)
-                else:
-                    has_work = (alive | (launched < quota)).any(1)
-                if not bool(has_work.any()):  # reprolint: disable=REP401 - the round's one host read
-                    break
-                if cancel is not None and cancel.is_set():
-                    raise RunCancelled(f"run cancelled after {steps} steps")
+        def find_work():
+            alive = state.alive.view(S, n_lanes)
+            if mode == "dynamic":
+                torch.logical_or(alive.any(1), remaining > 0, out=work)
+            else:
+                torch.any(alive | (launched < quota), 1, out=work)
+            torch.any(work, out=more)
+
+        def one_round():
+            # on the graph's path every tensor rebound here is the run's
+            # own buffer, rewritten in place
+            nonlocal state, remaining, launched, next_id, ppath, lane_ids
             with phase(cap, "round.regenerate", dev):
-                prev_lo = next_id[0]
                 if regen is not None:
-                    next_id = regen(state, next_id, ppath)
+                    new_id = regen(state, next_id, ppath)
                 else:
-                    state, remaining, launched, next_id, w_new, *extra = \
+                    state, remaining, launched, new_id, w_new, *extra = \
                         _regenerate(state, remaining, launched, next_id,
                                     quota, sample, seed_col, mode, shape,
                                     ppath, lane_ids)
-                    launched_w += w_new
+                    launched_w.add_(w_new)
                     if n_det:
                         ppath = extra.pop(0)
                     if record:
@@ -498,14 +587,14 @@ def build_round_loop(shape: tuple[int, int, int], unitinmm: float,
                 outs = photon_steps(labels, media, state, shape, unitinmm,
                                     cfg, K, ppath=ppath, det_geom=det_geom,
                                     record=record, stats=collect,
-                                    totals=grids)
+                                    totals=grids, inplace=graphed)
             with phase(cap, "round.totals", dev):
                 # a scenario with no work left is frozen: it relaunches
                 # nothing, its lanes are dead, and its rounds stop here
-                rounds += has_work.to(torch.int64)
+                rounds.add_(work.to(torch.int64))
                 state, _, _, esc, timed = outs[:5]
-                escaped += _total_rows(esc, S)
-                timed_out += _total_rows(timed, S)
+                escaped.add_(_total_rows(esc, S))
+                timed_out.add_(_total_rows(timed, S))
                 cur = 5
                 if n_det:
                     ppath = outs[cur]
@@ -517,12 +606,45 @@ def build_round_loop(shape: tuple[int, int, int], unitinmm: float,
                 if collect:
                     # launches per round stay < 2**31, so the low-word
                     # difference is exact across a 2**32 boundary
-                    rel = (next_id[0] - prev_lo) & xrng.MASK32
+                    rel = (new_id[0] - next_id[0]) & xrng.MASK32
                     counters["regen_rounds"] += (rel > 0).to(torch.int64)
                     counters["relaunched"] += rel
                     counters["live_segments"] += outs[cur][:, 0].to(
                         torch.int64).view(S, n_lanes).sum(1)
-            steps += K
+                if regen is not None:
+                    ids.copy_(regen.next_out)
+                else:
+                    next_id = new_id
+                find_work()
+
+        find_work()
+        issued = reads = replays = 0
+        graph = None
+        # a replay launches on the current stream of the current device
+        with torch.cuda.device(dev) if graphed else contextlib.nullcontext():
+            while issued < max_rounds:
+                reads += 1
+                with phase(cap, "round.host_read", dev):
+                    if not bool(more):  # reprolint: disable=REP401 - the loop's one host read, once every ROUNDS_PER_READ rounds
+                        break
+                    if cancel is not None and cancel.is_set():
+                        raise RunCancelled(f"run cancelled after "
+                                           f"{issued * K} steps")
+                before = replays
+                for _ in range(min(ROUNDS_PER_READ, max_rounds - issued)):
+                    if graph is None and graphed and issued:
+                        graph, held = capture_round(one_round, dev)
+                    if graph is None:
+                        one_round()
+                    else:
+                        with phase(cap, "round.replay", dev):
+                            graph.replay()
+                        replays += 1
+                    issued += 1
+                if replays > before:
+                    n = replays - before
+                    add_launches({"round_graph": n,
+                                  **{k: v * n for k, v in held.items()}})
 
         with phase(cap, "run.finish", dev):
             # weight still in flight when the max_steps cap fires is retired
@@ -553,7 +675,7 @@ def build_round_loop(shape: tuple[int, int, int], unitinmm: float,
             else:
                 det_w = torch.zeros((S, 0, ntg), **i64)
                 det_ppath = torch.zeros((S, 0, n_media), **i64)
-            return [FixedResult(
+            out = [FixedResult(
                 fluence=grids[0][i].view(grid_shape),
                 exitance=grids[1][i].view(nx, ny),
                 escaped=escaped[i],
@@ -568,6 +690,7 @@ def build_round_loop(shape: tuple[int, int, int], unitinmm: float,
                 det_rec_overflow=rec_overflow[i],
                 counters=counters[i] if collect else None,
             ) for i in range(S)]
+            return out, reads, replays
 
     return fn
 

@@ -703,6 +703,13 @@ cudaError_t launch(const Args& a, int blocks, int scenarios,
 // cover the lanes or ``scenarios`` is outside [1, 65535].  n is the
 // lane count of one scenario and blocks the blocks of one scenario;
 // lane arrays hold scenarios * n lanes, scenario-major.
+// The out state arrays (and ppath) may be the in ones, as the round
+// loop passes them when it replays a captured round: each lane is read
+// by the thread that runs it before that thread writes it, and a block
+// reads its lanes' alive flags for the ordering before its first
+// __syncthreads, before any lane is written.  No pointer is
+// __restrict__, and only labels, media and det_geom, which no launch
+// writes, are read through __ldg.
 extern "C" int photon_step_launch(const void* const* in, void* const* out,
                                   const int* ints, const float* floats,
                                   void* stream) {

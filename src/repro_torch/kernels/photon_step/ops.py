@@ -48,24 +48,29 @@ def visible_devices(device_type: str = "cuda") -> list[torch.device]:
 def photon_steps(labels_flat, media, state, shape, unitinmm, cfg: SimConfig,
                  n_steps: int, ppath=None, det_geom=None,
                  record: bool = False, jac_w=None, jac_col=None,
-                 jac_cols: int = 0, stats: bool = False, totals=None):
+                 jac_cols: int = 0, stats: bool = False, totals=None,
+                 inplace: bool = False):
     """Returns ``(new_state, fluence, exitance, escaped_per_lane,
     timed_per_lane)`` and the optional output groups the arguments ask
     for (see ``ref.photon_steps_ref``: int64 fixed-point grids, added
     into ``totals`` when given, and a leading scenario axis for a
     ``(S, n_media, 4)`` media table): the CUDA kernel for CUDA tensors,
-    the host kernel for CPU tensors."""
+    the host kernel for CPU tensors.  ``inplace`` (the CUDA kernel only)
+    writes the new state and ``ppath`` over the inputs."""
     dev = state.w.device
+    kw = {}
     if dev.type == "cuda":
-        fn = photon_step_cuda
-    elif dev.type == "cpu":
+        fn, kw = photon_step_cuda, {"inplace": inplace}
+    elif dev.type == "cpu" and not inplace:
         fn = photon_step_host
+    elif dev.type == "cpu":
+        raise ValueError("inplace photon steps need the CUDA kernel")
     else:
         raise ValueError(f"unsupported device {dev}")
     return fn(labels_flat, media, state, shape, unitinmm, cfg, n_steps,
               ppath=ppath, det_geom=det_geom, record=record, jac_w=jac_w,
               jac_col=jac_col, jac_cols=jac_cols, stats=stats,
-              totals=totals)
+              totals=totals, **kw)
 
 
 def launch_ids(n: int, id_offset: int, device) -> xrng.PhotonId:

@@ -318,7 +318,7 @@ def _grid_specs(S, batched, nvox, nxy, ntg, n_det, n_media, jac_cols):
 def prepare(labels_flat, media, state: ph.PhotonState, shape, unitinmm,
             cfg: SimConfig, n_steps: int, ppath=None, det_geom=None,
             record=False, jac_w=None, jac_col=None, jac_cols: int = 0,
-            stats: bool = False, totals=None):
+            stats: bool = False, totals=None, inplace: bool = False):
     """Check a call's inputs and allocate its outputs on the state's
     device; returns ``(groups, ins, outs, ints, floats)``: the
     tensors, in the order of the C entry point's ``in`` and ``out``
@@ -326,8 +326,11 @@ def prepare(labels_flat, media, state: ph.PhotonState, shape, unitinmm,
     accumulated outputs (fluence, exitance, TPSF, path sums, Jacobian)
     itself, so every output is allocated uninitialised; with ``totals``
     those fixed-point grids are the caller's, which the launch adds into
-    and zeroes nothing.  A ``(S, n_media, 4)`` media table makes it a
-    launch of S scenarios (``ref.photon_steps_ref`` gives the shapes)."""
+    and zeroes nothing.  With ``inplace`` the new lane state and
+    ``ppath`` are written over the inputs (the CUDA kernel reads each
+    lane before it writes it).  A ``(S, n_media, 4)`` media table makes
+    it a launch of S scenarios (``ref.photon_steps_ref`` gives the
+    shapes)."""
     n_det, record, jac_cols = spec.check_groups(ppath, det_geom, record,
                                                 jac_w, jac_col, jac_cols)
     S, batched = spec.scenario_count(media)
@@ -379,13 +382,13 @@ def prepare(labels_flat, media, state: ph.PhotonState, shape, unitinmm,
         name: torch.empty(shp, dtype=torch.int64, device=dev)
         for name, shp in grids}
     ins = [labels_flat, media, *state, _error_word(dev)]
-    outs = [torch.empty_like(x) for x in state]
+    outs = list(state) if inplace else [torch.empty_like(x) for x in state]
     outs += [fixed["fluence"], fixed["exitance"],
              torch.empty((n_all,), **f32), torch.empty((n_all,), **f32)]
     if n_det:
         ins += [ppath, det_geom]
-        outs += [torch.empty((n_all, n_media), **f32), fixed["det_w"],
-                 fixed["det_ppath"]]
+        outs += [ppath if inplace else torch.empty((n_all, n_media), **f32),
+                 fixed["det_w"], fixed["det_ppath"]]
     if jac_cols:
         ins += [jac_w, jac_col]
     if record:
@@ -420,11 +423,13 @@ def pack(ins, outs, ints, floats):
 def photon_step_cuda(labels_flat, media, state: ph.PhotonState, shape,
                      unitinmm, cfg: SimConfig, n_steps: int, ppath=None,
                      det_geom=None, record=False, jac_w=None, jac_col=None,
-                     jac_cols: int = 0, stats: bool = False, totals=None):
+                     jac_cols: int = 0, stats: bool = False, totals=None,
+                     inplace: bool = False):
     """Advance all lanes ``n_steps`` segments on the card; returns what
     ``ref.photon_steps_ref`` returns, output group by output group, the
     grids bit-equal to it.  ``totals`` and a ``(S, n_media, 4)`` media
-    table (S scenarios) are as there.
+    table (S scenarios) are as there; with ``inplace`` the returned state
+    (and ``ppath``) are the input tensors, rewritten (``prepare``).
 
     Every tensor must be contiguous on one CUDA device, with the dtypes
     of ``photon.PhotonState`` and labels in ``[0, n_media)`` (the
@@ -441,7 +446,7 @@ def photon_step_cuda(labels_flat, media, state: ph.PhotonState, shape,
         raise ValueError(f"photon_step_cuda needs CUDA tensors, got {dev}")
     groups, ins, outs, ints, floats = prepare(
         labels_flat, media, state, shape, unitinmm, cfg, n_steps, ppath,
-        det_geom, record, jac_w, jac_col, jac_cols, stats, totals)
+        det_geom, record, jac_w, jac_col, jac_cols, stats, totals, inplace)
     lib = _library(groups)
     arrays = pack(ins, outs, ints, floats)
     ptrs = [a.buffer_info()[0] for a in arrays]
@@ -467,6 +472,8 @@ def photon_step_cuda(labels_flat, media, state: ph.PhotonState, shape,
 _COUNT_LOCK = threading.Lock()
 # each thread's error words, one a device
 _ERROR_WORDS = threading.local()
+# each thread's launch counts held back while it captures a CUDA graph
+_DEFERRED = threading.local()
 
 
 # Bits of the error word (csrc/photon_step.cu kErrJacCol, kErrOverflow).
@@ -504,9 +511,28 @@ def check_errors(device=None) -> None:
 
 def count_launch(key: str) -> None:
     """Add one launch of ``key`` to ``photon_step_cuda.launches_by``
-    (threads launch at once: the add holds a lock)."""
+    (threads launch at once: the add holds a lock), or to the counts of
+    the calling thread's :func:`deferred_launches` block."""
+    held = getattr(_DEFERRED, "counts", None)
+    if held is not None:
+        held[key] += 1
+        return
     with _COUNT_LOCK:
         photon_step_cuda.launches_by[key] += 1
+
+
+@contextlib.contextmanager
+def deferred_launches():
+    """Count the launches the calling thread issues inside the block in
+    the ``Counter`` it yields, not in ``photon_step_cuda.launches_by``:
+    under a CUDA graph capture a launch runs only when the graph is
+    replayed, and the replays add its counts (:func:`add_launches`)."""
+    counts = collections.Counter()
+    _DEFERRED.counts = counts
+    try:
+        yield counts
+    finally:
+        _DEFERRED.counts = None
 
 
 def add_launches(counts) -> None:

@@ -20,9 +20,11 @@ kernel against.
 The library is built with the photon-step variants
 (``photon_step.build_all``, target ``photon_step.REGENERATE``) and loaded
 at first use.  A :class:`Regeneration` is bound to one run's buffers
-(checked once); each call checks the round's state, launches on
-PyTorch's current stream, never reads the device from the host, and
-counts one launch in ``photon_step.photon_step_cuda.launches_by`` under
+(checked once) and owns its workspace (the scan's scratch, the advanced
+ids), allocated once, so a CUDA graph that captures a call allocates
+nothing; each call checks the round's state, launches on PyTorch's
+current stream, never reads the device from the host, and counts one
+launch in ``photon_step.photon_step_cuda.launches_by`` under
 ``regenerate/<source>`` (``/x<S>`` appended for S > 1 scenarios).
 """
 
@@ -63,8 +65,8 @@ PTRS = ("pos", "dir", "ivox", "w", "s_left", "t", "rng", "alive",
 PARAMS = 5
 INTS = ("n", "scenarios", "tiles", "threads", "dynamic", "kind", "optional",
         "n_media", "rows", "cols", "nx", "ny", "nz")
-_NEXT_LO, _NEXT_HI, _NEXT_OUT, _PPATH = (
-    PTRS.index(k) for k in ("next_lo", "next_hi", "next_out", "ppath"))
+_NEXT_LO, _NEXT_HI, _PPATH = (
+    PTRS.index(k) for k in ("next_lo", "next_hi", "ppath"))
 # Compile-time block size of csrc/regenerate.cu (kThreads)
 THREADS = 256
 
@@ -117,9 +119,11 @@ class Regeneration:
     lanes: the state (a ``PhotonState`` of ``S * n`` lanes), ``ppath``
     (zeroed rows), ``remaining``, ``launched_per_lane``, ``launched_w``
     (the launched weight added) and ``lane_ids`` change in place; it
-    returns the advanced ``next_id``, a new ``(lo, hi)`` pair of ``(S,)``
-    int64 words.  What each holds afterwards is what
-    ``core.simulator._regenerate`` returns, bit for bit.
+    returns the advanced ``next_id``, a ``(lo, hi)`` pair of ``(S,)``
+    int64 words: the rows of ``next_out``, the ``(2, S)`` buffer each
+    call overwrites, which must not be the ``next_id`` passed in (the
+    round loop copies it into its own ids).  What each holds afterwards
+    is what ``core.simulator._regenerate`` returns, bit for bit.
     """
 
     def __init__(self, sample: StagedSampler, mode: str, shape, remaining,
@@ -167,12 +171,14 @@ class Regeneration:
         self._key = source_key(cls, S)
         tiles = -(-n // THREADS)
         scratch = torch.empty((S * (tiles + 1),), dtype=i64, device=dev)
+        self.next_out = torch.empty((2, S), dtype=i64, device=dev)
         # the tensors behind the run-constant pointers, kept alive
         self._keep = (remaining, launched_per_lane, quota, seeds, launched_w,
                       scratch, lane_ids, params)
         fixed = {"remaining": remaining, "launched": launched_per_lane,
                  "quota": quota, "seeds": seeds, "launched_w": launched_w,
-                 "scratch": scratch, "lane_ids": lane_ids}
+                 "scratch": scratch, "next_out": self.next_out,
+                 "lane_ids": lane_ids}
         self._ptrs = array.array("Q", [
             fixed[k].data_ptr() if fixed.get(k) is not None else 0
             for k in PTRS[:-1]] + [x.data_ptr() for x in params] + [0] * (
@@ -198,13 +204,12 @@ class Regeneration:
             raise ValueError("ppath given to a regeneration bound without "
                              "per-lane paths (n_media 0)")
         K._check_all(specs, dev)
-        next_out = torch.empty((2, self.S), dtype=torch.int64, device=dev)
+        next_out = self.next_out
         ptrs = self._ptrs
         for i, x in enumerate(state):  # PTRS starts with the state
             ptrs[i] = x.data_ptr()
         ptrs[_NEXT_LO] = next_id[0].data_ptr()
         ptrs[_NEXT_HI] = next_id[1].data_ptr()
-        ptrs[_NEXT_OUT] = next_out.data_ptr()
         if self.n_media:
             ptrs[_PPATH] = ppath.data_ptr()
         index = torch.cuda.current_device()

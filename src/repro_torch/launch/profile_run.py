@@ -22,12 +22,13 @@ trace's device intervals; tracing slows the host, so it overstates the
 untraced run's idle share.  ``idle_by_span`` charges each idle stretch
 of the device to the innermost of the port's spans open then (their
 ``record_function`` ranges in the trace: ``round.host_read``,
-``round.regenerate``, ``round.step``, ``round.totals``, ``run``,
-``run.finish``, ``convert``, ``simulate``), in seconds;
-``host_ms_per_round`` gives the spans' host milliseconds a round by name
-(``telemetry.capture_tracer``), and ``clock_offset_us`` the median
-distance of a round span's start on the port's clock from its start in
-the trace.  ``--trace`` also writes the Chrome trace.  It needs a CUDA
+``round.regenerate``, ``round.step``, ``round.totals``,
+``round.replay``, ``run``, ``run.finish``, ``convert``, ``simulate``),
+in seconds; ``host_ms_per_round`` gives the spans' host milliseconds a
+round by name (``telemetry.capture_tracer``), ``host_reads`` and
+``replays`` the traced run's host reads and graph replays (its ``run``
+span), and ``clock_offset_us`` the median distance of a round span's
+start on the port's clock from its start in the trace.  ``--trace`` also writes the Chrome trace.  It needs a CUDA
 device.
 """
 
@@ -56,7 +57,7 @@ WINDOW = "profile_run.window"
 # idle time no span of the port was open around
 OUTSIDE = "outside port spans"
 ROUND_SPANS = ("round.host_read", "round.regenerate", "round.step",
-               "round.totals")
+               "round.totals", "round.replay")
 
 
 def device_events_of(trace_events) -> list[tuple[str, str, float, float]]:
@@ -261,6 +262,8 @@ def main(argv=None) -> dict:
                trace_events, float(mark["ts"]),
                float(mark["ts"]) + float(mark["dur"])),
            "host_ms_per_round": host_ms_per_round(spans, rounds),
+           **{k: sum(e.args.get(k, 0) for e in spans if e.name == "run")
+              for k in ("host_reads", "replays")},
            "clock_offset_us": clock_offset_us(
                spans, trace_events, int(trace["baseTimeNanoseconds"]))}
     print(json.dumps(out), flush=True)

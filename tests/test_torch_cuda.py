@@ -50,6 +50,7 @@ fails instead of moving the work to the CPU; and two threads launching on one ca
 only their own error flags.
 """
 
+import collections
 import dataclasses
 import functools
 import math
@@ -942,7 +943,10 @@ def test_runs_with_the_regeneration_kernel_match_the_plain_path(
         16 if case == "fleet" else 8)
     key = {"b1": "regenerate/pencil", "b2-detect-static": "regenerate/disk",
            "fleet": "regenerate/disk/x8"}[case]
-    assert launches[key] == rounds
+    # once a round issued: the rounds with work, then no-op rounds up to
+    # the next host read
+    every = S.ROUNDS_PER_READ
+    assert launches[key] == -(-rounds // every) * every
     monkeypatch.setattr(S, "supports", lambda *a: False)
     want, plain = run()
     assert not any(k.startswith("regenerate/") for k in plain)
@@ -952,3 +956,168 @@ def test_runs_with_the_regeneration_kernel_match_the_plain_path(
                 assert torch.equal(x, y), name
             else:
                 assert x == y, name
+
+
+# ---------------------------------------------------------------------------
+# the round as one CUDA graph, replayed between host reads
+# ---------------------------------------------------------------------------
+
+GRAPH_CASES = ("dynamic", "static", "pencil", "fleet", "capped", "cancel")
+
+
+def _graph_case_run(case, dev, cancel=None):
+    """One run of a case through the round loop; returns its
+    ``FixedResult``s and K."""
+    disk = {"type": "disk", "pos": [12.0, 10.0, 0.0], "radius": 3}
+    if case in ("dynamic", "static", "capped", "cancel"):
+        vol = V.benchmark_b2(SHAPE)
+        cfg = dataclasses.replace(
+            V.b2_config(), steps_per_round=8, n_time_gates=4, tmax_ns=1.0,
+            max_steps=203 if case == "capped" else V.b2_config().max_steps)
+        run = S.build_fixed_fn(vol.shape, vol.unitinmm, cfg, 2048,
+                               "static" if case == "static" else "dynamic",
+                               disk, dev)
+        return [run(vol.labels.reshape(-1), vol.media, 20_000, 2**31 + 7,
+                    2**32 - 5_000, 0, cancel)], 8
+    if case == "pencil":
+        vol = V.benchmark_b1(SHAPE)
+        cfg = dataclasses.replace(V.b1_config(), steps_per_round=16)
+        return [S.simulate_fixed(vol, cfg, 30_000, 4096, seed=11,
+                                 source=SRC, device=dev,
+                                 id_offset=2**32 - 7_000)], 16
+    # 8 scenarios in one launch a round: detectors, ppath, records, stats
+    vol = V.benchmark_b2(SHAPE)
+    cfg = dataclasses.replace(V.b2_config(), steps_per_round=16,
+                              n_time_gates=10, tmax_ns=2.0,
+                              collect_stats=True)
+    n_sc = 8
+    geom = det_geometry(as_detectors(DETS), dev)[None].repeat(n_sc, 1, 1)
+    loop = S.build_round_loop(vol.shape, vol.unitinmm, cfg, 1024,
+                              "dynamic", _staged_sampler("disk", n_sc, dev),
+                              dev, len(DETS), 2048)
+    return loop(vol.labels.reshape(-1), vol.media[None].repeat(n_sc, 1, 1),
+                geom, [3000 + 500 * k for k in range(n_sc)],
+                [2**31 + k for k in range(n_sc)],
+                [2**32 - 1000 * (k + 1) for k in range(n_sc)], [0] * n_sc,
+                cancel), 16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", GRAPH_CASES)
+def test_graphed_loop_gives_the_eager_loops_bits(cuda_device, case,
+                                                  monkeypatch):
+    """The loop on the card (the round captured once as a CUDA graph and
+    replayed) gives every ``FixedResult`` field of the same loop issuing
+    each round eagerly, bit for bit: dynamic and static mode, a pencil
+    beam whose ids cross 2**32, 8 scenarios with detectors, records and
+    stats, a ``max_steps`` cap of 203 segments at K = 8 (26 rounds, no
+    multiple of ROUNDS_PER_READ), runs that end inside a batch of
+    replays, and a cancel set before the run.  The replays count as the
+    launches the device ran: the step and regeneration keys of
+    ``launches_by`` read what the eager loop's read, and ``round_graph``
+    one a replay."""
+    import threading
+
+    cancel = threading.Event()
+    if case == "cancel":
+        cancel.set()
+
+    def run():
+        kernel.reset_launches()
+        if case == "cancel":
+            with pytest.raises(S.RunCancelled, match="after 0 steps"):
+                _graph_case_run(case, cuda_device, cancel)
+            out, k = [], 8
+        else:
+            out, k = _graph_case_run(case, cuda_device)
+        torch.cuda.synchronize()
+        return out, k, collections.Counter(kernel.photon_step_cuda.launches_by)
+
+    got, k, graphed = run()
+    monkeypatch.setattr(S, "graph_applies", lambda *a: False)
+    want, _, eager = run()
+    assert eager["round_graph"] == 0
+    issued = sum(v for key, v in eager.items() if key.startswith(
+        ("noreflect/", "reflect/")))
+    if case == "cancel":
+        assert graphed == eager == collections.Counter()
+        return
+    every = S.ROUNDS_PER_READ
+    rounds = max(int(torch.as_tensor(r.steps).max()) for r in got) // k
+    if case == "capped":
+        assert rounds == issued == 26 and got[0].steps == 208
+        assert int(got[0].timed_out) > 0
+    else:
+        # the work ends inside a batch; the batch's last rounds are no-ops
+        assert rounds % every and issued == -(-rounds // every) * every
+    assert graphed["round_graph"] == issued - 1
+    graphed.pop("round_graph")
+    assert graphed == eager
+    assert len(got) == len(want) == (8 if case == "fleet" else 1)
+    for a, b in zip(got, want):
+        for name, x, y in zip(a._fields, a, b):
+            if isinstance(x, torch.Tensor):
+                assert torch.equal(x, y), name
+            else:
+                assert x == y, name
+    if case == "fleet":
+        assert all(int(r.det_rec_n) > 0 for r in got)
+        steps = [r.steps for r in got]
+        assert len(set(steps)) > 1  # scenarios freeze rounds apart
+
+
+@pytest.mark.cuda
+def test_profiler_sees_the_round_graphs_kernels(cuda_device):
+    """Under ``torch.profiler`` the graph's kernels show by name, one step
+    kernel a round issued, and the ``run`` span says how the loop went:
+    replays cover all rounds but the first, and the host read the device
+    once every ROUNDS_PER_READ rounds."""
+    import json
+    import os
+    import tempfile
+
+    from repro_torch import telemetry as T
+    from repro_torch.launch import profile_run as P
+
+    vol = V.benchmark_b1((40, 40, 40), cuda_device)
+    cfg = dataclasses.replace(V.b1_config(), steps_per_round=16)
+    src = {"type": "pencil", "pos": [20.0, 20.0, 0.0]}
+
+    def solve():
+        return S.simulate_fixed(vol, cfg, 200_000, 16384, seed=3,
+                                source=src, device=cuda_device)
+
+    solve()
+    torch.cuda.synchronize()
+    T.capture_tracer().events.clear()
+    kernel.reset_launches()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            got = solve()
+            torch.cuda.synchronize()
+        events = T.capture_tracer().events
+        (run,) = [e for e in events if e.name == "run"]
+        replays = sum(1 for e in events if e.name == "round.replay")
+    finally:
+        T.capture_tracer().events.clear()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)["traceEvents"]
+    finally:
+        os.unlink(path)
+    steps = [name for grp, name, *_ in P.device_events_of(trace)
+             if grp == "photon_step"]
+    rounds = got.steps // 16
+    every = S.ROUNDS_PER_READ
+    issued = -(-rounds // every) * every
+    launches = kernel.photon_step_cuda.launches_by
+    assert launches[kernel.variant_name(0, cfg)] == issued == len(steps)
+    assert all("photon_step_kernel" in name for name in steps)
+    assert run.args["replays"] == replays == launches["round_graph"]
+    assert replays == issued - 1 and replays >= 0.95 * rounds
+    assert run.args["host_reads"] <= rounds / every + 2

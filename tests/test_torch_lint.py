@@ -250,6 +250,39 @@ def test_host_reads_in_the_round_fire(tmp_path, extra):
     assert len(found) == 1 and "round loop" in found[0].message
 
 
+GRAPHED_ROUND = """
+def build_round_loop(cfg):
+    def fn(state, cancel=None):
+        def work():
+            {inner}
+
+        def one_round():
+            work()
+
+        def unused():
+            return int(state.sum())
+        while True:
+            if not bool(state.any()):  # reprolint: disable=REP401 - read
+                break
+            for _ in range(4):
+                one_round()
+    return fn
+"""
+
+
+@pytest.mark.parametrize("inner,n", [("return state.sum().item()", 1),
+                                     ("state.add_(1)", 0)])
+def test_host_reads_in_the_functions_a_round_calls_fire(tmp_path, inner, n):
+    """The round the loop calls (and what that calls in turn) is part of
+    the round: a graph captures it, so it may not read the host; a nested
+    function the loop never calls is not."""
+    code = "import torch\n" + textwrap.dedent(GRAPHED_ROUND).format(
+        inner=inner)
+    found = _rule(_tree(tmp_path, {TRACED: code}), "REP401")
+    assert len(found) == n
+    assert all("round loop" in f.message for f in found)
+
+
 def test_host_reads_outside_the_round_are_quiet(tmp_path):
     code = ("import torch\n" + textwrap.dedent(ROUND).format(
         extra="state = state + 1") + "\nn = int(state.sum())\n")
@@ -460,6 +493,18 @@ def test_recompile_churn():
     assert "differ" in _traced(TR.RecompileChurnRule, [uneven])[0].message
 
 
+def test_recompile_churn_leaves_out_reads_every_few_rounds():
+    """A loop that reads the host before every few rounds has steady
+    rounds: the rounds' device operations are compared, and the reads
+    are REP803's."""
+    add = _op("aten::add.Tensor")
+    ops = [STEP, add, STEP, add, READ, STEP, add, STEP, add, READ, STEP]
+    target = _target(ops, {"seed": {"seed": 1}})
+    assert _traced(TR.RecompileChurnRule, [target]) == []
+    assert _traced(TR.HostSyncRule, [target]) == []
+    assert Recording(ops).per_round()["host_reads"] == [0, 1, 0, 1]
+
+
 def test_recorder_marks_steps_rounds_and_host_reads():
     rec = Recorder()
     step = rec.step(lambda x: (x * 2).sum())
@@ -509,7 +554,10 @@ def test_a_target_that_raises_is_a_finding(tmp_path):
 def test_the_ports_tree_is_clean_in_both_tiers():
     """``python -m repro_torch.lint --tier all`` on the tree: every
     pragma carries a why, every allow entry is used, and the traced
-    ``sim`` target reads the host once a round."""
+    ``sim`` target reads the host once every ``ROUNDS_PER_READ``
+    rounds."""
+    from repro_torch.core import simulator as S
+
     ast_rep = L.run_lint(REPO, baseline=B.load_baseline(
         B.baseline_path(REPO)))
     assert ast_rep.clean, [f.format() for f in ast_rep.findings]
@@ -526,5 +574,11 @@ def test_the_ports_tree_is_clean_in_both_tiers():
     assert rep.suppressed_pragma == sum(e["max"] for e in allow)
     sim = next(t for t in targets if t.name == "sim").recording()
     rounds = sim.per_round()
-    assert rounds["rounds"] > 5 and set(rounds["host_reads"]) == {1}
+    # the loop reads the host before every ROUNDS_PER_READ rounds: in the
+    # gap after each ROUNDS_PER_READ-th step, and in no other
+    every = S.ROUNDS_PER_READ
+    assert rounds["rounds"] > every
+    assert [i for i, n in enumerate(rounds["host_reads"]) if n] == list(
+        range(every - 1, rounds["rounds"], every))
+    assert max(rounds["host_reads"]) == 1
     assert len(set(rounds["device_ops"])) == 1

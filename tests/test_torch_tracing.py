@@ -2,9 +2,11 @@
 
 Under a CPU capture a run records its phases in the process-wide tracer
 (``telemetry.capture_tracer``): a ``round.host_read`` for each test of
-the loop condition (one a round, and the one that ends the loop), a
-``round.regenerate``, ``round.step`` and ``round.totals`` a round, one
-``run``, ``run.finish`` and ``convert``, each tied to its parent and to
+the loop condition (one every ``ROUNDS_PER_READ`` rounds, and the one
+that ends the loop), a ``round.regenerate``, ``round.step`` and
+``round.totals`` for each round issued (the CPU replays no graph), one
+``run`` (with its host reads and replays), ``run.finish`` and
+``convert``, each tied to its parent and to
 one root, each stamped on the trace's clock.  Outside a capture nothing
 is recorded, and the results are the same bits either way.  In a fleet
 the round spans hang below ``scenarios.batch`` while a passed tracer
@@ -71,11 +73,15 @@ def test_a_run_records_its_phases_on_the_trace_clock(tmp_path):
         res = S.simulate(vol, cfg, 200, 64, 3, source=SOURCE, device="cpu")
     rounds = res.steps // K
     assert rounds > 2
+    # a read before every ROUNDS_PER_READ rounds, and the one that ends
+    # the loop; on the CPU each round issued is eager
+    batches = -(-rounds // S.ROUNDS_PER_READ)
+    issued = batches * S.ROUNDS_PER_READ
     spans = _by_name(T.capture_tracer().events)
     counts = {name: len(v) for name, v in spans.items()}
-    assert counts == {"round.host_read": rounds + 1,
-                      "round.regenerate": rounds, "round.step": rounds,
-                      "round.totals": rounds, "run": 1, "run.finish": 1,
+    assert counts == {"round.host_read": batches + 1,
+                      "round.regenerate": issued, "round.step": issued,
+                      "round.totals": issued, "run": 1, "run.finish": 1,
                       "convert": 1, "simulate": 1}
     (sim,), (run,), (fin,), (conv,) = (spans[k] for k in (
         "simulate", "run", "run.finish", "convert"))
@@ -85,7 +91,8 @@ def test_a_run_records_its_phases_on_the_trace_clock(tmp_path):
     assert all(e.parent == run.span_id for k in ROUND for e in spans[k])
     assert {e.root for v in spans.values() for e in v} == {sim.span_id}
     assert run.args == {"photons": 200, "scenarios": 1, "lanes": 64,
-                        "K": K, "rounds": rounds}
+                        "K": K, "rounds": rounds, "host_reads": batches + 1,
+                        "replays": 0}
     assert all(not e.args for k in ROUND for e in spans[k])
     # each span is a record_function range of the capture, starting
     # where the span's own stamp says
