@@ -42,7 +42,7 @@ script exits non-zero and prints no result:
            benchmark cells' shapes, b1.cw (a pencil, 262144 lanes) and
            b2.sweep (8 disks of 32768 lanes, per-lane paths), on a
            mid-run round with one lane in twelve dead: every field and
-           counter bit-equal to the plain _regenerate on the card;
+           counter bit-equal to PlainRegeneration on the card;
            device µs a call, host µs a call, the plain path's device
            and host ms, and the bytes bound
   main     repro_torch.launch.simulate for B1 and B2 at 60^3 with 10^7
@@ -732,11 +732,12 @@ REGEN_LANE_BYTES = 12 + 12 + 12 + 4 + 4 + 4 + 32 + 1 + 16
 def regenerate_phase(card, reps: int = 200) -> dict:
     """The regeneration kernel (csrc/regenerate.cu) at each of
     ``REGEN_CELLS``: a mid-run round's lanes, one in twelve dead, every
-    field and counter bit-equal to the plain ``_regenerate`` on the card;
-    device µs a call (CUDA events behind a spin kernel, less the copy
-    that makes the same lanes dead again before each call), the host's
-    µs a call as the loop issues it, the plain path's device and host ms
-    at the same shape, and the bytes bound.  Returns each cell's row."""
+    field and counter bit-equal to ``simulator.PlainRegeneration`` on the
+    card; device µs a call (CUDA events behind a spin kernel, less the
+    copy that makes the same lanes dead again before each call), the
+    host's µs a call as the loop issues it (with that copy's issue), the
+    plain path's device and host ms at the same shape, measured the same
+    way, and the bytes bound.  Returns each cell's row."""
     from repro_torch import sources as SRC
     from repro_torch.core import photon as ph
     from repro_torch.core import simulator as S
@@ -771,42 +772,52 @@ def regenerate_phase(card, reps: int = 200) -> dict:
         launched_w = torch.zeros((n_sc,), **i64)
         ppath = (torch.rand((N, n_media), generator=g).to(dev)
                  if n_media else None)
-        plain = functools.partial(
-            S._regenerate, state, remaining, launched, next_id, quota,
-            sample, seeds, "dynamic", vol.shape, ppath)
-        want = plain()
-        st = ph.PhotonState(*(x.clone() for x in state))
-        rem, lau, lw = remaining.clone(), launched.clone(), launched_w.clone()
-        pp = None if ppath is None else ppath.clone()
-        regen = RG.Regeneration(sample, "dynamic", vol.shape, rem, lau, quota,
-                                lw, seeds, n_media)
-        got_id = regen(st, next_id, pp)
+        def bound(cls):
+            """``cls`` bound to clones of the round's lanes and counters,
+            and the clones."""
+            st = ph.PhotonState(*(x.clone() for x in state))
+            rem, lau, lw = (x.clone() for x in (remaining, launched,
+                                                launched_w))
+            pp = None if ppath is None else ppath.clone()
+            regen = cls(sample, "dynamic", vol.shape, rem, lau, quota, lw,
+                        seeds, n_media)
+            return regen, st, rem, lau, lw, pp
+
+        plain, *want = bound(S.PlainRegeneration)
+        want_id = tuple(x.clone() for x in plain(want[0], next_id, want[4]))
+        regen, *got = bound(RG.Regeneration)
+        got_id = regen(got[0], next_id, got[4])
         torch.cuda.synchronize()
-        for name, x, y in zip(ph.PhotonState._fields, st, want[0]):
+        for name, x, y in zip(ph.PhotonState._fields, got[0], want[0]):
             check(torch.equal(x.view(torch.int32) if x.is_floating_point()
                               else x, y.view(torch.int32)
                               if y.is_floating_point() else y),
-                  f"regenerate {cell}: {name} differs from _regenerate")
-        check(torch.equal(rem, want[1]) and torch.equal(lau, want[2])
-              and torch.equal(got_id[0], want[3][0])
-              and torch.equal(got_id[1], want[3][1])
-              and torch.equal(lw, launched_w + want[4])
-              and (pp is None or torch.equal(pp.view(torch.int32),
-                                             want[5].view(torch.int32))),
-              f"regenerate {cell}: a counter differs from _regenerate")
+                  f"regenerate {cell}: {name} differs from PlainRegeneration")
+        check(all(torch.equal(x, y) for x, y in zip(got[1:4], want[1:4]))
+              and torch.equal(got_id[0], want_id[0])
+              and torch.equal(got_id[1], want_id[1])
+              and (got[4] is None or torch.equal(got[4].view(torch.int32),
+                                                 want[4].view(torch.int32))),
+              f"regenerate {cell}: a counter differs from PlainRegeneration")
         relaunched = int((~alive).sum())
         check(int(want[1].sum()) == n_sc * PHOTONS - relaunched,
               f"regenerate {cell}: {relaunched} dead lanes, budget "
               f"{int(want[1].sum())}")
-        def call():
-            st.alive.copy_(alive)
-            regen(st, next_id, pp)
 
-        copy_ms = time_cuda(lambda: st.alive.copy_(alive), reps)
+        def again(fn, st, pp):
+            """A call of ``fn`` on the same dead lanes as the first."""
+            def call():
+                st.alive.copy_(alive)
+                fn(st, next_id, pp)
+            return call
+
+        call = again(regen, got[0], got[4])
+        plain_call = again(plain, want[0], want[4])
+        copy_ms = time_cuda(lambda: got[0].alive.copy_(alive), reps)
         device_us = (time_cuda(call, reps) - copy_ms) * 1e3
         host_us = time_cuda(call, reps, backlog=False) * 1e3
-        plain_ms = time_cuda(plain, 20)
-        plain_host_ms = time_cuda(plain, 20, backlog=False)
+        plain_ms = time_cuda(plain_call, 20) - copy_ms
+        plain_host_ms = time_cuda(plain_call, 20, backlog=False)
         moved = N + relaunched * (REGEN_LANE_BYTES + 4 * n_media)
         rows[cell] = dict(
             source=type(srcs[0]).type_name, scenarios=n_sc, lanes=N,

@@ -10,7 +10,7 @@ onto a list of torch devices, each device in a process of its own
     simulates a (possibly unequal) slice of the photon budget, the
     device-level load-balancing partition.  The shards' int64
     fixed-point totals come back to the calling process and are added
-    there (``simulator.merge_fixed``), which takes the place of the
+    there (``core.fixed.merge_fixed``), which takes the place of the
     reference's one ``psum``, and converted to float32 once.  Because a
     photon's path depends only on ``(seed, global id)`` and each deposit
     is rounded once, the result has the bits of one run over the same
@@ -43,18 +43,17 @@ import torch
 
 from repro_torch.core import procs
 from repro_torch.core import simulator as S
+from repro_torch.core.fixed import (FixedResult, add_fixed, fixed_from_state,
+                                    fixed_state, harvest_result, merge_fixed,
+                                    zero_fixed)
 from repro_torch.core.loadbalance import DeviceModel
 from repro_torch.core.volume import SimConfig, Volume
 from repro_torch.detectors import as_detectors, validate_detectors
-from repro_torch.kernels.photon_step.ops import (resolve_device,
+from repro_torch.kernels.photon_step.ops import (engine_of, resolve_device,
                                                  visible_devices)
 from repro_torch.resilience import (DevicePool, DeviceSpec, FaultInjector,
                                     InjectedFault, RetryPolicy,
-                                    corrupt_harvest, harvest_result,
-                                    validate_chunk)
-from repro_torch.resilience.pool import (_engine, add_fixed,
-                                         fixed_from_state, fixed_state,
-                                         zero_fixed)
+                                    corrupt_harvest, validate_chunk)
 from repro_torch.sources import as_source
 from repro_torch.telemetry.trace import clock, device_label
 
@@ -95,7 +94,7 @@ def sharded_sim_fn(volume: Volume, cfg: SimConfig, n_lanes, mesh,
     ``offsets[i]`` (64-bit Python ints) on ``mesh[i]``, each shard's
     round loop in its device's process, and returns its fixed-point
     result (on the CPU; on its device for a mesh of one);
-    ``simulator.merge_fixed`` adds them.  Each process builds its round
+    ``core.fixed.merge_fixed`` adds them.  Each process builds its round
     loop and copies the volume's labels and media to its device once.
     ``n_lanes`` is one lane count for every shard or one a shard (the
     bits do not depend on it).  ``record_detected`` gives every shard
@@ -114,7 +113,7 @@ def sharded_sim_fn(volume: Volume, cfg: SimConfig, n_lanes, mesh,
                             record_detected) for n in lanes]
     slots = procs.slots(devices)
 
-    def fn(counts, offsets, seed) -> list[S.FixedResult]:
+    def fn(counts, offsets, seed) -> list[FixedResult]:
         if len(counts) != len(devices) or len(offsets) != len(devices):
             raise ValueError(f"need one count and one offset for each of "
                              f"the {len(devices)} shards")
@@ -126,7 +125,7 @@ def sharded_sim_fn(volume: Volume, cfg: SimConfig, n_lanes, mesh,
         if tracer is not None:
             for i, (d, c, r) in enumerate(zip(devices, counts, replies)):
                 tracer.complete("shard", t0, r.wall_s,
-                                device=device_label(d), engine=_engine(d),
+                                device=device_label(d), engine=engine_of(d),
                                 photons=int(c), shard=i, threads=r.threads)
         return [r.value for r in replies]
 
@@ -178,7 +177,7 @@ def simulate_sharded(volume: Volume, cfg: SimConfig, n_photons: int, mesh,
     counts = shard_counts(n_photons, len(devices), partition)
     fn = sharded_sim_fn(volume, cfg, n_lanes, devices, mode, source,
                         detectors, record_detected, tracer)
-    return S.to_sim_result(S.merge_fixed(
+    return S.to_sim_result(merge_fixed(
         fn(counts, shard_offsets(counts, id_offset), seed)))
 
 
@@ -331,7 +330,7 @@ class ChunkScheduler:
 
     def run_fixed(self, n_photons: int, chunk_size: int, seed: int = 1234,
                   source=None, deadline_s: float | None = None,
-                  resume: bool = False) -> tuple[S.FixedResult, dict]:
+                  resume: bool = False) -> tuple[FixedResult, dict]:
         """:meth:`run` with the merged int64 totals in place of the
         ``SimResult``."""
         fixed, report = self.pool.run_fixed(
@@ -406,7 +405,8 @@ class ElasticSimulator:
         self.skipped: list[Chunk] = []   # chunks quarantined by the cap
         self.failures: dict[int, int] = {}   # chunk start_id -> attempts
         self.n_retries = 0
-        self.acc = zero_fixed(volume, cfg, len(self.detectors))
+        self.acc = zero_fixed(volume.shape, volume.media.shape[0],
+                              len(self.detectors), cfg)
         # what each device's process builds its round loop from
         self._work = procs.sim_work(volume, cfg, self.n_lanes, "dynamic",
                                     self.source, self.detectors,
@@ -472,7 +472,7 @@ class ElasticSimulator:
                 if self.tracer is not None:
                     self.tracer.complete(
                         "chunk", t0, reply.wall_s, device=job.device,
-                        engine=_engine(job.device), photons=ch.count,
+                        engine=engine_of(job.device), photons=ch.count,
                         chunk_start=ch.start_id)
                 attempt = self.failures.get(ch.start_id, 0)
                 harvest = harvest_result(reply.value)
@@ -516,7 +516,7 @@ class ElasticSimulator:
             self.run_round(devices)
         return self.result()
 
-    def _merge(self, ch: Chunk, harvest: S.FixedResult):
+    def _merge(self, ch: Chunk, harvest: FixedResult):
         """Merge one validated host-side harvest, then auto-checkpoint
         and honor any injected host crash (the crash fires *after* the
         checkpoint, mimicking a host that dies between campaigns rather
@@ -540,7 +540,7 @@ class ElasticSimulator:
         """Accumulated (n, 4) uint32 detected-photon id records."""
         return self.acc.det_rec.numpy().astype(np.uint32)
 
-    def totals(self) -> S.FixedResult:
+    def totals(self) -> FixedResult:
         """The merged int64 totals (CPU tensors); ``steps`` is 0, as in
         the reference."""
         return self.acc._replace(steps=0)
@@ -574,7 +574,7 @@ class ElasticSimulator:
     def state_dict(self) -> dict:
         """The campaign's checkpoint: the reference's keys, with the
         totals as int64 fixed point (``stats`` the int64 round counters
-        in ``simulator.COUNTER_FIELDS`` order)."""
+        in ``core.fixed.COUNTER_FIELDS`` order)."""
         return {
             **fixed_state(self.acc),
             "pending": np.asarray(

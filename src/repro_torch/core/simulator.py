@@ -40,21 +40,25 @@ all-False relaunch mask leaves every value as it was, and skipping it
 would need a host read.  On a CUDA device, for a source of staged
 parameters (``sources.base.StagedSampler``), it is one call of the
 hand-written regeneration kernel a round
-(``kernels/photon_step/regenerate.py``), which updates the lanes and
-counters in place with the bits of the plain ``_regenerate``; on the
-CPU, or for a source without ``stage()``, ``_regenerate`` runs.  The
-loop reads the host once every ``ROUNDS_PER_READ`` rounds, for its
-condition: each round leaves on the device whether any scenario has
-work left, and the record cursor, the overflow count and the counters
-stay there too.  With the regeneration kernel on the card a round is a
-fixed chain of launches, so the loop captures it once a run as a CUDA
-graph and replays it between reads (``graph_applies``).  Photon ids are
+(``kernels/photon_step/regenerate.py``); on the CPU, or for a source
+without ``stage()``, :class:`PlainRegeneration` runs, with the same
+bits.  Either is bound once a run to the run's buffers (the lane state,
+paths and ids, budgets and launch counts), and every round writes them
+in place on every device: where the round is a graph the step writes
+them in place, elsewhere the loop copies in the state the step returns.
+The loop reads
+the host once every ``ROUNDS_PER_READ`` rounds, for its condition:
+each round leaves on the device whether any scenario has work left,
+and the record cursor, the overflow count and the counters stay there
+too.  With the regeneration kernel on the card a round is a fixed
+chain of launches, so the loop captures it once a run as a CUDA graph
+and replays it between reads (``graph_applies``).  Photon ids are
 64-bit, carried as (lo, hi) 32-bit words with the carry propagated, so
 campaigns beyond 2**32 photons keep distinct RNG streams.
 
-The round loop returns a :class:`FixedResult`: the run's int64
-fixed-point totals, records and counters, still on its device.
-:func:`to_sim_result` converts one (or a sum of several,
+The round loop returns a :class:`FixedResult` (``core.fixed``): the
+run's int64 fixed-point totals, records and counters, still on its
+device.  :func:`to_sim_result` converts one (or a sum of several,
 :func:`merge_fixed`) to the float32 ``SimResult`` once.  A photon's
 path depends only on ``(seed, global id)`` and each deposit is rounded
 once, so the totals of runs over disjoint id ranges add up to the bits
@@ -69,14 +73,17 @@ import contextlib
 import dataclasses
 import threading
 import time
-from typing import NamedTuple, Sequence
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from repro_torch.core import photon as ph
 from repro_torch.core import rng as xrng
-from repro_torch.core.fixed import from_fixed
+from repro_torch.core.fixed import (COUNTER_FIELDS, SHIFTS, FixedResult,
+                                    check_range, from_fixed, zero_fixed)
+# simulator.merge_fixed stays a name of this module
+from repro_torch.core.fixed import merge_fixed  # noqa: F401
 from repro_torch.core.volume import SimConfig, Volume
 from repro_torch.detectors import (as_detectors, det_geometry,
                                    validate_detectors)
@@ -121,37 +128,6 @@ class SimResult(NamedTuple):
     #                          cfg.collect_stats, else None
 
 
-# RoundStats counters a FixedResult carries as int64, in this order; the
-# weight fields of RoundStats come from the totals at the conversion
-COUNTER_FIELDS = ("rounds", "regen_rounds", "relaunched", "live_segments",
-                  "lane_segments")
-
-
-class FixedResult(NamedTuple):
-    """A run's totals in int64 fixed point, before the one conversion to
-    ``SimResult`` (:func:`to_sim_result`).  Grids are in units of
-    ``2**-spec.FIXED_SHIFT[name]``, the scalar weights in units of
-    ``2**-spec.TOTAL_SHIFT``; every field adds across disjoint id ranges
-    (:func:`merge_fixed`)."""
-
-    fluence: torch.Tensor     # (nx, ny, nz) or (nx, ny, nz, ntg) int64
-    exitance: torch.Tensor    # (nx, ny) int64
-    escaped: torch.Tensor     # () int64 escaped weight
-    timed_out: torch.Tensor   # () int64 weight retired by the gate or cap
-    launched_w: torch.Tensor  # () int64 launched weight
-    n_launched: torch.Tensor  # () int64 photons launched
-    steps: object             # int segments a lane ran (rounds * K), or a
-    #                           rank-1 int64 tensor of them, one a shard
-    det_w: torch.Tensor       # (n_det, ntg) int64 TPSF
-    det_ppath: torch.Tensor   # (n_det, n_media) int64 path sums
-    det_rec: torch.Tensor     # (capacity, 4) int64 record rows, or the
-    #                           shards' buffers concatenated
-    det_rec_n: torch.Tensor   # () int64 valid records, or one a shard
-    det_rec_overflow: torch.Tensor  # () int64 captures dropped
-    counters: torch.Tensor | None = None  # (5,) int64 in COUNTER_FIELDS
-    #                           order with cfg.collect_stats, else None
-
-
 class RunCancelled(RuntimeError):
     """A run whose ``cancel`` event was set stopped at a round's host
     read."""
@@ -167,9 +143,9 @@ def to_sim_result(fixed: FixedResult) -> SimResult:
 
 
 def _convert(fixed: FixedResult) -> SimResult:
-    fw = spec.FIXED_SHIFT
-    tot = lambda x: from_fixed(x, spec.TOTAL_SHIFT)  # noqa: E731
-    escaped, timed_out = tot(fixed.escaped), tot(fixed.timed_out)
+    fw = SHIFTS
+    escaped = from_fixed(fixed.escaped, fw["escaped"])
+    timed_out = from_fixed(fixed.timed_out, fw["timed_out"])
     stats = None
     if fixed.counters is not None:
         c = dict(zip(COUNTER_FIELDS, fixed.counters.tolist()))
@@ -191,7 +167,7 @@ def _convert(fixed: FixedResult) -> SimResult:
         escaped_w=escaped,
         timed_out_w=timed_out,
         n_launched=fixed.n_launched,
-        launched_w=tot(fixed.launched_w),
+        launched_w=from_fixed(fixed.launched_w, fw["launched_w"]),
         steps=fixed.steps,
         det_w=from_fixed(fixed.det_w, fw["det_w"]),
         det_ppath=from_fixed(fixed.det_ppath, fw["det_ppath"]),
@@ -199,47 +175,6 @@ def _convert(fixed: FixedResult) -> SimResult:
         det_rec_n=fixed.det_rec_n,
         det_rec_overflow=fixed.det_rec_overflow,
         stats=stats)
-
-
-# the fields of a FixedResult that add across runs
-_ADDED = ("fluence", "exitance", "escaped", "timed_out", "launched_w",
-          "n_launched", "det_w", "det_ppath", "det_rec_overflow")
-
-
-def check_fixed_range(fixed: FixedResult) -> None:
-    """Raise ``OverflowError`` if a total passed the fixed-point range:
-    past ``2**63 - 1`` units an int64 sum shows a negative value (one
-    host read)."""
-    totals = [getattr(fixed, k) for k in _ADDED if k != "det_rec_overflow"]
-    if bool(torch.stack([t.min() for t in totals if t.numel()]).lt(0).any()):
-        raise OverflowError("a run total passed the fixed-point range of "
-                            "2**63 - 1 units")
-
-
-def merge_fixed(parts: Sequence[FixedResult]) -> FixedResult:
-    """The sum of several runs' fixed-point results, on the host (CPU
-    tensors): every total added (order-free, int64), ``steps`` and
-    ``det_rec_n`` one entry a part (rank 1) and ``det_rec`` the parts'
-    buffers concatenated, the layout of a sharded run.  Raises
-    ``OverflowError`` if a sum passes the fixed-point range."""
-    if not parts:
-        raise ValueError("merge_fixed needs at least one result")
-    dev = torch.device("cpu")
-    moved = [FixedResult(*(x.to(dev) if isinstance(x, torch.Tensor) else x
-                           for x in p)) for p in parts]
-    summed = {k: sum(getattr(p, k) for p in moved) for k in _ADDED}
-    counters = None
-    if moved[0].counters is not None:
-        counters = sum(p.counters for p in moved)
-    merged = FixedResult(
-        steps=torch.tensor([int(s) for p in moved
-                            for s in torch.as_tensor(p.steps).reshape(-1)],
-                           dtype=torch.int64, device=dev),
-        det_rec=torch.cat([p.det_rec for p in moved]),
-        det_rec_n=torch.cat([p.det_rec_n.reshape(-1) for p in moved]),
-        counters=counters, **summed)
-    check_fixed_range(merged)
-    return merged
 
 
 _TOTAL_SCALE = float(2**spec.TOTAL_SHIFT)
@@ -252,58 +187,80 @@ def _total_rows(x: torch.Tensor, S: int) -> torch.Tensor:
     return torch.round(x * _TOTAL_SCALE).to(torch.int64).view(S, -1).sum(1)
 
 
-def _regenerate(state, remaining, launched_per_lane, next_id, quota,
-                sample, seeds, mode, shape, ppath=None, lane_ids=None):
-    """Relaunch photons in dead lanes according to the workload mode:
-    the plain path of the CPU and of sources without ``stage()``, and
-    the yardstick the card tests hold the regeneration kernel to.
+class PlainRegeneration:
+    """Regeneration in PyTorch operations: the path of the CPU and of
+    sources without ``stage()``, and the yardstick the card tests hold
+    the regeneration kernel to.  It takes the arguments of
+    ``kernels.photon_step.regenerate.Regeneration`` and keeps its
+    contract, on any device and for any ``sample``.
 
-    Lanes are ``(S, n)``, scenario-major, in flat ``(S * n, ...)``
-    state; ``remaining`` is ``(S,)``, ``launched_per_lane`` and
-    ``quota`` ``(S, n)`` int64.  ``next_id`` is each scenario's 64-bit
-    global photon id counter as a ``(lo, hi)`` pair of ``(S,)`` int64
-    word tensors; it is returned advanced.  ``sample(ids, seeds)`` turns
-    ``(S, n)`` ids into ``(S, n, ...)`` launch states.  Returns
-    ``(state, remaining, launched_per_lane, next_id, launched_weight)``
-    (the last ``(S,)`` int64 in 2**-TOTAL_SHIFT units), then, when given,
-    ``ppath`` (detector runs: the per-lane per-medium path, zeroed for
-    relaunched lanes) and ``lane_ids`` (recording runs: the ``(S * n,
-    2)`` int64 ``[lo, hi]`` id of each lane's photon, updated for
-    relaunched lanes).
+    Bound to one run of S scenarios of ``n`` lanes: ``(S,)`` int64
+    photon budgets ``remaining``, ``(S, n)`` int64 ``launched_per_lane``
+    and ``quota``, ``(S,)`` int64 ``launched_w`` (2**-TOTAL_SHIFT
+    units), ``(S, 1)`` int64 seed words, the media count of the per-lane
+    paths (0 without detectors) and the ``(S * n, 2)`` int64 ``[lo,
+    hi]`` ids of a recording run's lanes (or None).  ``sample(ids,
+    seeds)`` turns ``(S, n)`` ids into ``(S, n, ...)`` launch states.
+
+    ``regen(state, next_id, ppath=None)`` relaunches the dead lanes of a
+    round by the workload mode (dynamic: a dead lane whose rank among
+    its scenario's dead lanes is within the remaining budget; static: a
+    dead lane below its quota) and writes in place: the state (flat
+    ``(S * n, ...)``, scenario-major), ``ppath`` (relaunched rows
+    zeroed), ``remaining``, ``launched_per_lane``, ``launched_w`` (the
+    relaunched weight added) and ``lane_ids``.  ``next_id`` is each
+    scenario's 64-bit next photon id as a ``(lo, hi)`` pair of ``(S,)``
+    int64 words; the advanced ids are returned as the rows of
+    ``next_out``, the ``(2, S)`` buffer each call overwrites.
     """
-    S = remaining.shape[0]
-    dead = ~state.alive.view(S, -1)
-    if mode == "dynamic":
-        order = torch.cumsum(dead.to(torch.int64), 1)  # 1-based rank
-        relaunch = dead & (order <= remaining[:, None])
-    else:  # static pre-assigned quota per lane
-        relaunch = dead & (launched_per_lane < quota)
-    rel = relaunch.to(torch.int64)
-    n_relaunch = rel.sum(1)
-    rank = torch.cumsum(rel, 1) - 1  # 0-based among relaunched
-    # masked lanes may compute a garbage id (rank -1); their sample is
-    # discarded by the merge
-    ids = xrng.add_id(next_id[0][:, None], next_id[1][:, None], rank)
-    pos, direc, w0, rng = (x.reshape((-1,) + x.shape[2:])
-                           for x in sample(ids, seeds))
-    relaunch = relaunch.reshape(-1)
-    fresh = ph.launch(pos, direc, w0, rng, relaunch, shape)
-    merged = ph.PhotonState(*(
-        torch.where(relaunch[:, None] if new.ndim > 1 else relaunch, new, old)
-        for new, old in zip(fresh, state)))
-    merged = merged._replace(alive=state.alive | relaunch)
-    w_new = _total_rows(torch.where(relaunch, w0, torch.zeros_like(w0)), S)
-    out = (merged, remaining - n_relaunch, launched_per_lane + rel,
-           tuple(xrng.add_id(*next_id, n_relaunch)), w_new)
-    if ppath is not None:
-        out = out + (torch.where(relaunch[:, None], torch.zeros_like(ppath),
-                                 ppath),)
-    if lane_ids is not None:
-        out = out + (torch.where(relaunch[:, None],
-                                 torch.stack([ids.lo, ids.hi],
-                                             dim=-1).reshape(-1, 2),
-                                 lane_ids),)
-    return out
+
+    def __init__(self, sample, mode: str, shape, remaining,
+                 launched_per_lane, quota, launched_w, seeds,
+                 n_media: int = 0, lane_ids=None):
+        self.sample, self.mode, self.shape = sample, mode, shape
+        self.remaining, self.launched, self.quota = (
+            remaining, launched_per_lane, quota)
+        self.launched_w, self.seeds = launched_w, seeds
+        self.lane_ids = lane_ids
+        self.next_out = torch.empty((2,) + tuple(remaining.shape),
+                                    dtype=torch.int64,
+                                    device=remaining.device)
+
+    def __call__(self, state: ph.PhotonState, next_id, ppath=None):
+        S = self.remaining.shape[0]
+        dead = ~state.alive.view(S, -1)
+        if self.mode == "dynamic":
+            order = torch.cumsum(dead.to(torch.int64), 1)  # 1-based rank
+            relaunch = dead & (order <= self.remaining[:, None])
+        else:  # static pre-assigned quota per lane
+            relaunch = dead & (self.launched < self.quota)
+        rel = relaunch.to(torch.int64)
+        n_relaunch = rel.sum(1)
+        rank = torch.cumsum(rel, 1) - 1  # 0-based among relaunched
+        # masked lanes may compute a garbage id (rank -1); their sample is
+        # discarded by the merge
+        ids = xrng.add_id(next_id[0][:, None], next_id[1][:, None], rank)
+        pos, direc, w0, rng = (x.reshape((-1,) + x.shape[2:])
+                               for x in self.sample(ids, self.seeds))
+        relaunch = relaunch.reshape(-1)
+        fresh = ph.launch(pos, direc, w0, rng, relaunch, self.shape)
+        for new, old in zip(fresh[:-1], state[:-1]):
+            old.copy_(torch.where(relaunch[:, None] if new.ndim > 1
+                                  else relaunch, new, old))
+        state.alive.logical_or_(relaunch)
+        self.launched_w.add_(_total_rows(
+            torch.where(relaunch, w0, torch.zeros_like(w0)), S))
+        self.remaining.sub_(n_relaunch)
+        self.launched.add_(rel)
+        if ppath is not None:
+            ppath.masked_fill_(relaunch[:, None], 0.0)
+        if self.lane_ids is not None:
+            self.lane_ids.copy_(torch.where(
+                relaunch[:, None],
+                torch.stack([ids.lo, ids.hi], dim=-1).reshape(-1, 2),
+                self.lane_ids))
+        torch.stack(xrng.add_id(*next_id, n_relaunch), out=self.next_out)
+        return self.next_out[0], self.next_out[1]
 
 
 def check_labels(labels_flat, media) -> None:
@@ -362,7 +319,8 @@ def graph_applies(device, regen) -> bool:
     round is a fixed chain of launches on buffers fixed for the run and
     reads nothing on the host.  Elsewhere (the CPU's host kernel, sources
     without ``stage()``) each round is issued eagerly."""
-    return torch.device(device).type == "cuda" and regen is not None
+    return (torch.device(device).type == "cuda"
+            and isinstance(regen, Regeneration))
 
 
 class _Captures(threading.local):
@@ -453,8 +411,6 @@ def build_round_loop(shape: tuple[int, int, int], unitinmm: float,
     if record and not n_det:
         raise ValueError("record_detected > 0 requires detectors: the id "
                          "buffer records detector captures")
-    nx, ny, nz = shape
-    nvox, nxy = nx * ny * nz, nx * ny
     K = int(cfg.steps_per_round)
     if K < 1:
         raise ValueError(f"cfg.steps_per_round must be >= 1, got {K}")
@@ -522,40 +478,33 @@ def build_round_loop(shape: tuple[int, int, int], unitinmm: float,
             rng=torch.zeros((N, 4), **i64),
             alive=torch.zeros((N,), dtype=torch.bool, device=dev),
         )
-        # the run's fixed-point totals; the photon-step call adds the
-        # grids into them in place
-        grids = [torch.zeros((S, nvox * ntg), **i64),
-                 torch.zeros((S, nxy), **i64)]
+        # the run's buffers, fixed for the run: every round writes them
+        # in place, and the photon-step call adds the grids into the
+        # fixed-point totals
+        acc = zero_fixed(shape, n_media, n_det, cfg, (S,), dev)
+        grids = [acc.fluence.view(S, -1), acc.exitance.view(S, -1)]
+        # each RoundStats counter's column, by name
+        counters = (dict(zip(COUNTER_FIELDS, acc.counters.unbind(1)))
+                    if collect else None)
         if n_det:
-            grids += [torch.zeros((S, n_det * ntg), **i64),
-                      torch.zeros((S, n_det, n_media), **i64)]
-        escaped = torch.zeros((S,), **i64)
-        timed_out = torch.zeros((S,), **i64)
-        launched_w = torch.zeros((S,), **i64)
+            grids += [acc.det_w.view(S, -1), acc.det_ppath]
         remaining = photons.clone()
         launched = torch.zeros((S, n_lanes), **i64)
         ppath = torch.zeros((N, n_media), **f32) if n_det else None
         # one write-off row past the capacity takes masked and
         # overflowing record writes
         rec = torch.zeros((S, capacity + 1 if record else 0, 4), **i64)
-        rec_n = torch.zeros((S,), **i64)
-        rec_overflow = torch.zeros((S,), **i64)
         lane_ids = torch.zeros((N, 2), **i64) if record else None
         rounds = torch.zeros((S,), **i64)
         # which scenarios have work at the start of the next round, and
         # whether any has: the flag the host reads
         work = torch.zeros((S,), dtype=torch.bool, device=dev)
         more = torch.zeros((), dtype=torch.bool, device=dev)
-        if collect:
-            counters = {k: torch.zeros((S,), **i64) for k in (
-                "regen_rounds", "relaunched", "live_segments")}
         # on the card, a staged source regenerates in one kernel call a
-        # round (in place); elsewhere the plain _regenerate runs
-        regen = None
-        if supports(sample, dev):
-            regen = Regeneration(sample, mode, shape, remaining, launched,
-                                 quota, launched_w, seed_col,
-                                 n_media if n_det else 0, lane_ids)
+        # round; elsewhere in PyTorch operations, with the same bits
+        regen = (Regeneration if supports(sample, dev) else PlainRegeneration)(
+            sample, mode, shape, remaining, launched, quota, acc.launched_w,
+            seed_col, n_media if n_det else 0, lane_ids)
         graphed = graph_applies(dev, regen)
 
         def find_work():
@@ -567,54 +516,43 @@ def build_round_loop(shape: tuple[int, int, int], unitinmm: float,
             torch.any(work, out=more)
 
         def one_round():
-            # on the graph's path every tensor rebound here is the run's
-            # own buffer, rewritten in place
-            nonlocal state, remaining, launched, next_id, ppath, lane_ids
             with phase(cap, "round.regenerate", dev):
-                if regen is not None:
-                    new_id = regen(state, next_id, ppath)
-                else:
-                    state, remaining, launched, new_id, w_new, *extra = \
-                        _regenerate(state, remaining, launched, next_id,
-                                    quota, sample, seed_col, mode, shape,
-                                    ppath, lane_ids)
-                    launched_w.add_(w_new)
-                    if n_det:
-                        ppath = extra.pop(0)
-                    if record:
-                        lane_ids = extra.pop(0)
+                new_id = regen(state, next_id, ppath)
             with phase(cap, "round.step", dev):
+                # the graph steps the run's buffers in place, its addresses
+                # being fixed; an eager round takes the state the step
+                # returns (a copy onto itself does nothing)
                 outs = photon_steps(labels, media, state, shape, unitinmm,
                                     cfg, K, ppath=ppath, det_geom=det_geom,
                                     record=record, stats=collect,
                                     totals=grids, inplace=graphed)
+                for buf, new in zip(state, outs[0]):
+                    buf.copy_(new)
             with phase(cap, "round.totals", dev):
                 # a scenario with no work left is frozen: it relaunches
                 # nothing, its lanes are dead, and its rounds stop here
                 rounds.add_(work.to(torch.int64))
-                state, _, _, esc, timed = outs[:5]
-                escaped.add_(_total_rows(esc, S))
-                timed_out.add_(_total_rows(timed, S))
+                _, _, _, esc, timed = outs[:5]
+                acc.escaped.add_(_total_rows(esc, S))
+                acc.timed_out.add_(_total_rows(timed, S))
                 cur = 5
                 if n_det:
-                    ppath = outs[cur]
+                    ppath.copy_(outs[cur])
                     cur += 3
                 if record:
-                    _append_records(rec, rec_n, rec_overflow, lane_ids,
-                                    outs[cur], outs[cur + 1], capacity)
+                    _append_records(rec, acc.det_rec_n, acc.det_rec_overflow,
+                                    lane_ids, outs[cur], outs[cur + 1],
+                                    capacity)
                     cur += 2
                 if collect:
                     # launches per round stay < 2**31, so the low-word
                     # difference is exact across a 2**32 boundary
                     rel = (new_id[0] - next_id[0]) & xrng.MASK32
-                    counters["regen_rounds"] += (rel > 0).to(torch.int64)
-                    counters["relaunched"] += rel
-                    counters["live_segments"] += outs[cur][:, 0].to(
-                        torch.int64).view(S, n_lanes).sum(1)
-                if regen is not None:
-                    ids.copy_(regen.next_out)
-                else:
-                    next_id = new_id
+                    counters["regen_rounds"].add_((rel > 0).to(torch.int64))
+                    counters["relaunched"].add_(rel)
+                    counters["live_segments"].add_(outs[cur][:, 0].to(
+                        torch.int64).view(S, n_lanes).sum(1))
+                ids.copy_(regen.next_out)
                 find_work()
 
         find_work()
@@ -649,47 +587,25 @@ def build_round_loop(shape: tuple[int, int, int], unitinmm: float,
         with phase(cap, "run.finish", dev):
             # weight still in flight when the max_steps cap fires is retired
             # deterministically, like the time gate
-            timed_out += _total_rows(torch.where(
-                state.alive, state.w, torch.zeros_like(state.w)), S)
+            acc.timed_out.add_(_total_rows(torch.where(
+                state.alive, state.w, torch.zeros_like(state.w)), S))
             # a fixed-point total past 2**63 - 1 shows a negative value: the
             # kernel flags what its blocks add from their caches, this checks
             # every total once (one host read)
-            if bool(torch.stack([t.min() for t in grids + [
-                    escaped, timed_out, launched_w]]).lt(0).any()):
-                raise OverflowError("a run total passed the fixed-point range "
-                                    "of 2**63 - 1 units")
+            check_range(grids + [acc.escaped, acc.timed_out, acc.launched_w])
             if dev.type == "cuda":
                 check_errors(dev)
+            if collect:
+                counters["rounds"].copy_(rounds)
+                counters["lane_segments"].copy_(rounds * (K * n_lanes))
             # launches per run stay < 2**31, so the low-word difference is
             # the exact count even across a 2**32 boundary
-            n_launched = (next_id[0] - first_lo) & xrng.MASK32
-            steps_s = (rounds * K).tolist()
-            if collect:
-                counters = torch.stack(
-                    [rounds] + [counters[k] for k in COUNTER_FIELDS[1:4]]
-                    + [rounds * (K * n_lanes)], dim=1)
-            grid_shape = tuple(shape) + ((ntg,) if ntg > 1 else ())
-            if n_det:
-                det_w = grids[2].view(S, n_det, ntg)
-                det_ppath = grids[3]
-            else:
-                det_w = torch.zeros((S, 0, ntg), **i64)
-                det_ppath = torch.zeros((S, 0, n_media), **i64)
-            out = [FixedResult(
-                fluence=grids[0][i].view(grid_shape),
-                exitance=grids[1][i].view(nx, ny),
-                escaped=escaped[i],
-                timed_out=timed_out[i],
-                launched_w=launched_w[i],
-                n_launched=n_launched[i],
-                steps=steps_s[i],
-                det_w=det_w[i],
-                det_ppath=det_ppath[i],
-                det_rec=rec[i, :capacity],
-                det_rec_n=rec_n[i],
-                det_rec_overflow=rec_overflow[i],
-                counters=counters[i] if collect else None,
-            ) for i in range(S)]
+            fixed = acc._replace(
+                n_launched=(next_id[0] - first_lo) & xrng.MASK32,
+                det_rec=rec[:, :capacity])
+            out = [FixedResult(*(x[i] if isinstance(x, torch.Tensor) else x
+                                 for x in fixed))._replace(steps=steps)
+                   for i, steps in enumerate((rounds * K).tolist())]
             return out, reads, replays
 
     return fn

@@ -436,9 +436,12 @@ void run_block(const Args& A, Block& B, DepositCache& cache, const int sc,
     B.cap_det[i] = -1;
     B.cap_gate[i] = 0;
     if (A.det) {
-      // the lane's per-medium path, carried in its row of ppath_out
+      // the lane's per-medium path, carried in its row of ppath_out (the
+      // same row when the launch writes in place: no copy, which would
+      // overlap)
       B.pp[i] = A.ppath_out + lane * nm;
-      std::memcpy(B.pp[i], A.ppath_in + lane * nm, sizeof(float) * nm);
+      if (A.ppath_in != A.ppath_out)
+        std::memcpy(B.pp[i], A.ppath_in + lane * nm, sizeof(float) * nm);
     }
     if (A.use_jac) {
       B.jac_w[i] = A.jac_w[lane];
@@ -774,7 +777,8 @@ void run_block(const Args& A, Block& B, DepositCache& cache, const int sc,
 //        [cap_det, cap_gate] (RECORD), [jac] (JAC), [stats] (STATS);
 //        fluence, exitance, det_w, det_ppath and jac are int64 fixed
 //        point, zeroed here unless add_into is set, when the launch adds
-//        into them
+//        into them; the state's and ppath's out arrays may be their in
+//        arrays (a block reads its lanes before it writes them)
 //   ints:   n, nx, ny, nz, n_steps, ntg, general_exact, do_reflect, taylor,
 //           groups, n_det, n_media, jac_cols, scenarios, labels_stride,
 //           add_into, threads, blocks (the last two are the card's launch

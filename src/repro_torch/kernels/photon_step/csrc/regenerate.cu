@@ -1,7 +1,7 @@
 // Regeneration kernel for NVIDIA Hopper (sm_90a): relaunch the dead
 // photon lanes of S scenarios, one C call a round, with the bits that
-// repro_torch/core/simulator.py _regenerate gives through PyTorch's
-// elementwise operators.
+// repro_torch/core/simulator.py PlainRegeneration gives through
+// PyTorch's elementwise operators.
 //
 // Replaces: no TPU kernel.  The reference regenerates inside its jitted
 //   round (repro/core/simulator.py _regenerate, a masked prefix sum and

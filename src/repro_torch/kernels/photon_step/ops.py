@@ -35,6 +35,12 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def engine_of(device: torch.device) -> str:
+    """The round executor a device runs, as spans and reports tag it:
+    the kernel or its plain version."""
+    return "kernel" if device.type == "cuda" else "plain"
+
+
 def visible_devices(device_type: str = "cuda") -> list[torch.device]:
     """Every device of a type this process can use: each CUDA device
     (none raises, as :func:`resolve_device` does), or the one CPU."""
@@ -55,22 +61,19 @@ def photon_steps(labels_flat, media, state, shape, unitinmm, cfg: SimConfig,
     for (see ``ref.photon_steps_ref``: int64 fixed-point grids, added
     into ``totals`` when given, and a leading scenario axis for a
     ``(S, n_media, 4)`` media table): the CUDA kernel for CUDA tensors,
-    the host kernel for CPU tensors.  ``inplace`` (the CUDA kernel only)
-    writes the new state and ``ppath`` over the inputs."""
+    the host kernel for CPU tensors.  ``inplace`` writes the new state
+    and ``ppath`` over the inputs."""
     dev = state.w.device
-    kw = {}
     if dev.type == "cuda":
-        fn, kw = photon_step_cuda, {"inplace": inplace}
-    elif dev.type == "cpu" and not inplace:
-        fn = photon_step_host
+        fn = photon_step_cuda
     elif dev.type == "cpu":
-        raise ValueError("inplace photon steps need the CUDA kernel")
+        fn = photon_step_host
     else:
         raise ValueError(f"unsupported device {dev}")
     return fn(labels_flat, media, state, shape, unitinmm, cfg, n_steps,
               ppath=ppath, det_geom=det_geom, record=record, jac_w=jac_w,
               jac_col=jac_col, jac_cols=jac_cols, stats=stats,
-              totals=totals, **kw)
+              totals=totals, inplace=inplace)
 
 
 def launch_ids(n: int, id_offset: int, device) -> xrng.PhotonId:

@@ -327,8 +327,8 @@ def prepare(labels_flat, media, state: ph.PhotonState, shape, unitinmm,
     itself, so every output is allocated uninitialised; with ``totals``
     those fixed-point grids are the caller's, which the launch adds into
     and zeroes nothing.  With ``inplace`` the new lane state and
-    ``ppath`` are written over the inputs (the CUDA kernel reads each
-    lane before it writes it).  A ``(S, n_media, 4)`` media table makes
+    ``ppath`` are written over the inputs (both kernels read each lane
+    before they write it).  A ``(S, n_media, 4)`` media table makes
     it a launch of S scenarios (``ref.photon_steps_ref`` gives the
     shapes)."""
     n_det, record, jac_cols = spec.check_groups(ppath, det_geom, record,

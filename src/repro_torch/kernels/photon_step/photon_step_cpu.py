@@ -187,12 +187,15 @@ def math_library() -> str:
 def photon_step_host(labels_flat, media, state: ph.PhotonState, shape,
                      unitinmm, cfg: SimConfig, n_steps: int, ppath=None,
                      det_geom=None, record=False, jac_w=None, jac_col=None,
-                     jac_cols: int = 0, stats: bool = False, totals=None):
+                     jac_cols: int = 0, stats: bool = False, totals=None,
+                     inplace: bool = False):
     """Advance all lanes ``n_steps`` segments on the host's cores;
     returns what ``ref.photon_steps_ref`` returns, output group by
     output group, bit-equal to it.  The arguments are those of
     ``photon_step.photon_step_cuda``, on the CPU: contiguous tensors of
-    ``photon.PhotonState``'s dtypes, labels in ``[0, n_media)``.
+    ``photon.PhotonState``'s dtypes, labels in ``[0, n_media)``; with
+    ``inplace`` the returned state (and ``ppath``) are the input
+    tensors, rewritten.
 
     A ``jac_col`` outside ``[0, jac_cols)`` adds nothing for its lane
     and raises ``ValueError`` after the launch; a fixed-point deposit or
@@ -203,7 +206,7 @@ def photon_step_host(labels_flat, media, state: ph.PhotonState, shape,
         raise ValueError(f"photon_step_host needs CPU tensors, got {dev}")
     groups, ins, outs, ints, floats = K.prepare(
         labels_flat, media, state, shape, unitinmm, cfg, n_steps, ppath,
-        det_geom, record, jac_w, jac_col, jac_cols, stats, totals)
+        det_geom, record, jac_w, jac_col, jac_cols, stats, totals, inplace)
     lib = _library()
     arrays = K.pack(ins, outs, ints, floats)
     err = lib.photon_step_cpu_launch(*[a.buffer_info()[0] for a in arrays])

@@ -1,12 +1,12 @@
 """Binding and wrapper of the CUDA regeneration kernel.
 
 The kernel (``csrc/regenerate.cu``) does on the card, in one C call a
-round, what ``core.simulator._regenerate`` does with ~160-310 PyTorch
-operations: it picks the dead lanes to relaunch (dynamic mode: a dead
-lane whose rank among its scenario's dead lanes is below the scenario's
-remaining budget; static mode: a dead lane below its quota), gives each
-the next 64-bit photon id by that rank, seeds its streams, samples the
-source from its staged ``(S, ...)`` parameters, launches it
+round, what ``core.simulator.PlainRegeneration`` does with ~160-310
+PyTorch operations: it picks the dead lanes to relaunch (dynamic mode:
+a dead lane whose rank among its scenario's dead lanes is below the
+scenario's remaining budget; static mode: a dead lane below its quota),
+gives each the next 64-bit photon id by that rank, seeds its streams,
+samples the source from its staged ``(S, ...)`` parameters, launches it
 (``photon.launch``) and updates the scenario's counters, with the bits
 of the plain path on every field.
 
@@ -14,7 +14,8 @@ The round loop (``core.simulator.build_round_loop``) takes it where it
 can observe that it applies (:func:`supports`): CUDA tensors and a
 ``sources.base.StagedSampler`` of one of the seven source types of
 ``sources/types.py``.  On the CPU, or for a source without ``stage()``,
-the loop runs the plain ``_regenerate``, which the card tests hold the
+the loop runs ``PlainRegeneration``, which takes the same arguments,
+writes the same buffers in place, and which the card tests hold the
 kernel against.
 
 The library is built with the photon-step variants
@@ -123,7 +124,7 @@ class Regeneration:
     int64 words: the rows of ``next_out``, the ``(2, S)`` buffer each
     call overwrites, which must not be the ``next_id`` passed in (the
     round loop copies it into its own ids).  What each holds afterwards
-    is what ``core.simulator._regenerate`` returns, bit for bit.
+    is what ``core.simulator.PlainRegeneration`` leaves, bit for bit.
     """
 
     def __init__(self, sample: StagedSampler, mode: str, shape, remaining,

@@ -8,6 +8,7 @@ hold int64 fixed-point totals, and a worker's bit-class is its device
 type.
 """
 
+from repro_torch.core.fixed import harvest_result
 from repro_torch.resilience.faults import (FaultInjector, InjectedCrash,
                                            InjectedFault)
 from repro_torch.resilience.policy import (HEALTHY, QUARANTINED, SUSPECT,
@@ -15,8 +16,7 @@ from repro_torch.resilience.policy import (HEALTHY, QUARANTINED, SUSPECT,
 from repro_torch.resilience.pool import (ChunkQuarantinedError, DevicePool,
                                          DeviceSpec, PoolExhaustedError,
                                          PoolReport, Worker)
-from repro_torch.resilience.validate import (corrupt_harvest, harvest_result,
-                                             validate_chunk)
+from repro_torch.resilience.validate import corrupt_harvest, validate_chunk
 
 __all__ = [
     "DevicePool", "DeviceSpec", "Worker", "PoolReport",

@@ -45,7 +45,7 @@ chunked schedulers survive all of them:
     degradation down to one device; an empty pool raises
     :class:`PoolExhaustedError` with the full failure history.
   * **Exact merges**: the harvests are int64 fixed-point totals
-    (``core.simulator.FixedResult``), so the merged result has the bits
+    (``core.fixed.FixedResult``), so the merged result has the bits
     of one run over the same photons whatever the chunk size, lanes,
     mode, merge order or fault schedule.  Merges still go in chunk-id
     order (a bounded reordering frontier), which keeps the checkpoint a
@@ -84,17 +84,18 @@ import torch
 
 from repro_torch.core import procs
 from repro_torch.core import simulator as S
+from repro_torch.core.fixed import (FixedResult, add_fixed, fixed_from_state,
+                                    fixed_state, harvest_result, zero_fixed)
 from repro_torch.core.loadbalance import DeviceModel, model_from_samples
 from repro_torch.core.volume import SimConfig, Volume
 from repro_torch.detectors import as_detectors
-from repro_torch.kernels.photon_step.ops import (resolve_device,
+from repro_torch.kernels.photon_step.ops import (engine_of, resolve_device,
                                                  visible_devices)
 from repro_torch.kernels.photon_step.photon_step import KernelError
 from repro_torch.resilience.faults import FaultInjector, InjectedFault
 from repro_torch.resilience.policy import (HEALTHY, QUARANTINED, SUSPECT,
                                            RetryPolicy)
-from repro_torch.resilience.validate import (corrupt_harvest, harvest_result,
-                                             validate_chunk)
+from repro_torch.resilience.validate import corrupt_harvest, validate_chunk
 from repro_torch.sources import as_source
 from repro_torch.telemetry.trace import device_label
 
@@ -272,7 +273,7 @@ class _Task:
         self.inflight = 0
         self.reasons: list[str] = []
         self.last_error: BaseException | None = None
-        self.harvest: S.FixedResult | None = None  # valid, awaiting frontier
+        self.harvest: FixedResult | None = None  # valid, awaiting frontier
         self.merged_by: Worker | None = None
 
 
@@ -298,71 +299,6 @@ class _Inflight:
         procs.abandon(self.future)
         if self.span is not None:
             self.span.end(outcome=outcome)
-
-
-def zero_fixed(volume: Volume, cfg: SimConfig, n_det: int) -> S.FixedResult:
-    """An empty accumulator: the int64 totals of no photons, on the CPU,
-    in :func:`validate.harvest_result`'s layout."""
-    nx, ny = volume.shape[:2]
-    ntg = int(cfg.n_time_gates)
-
-    def z(*size):
-        return torch.zeros(size, dtype=torch.int64)
-
-    return S.FixedResult(
-        fluence=z(*volume.shape, *((ntg,) if ntg > 1 else ())),
-        exitance=z(nx, ny), escaped=z(), timed_out=z(), launched_w=z(),
-        n_launched=z(), steps=0, det_w=z(n_det, ntg),
-        det_ppath=z(n_det, volume.media.shape[0]), det_rec=z(0, 4),
-        det_rec_n=z(), det_rec_overflow=z(),
-        counters=z(len(S.COUNTER_FIELDS)) if cfg.collect_stats else None)
-
-
-def add_fixed(acc: S.FixedResult, harvest: S.FixedResult) -> S.FixedResult:
-    """An accumulator with one more harvest added: the int64 totals and
-    the segments run add, the records append (``simulator.merge_fixed``,
-    kept in one buffer of valid rows).  Raises ``OverflowError`` if a
-    total passes the fixed-point range."""
-    merged = S.merge_fixed([acc, harvest])
-    return merged._replace(steps=int(merged.steps.sum()),
-                           det_rec_n=merged.det_rec_n.sum())
-
-
-# the checkpoint leaves of an accumulator, under the reference's keys
-_STATE_KEYS = {"energy": "fluence", "exitance": "exitance",
-               "escaped_w": "escaped", "timed_out_w": "timed_out",
-               "det_w": "det_w", "det_ppath": "det_ppath",
-               "det_rec": "det_rec", "det_rec_overflow": "det_rec_overflow",
-               "n_launched": "n_launched", "launched_w": "launched_w",
-               "stats": "counters"}
-
-
-def fixed_state(acc: S.FixedResult) -> dict:
-    """An accumulator's checkpoint leaves: its int64 totals and counters
-    as numpy, the records as ``(n, 4)`` uint32."""
-    state = {k: getattr(acc, f).numpy().copy()
-             for k, f in _STATE_KEYS.items() if getattr(acc, f) is not None}
-    state["det_rec"] = state["det_rec"].astype(np.uint32)
-    return state
-
-
-def fixed_from_state(state: dict, like: S.FixedResult,
-                     steps: int = 0) -> S.FixedResult:
-    """The accumulator a :func:`fixed_state` checkpoint holds, with
-    round counters where ``like`` (the accumulator it replaces) has
-    them."""
-    def t(k):
-        return torch.tensor(np.asarray(state[k], np.int64))
-
-    fields = {f: t(k) for k, f in _STATE_KEYS.items() if k != "stats"}
-    fields["det_rec"] = fields["det_rec"].reshape(-1, 4)
-    counters = None
-    if like.counters is not None:
-        counters = (t("stats") if "stats" in state
-                    else torch.zeros_like(like.counters))
-    return S.FixedResult(steps=int(steps), counters=counters,
-                         det_rec_n=torch.tensor(fields["det_rec"].shape[0]),
-                         **fields)
 
 
 # Errors a retry cannot cure, raised out of the run rather than retried:
@@ -515,7 +451,7 @@ class DevicePool:
     def run_fixed(self, n_photons: int, chunk_size: int, seed: int = 1234,
                   source=None, deadline_s: float | None = None,
                   id_offset: int = 0, resume: bool = False
-                  ) -> tuple[S.FixedResult, PoolReport]:
+                  ) -> tuple[FixedResult, PoolReport]:
         """Simulate ``n_photons`` in ``chunk_size`` chunks across the
         pool; returns the merged int64 totals (a ``FixedResult`` on the
         CPU) and the ``PoolReport``.
@@ -537,7 +473,8 @@ class DevicePool:
             for i, ch in enumerate(chunks)
         ]
         report = PoolReport(n_chunks=len(tasks))
-        acc = zero_fixed(self.volume, self.cfg, len(self.detectors))
+        acc = zero_fixed(self.volume.shape, self.volume.media.shape[0],
+                         len(self.detectors), self.cfg)
         frontier = 0
         if resume:
             frontier, acc = self._restore(acc, tasks, n_photons, chunk_size,
@@ -580,7 +517,7 @@ class DevicePool:
 
     def _loop(self, tasks, pending, inflight, acc, report, frontier,
               t_start, deadline_s, n_photons, chunk_size, seed,
-              src) -> S.FixedResult:
+              src) -> FixedResult:
         """Run the chunks to their end; returns the accumulator with
         every merged chunk added."""
         last_ckpt_merged = report.merged
@@ -770,7 +707,7 @@ class DevicePool:
             # labelled by name: ending the span must not synchronise the
             # device other workers are running on
             span = self.tracer.span("chunk", device=device_label(w.device),
-                                    engine=_engine(w.device),
+                                    engine=engine_of(w.device),
                                     photons=ch.count, chunk_start=ch.start_id,
                                     attempt=attempt, worker=w.label)
         now = time.monotonic()
@@ -885,8 +822,8 @@ class DevicePool:
 
     # -- accumulation --------------------------------------------------------
 
-    def _merge(self, acc: S.FixedResult, task: _Task,
-               report: PoolReport) -> S.FixedResult:
+    def _merge(self, acc: FixedResult, task: _Task,
+               report: PoolReport) -> FixedResult:
         acc = add_fixed(acc, task.harvest)
         task.harvest = None
         task.merged = True
@@ -917,7 +854,7 @@ class DevicePool:
         }, sort_keys=True)
         return np.frombuffer(key.encode(), np.uint8)
 
-    def _state_dict(self, acc: S.FixedResult, frontier: int, tasks: list,
+    def _state_dict(self, acc: FixedResult, frontier: int, tasks: list,
                     n_photons: int, chunk_size: int, seed: int,
                     src) -> dict:
         return {
@@ -944,9 +881,9 @@ class DevicePool:
         if self.tracer is not None:
             self.tracer.counter("resilience.checkpoint", frontier)
 
-    def _restore(self, acc: S.FixedResult, tasks: list, n_photons: int,
+    def _restore(self, acc: FixedResult, tasks: list, n_photons: int,
                  chunk_size: int, seed: int, src
-                 ) -> tuple[int, S.FixedResult]:
+                 ) -> tuple[int, FixedResult]:
         """Load the newest checkpoint; returns the merged frontier and
         the accumulator it holds (``(0, acc)`` when no checkpoint exists
         yet)."""
@@ -982,9 +919,3 @@ class DevicePool:
             return
         for k, v in report.counters().items():
             self.tracer.counter(f"resilience.{k}", v)
-
-
-def _engine(device: torch.device) -> str:
-    """The round executor a device runs: the kernel or its plain
-    version."""
-    return "kernel" if device.type == "cuda" else "plain"

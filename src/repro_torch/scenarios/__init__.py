@@ -63,7 +63,7 @@ from repro_torch.core.simulator import (SimResult, build_batched_fn,
 from repro_torch.core.volume import SimConfig, Volume
 from repro_torch.detectors import (as_detectors, det_geometry,
                                    validate_detectors)
-from repro_torch.kernels.photon_step.ops import resolve_device
+from repro_torch.kernels.photon_step.ops import engine_of, resolve_device
 from repro_torch.sources import stage_source
 from repro_torch.sources.base import StagedSampler
 from repro_torch.telemetry.trace import capture, device_label, phase
@@ -380,12 +380,6 @@ def _sharded_batched_fn(rep: _Prep, n_lanes, mode, devices):
     return fn
 
 
-def _engine(dev: torch.device) -> str:
-    """The round executor a device runs: the kernel or its plain
-    version."""
-    return "kernel" if dev.type == "cuda" else "plain"
-
-
 def simulate_one(sc: Scenario, *, n_lanes: int = 1024,
                  mode: str = "dynamic", device=None) -> SimResult:
     """The sequential reference: one scenario through ``build_sim_fn``
@@ -439,7 +433,7 @@ def simulate_many(scenarios, *, n_lanes: int = 1024, mode: str = "dynamic",
     if not scenarios:
         return []
     cache = default_cache() if cache is None else cache
-    engine = _engine(dev)
+    engine = engine_of(dev)
     preps = [_prepare(i, sc) for i, sc in enumerate(scenarios)]
     groups: OrderedDict = OrderedDict()
     for p in preps:

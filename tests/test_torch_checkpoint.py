@@ -140,3 +140,29 @@ def test_campaign_state_is_int64(tmp_path):
     assert int(restored.acc.fluence[0, 0, 0]) == 2**62 + 1
     assert int(restored.acc.escaped) == 2**60 + 3
     assert [c.start_id for c in restored.pending] == [0, 100, 200]
+
+    # an accumulator holding a harvest with records and round counters:
+    # its checkpoint leaves bring back every field, bit for bit
+    import dataclasses
+
+    from repro_torch.core import fixed as F
+    from repro_torch.core import simulator as S
+    vol = V.benchmark_b2((16, 16, 16))
+    cfg = dataclasses.replace(V.b2_config(), steps_per_round=8,
+                              n_time_gates=3, collect_stats=True)
+    run = S.simulate_fixed(vol, cfg, 400, 64, seed=3, device="cpu",
+                           detectors=[{"x": 8, "y": 6, "radius": 4}],
+                           record_detected=64)
+    empty = F.zero_fixed(vol.shape, vol.media.shape[0], 1, cfg)
+    acc = F.add_fixed(empty, F.harvest_result(run))
+    assert int(acc.counters[0]) > 0 and int(acc.det_rec_n) > 0
+    ck = Checkpointer(str(tmp_path / "acc"))
+    ck.save(1, F.fixed_state(acc))
+    _, leaves = ck.restore(F.fixed_state(empty))
+    back = F.fixed_from_state(leaves, empty, acc.steps)
+    for name, x, y in zip(F.FixedResult._fields, back, acc):
+        if isinstance(x, torch.Tensor):
+            assert x.dtype == y.dtype == torch.int64, name
+            assert torch.equal(x, y), name
+        else:
+            assert x == y, name

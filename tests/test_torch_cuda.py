@@ -852,8 +852,9 @@ def test_regeneration_kernel_matches_plain_regenerate(cuda_device, source,
                                                       mode, scenarios,
                                                       extras):
     """One kernel call gives every field and counter the plain
-    ``_regenerate`` gives on the card, bit for bit, at a lane count that
-    is no multiple of the block size, and counts one launch."""
+    ``PlainRegeneration`` gives on the card, bit for bit, each bound to
+    clones of the same lanes and counters, at a lane count that is no
+    multiple of the block size, and counts one launch."""
     from repro_torch.kernels.photon_step import regenerate as RG
 
     n = 300
@@ -861,32 +862,37 @@ def test_regeneration_kernel_matches_plain_regenerate(cuda_device, source,
      lane_ids) = _regen_inputs(scenarios, n, extras, cuda_device,
                                seed=scenarios + 3)
     sample = _staged_sampler(source, scenarios, cuda_device)
-    want = S._regenerate(state, remaining, launched, next_id, quota, sample,
-                         seeds, mode, SHAPE, ppath, lane_ids)
-    clone = (lambda x: None if x is None else x.clone())
-    st = ph.PhotonState(*map(clone, state))
-    rem, lau, lw, pp, ids = map(clone, (remaining, launched, launched_w,
-                                        ppath, lane_ids))
     ids_before = tuple(x.clone() for x in next_id)
+
+    def call(cls):
+        clone = (lambda x: None if x is None else x.clone())
+        st = ph.PhotonState(*map(clone, state))
+        rem, lau, lw, pp, ids = map(clone, (remaining, launched, launched_w,
+                                            ppath, lane_ids))
+        regen = cls(sample, mode, SHAPE, rem, lau, quota, lw, seeds,
+                    3 if extras else 0, ids)
+        new_id = tuple(x.clone() for x in regen(st, next_id, pp))
+        return st, rem, lau, lw, pp, ids, new_id
+
+    want = call(S.PlainRegeneration)
     key = RG.source_key(sample.source_cls, scenarios)
     before = kernel.photon_step_cuda.launches_by[key]
-    regen = RG.Regeneration(sample, mode, SHAPE, rem, lau, quota, lw, seeds,
-                            3 if extras else 0, ids)
-    got_id = regen(st, next_id, pp)
+    got = call(RG.Regeneration)
     assert kernel.photon_step_cuda.launches_by[key] == before + 1
-    for name, x, y in zip(ph.PhotonState._fields, st, want[0]):
+    for name, x, y in zip(ph.PhotonState._fields, got[0], want[0]):
         assert torch.equal(_bits(x), _bits(y)), name
-    assert torch.equal(rem, want[1])
-    assert torch.equal(lau, want[2])
-    for x, y in zip(got_id, want[3]):
+    for name, x, y in zip(("remaining", "launched", "launched_w", "ppath",
+                           "lane_ids"), got[1:6], want[1:6]):
+        if x is None:
+            assert y is None and not extras, name
+        else:
+            assert torch.equal(_bits(x), _bits(y)), name
+    for x, y in zip(got[6], want[6]):
         assert torch.equal(x, y)
-    assert torch.equal(lw, launched_w + want[4])
-    if extras:
-        assert torch.equal(_bits(pp), _bits(want[5]))
-        assert torch.equal(ids, want[6])
     # the old ids are left as they were; some lanes did relaunch
     assert all(torch.equal(x, y) for x, y in zip(next_id, ids_before))
-    assert int((want[3][0] - next_id[0]).abs().sum()) > 0
+    assert int((want[6][0] - next_id[0]).abs().sum()) > 0
+    assert not torch.equal(want[3], launched_w)
 
 
 def _fleet(vol, cfg, photons, sources, dets):
@@ -902,7 +908,7 @@ def _fleet(vol, cfg, photons, sources, dets):
 def test_runs_with_the_regeneration_kernel_match_the_plain_path(
         cuda_device, case, monkeypatch):
     """A whole run regenerating with the kernel gives every field of the
-    plain path's run (``_regenerate`` on the card) bit for bit, and calls
+    plain path's run (``PlainRegeneration`` on the card) bit for bit, and calls
     the kernel once a round: a small B1 pencil run whose ids cross
     2**32, a B2 detection forward in static mode with records and
     counters, and a b2.sweep-shaped fleet of 8 disks in one batch."""

@@ -133,23 +133,38 @@ def _args(bench, n_steps, n=N, seed=1, **cfg_kw):
             vol.unitinmm, _cfg(bench, **cfg_kw), n_steps)
 
 
+@pytest.mark.parametrize("inplace", [False, True])
 @pytest.mark.parametrize("n_steps", [1, 40])
 @pytest.mark.parametrize("groups", list(GROUPS))
 @pytest.mark.parametrize("bench", ["B1", "B2"])
 def test_every_group_is_bit_equal_to_the_plain_version(bench, groups,
-                                                       n_steps):
+                                                       n_steps, inplace):
+    """Every output group bit-equal to the plain version, the state and
+    ``ppath`` written to new tensors or, ``inplace``, over the inputs
+    (the round loop's call), which then are the returned tensors."""
     args = _args(bench, n_steps)
     kw = _group_kwargs(GROUPS[groups], N, args[1].shape[0], SHAPE)
+    want = tref.photon_steps_ref(*args, **kw)
+    before = args[2]
+    if inplace:
+        args = args[:2] + (tph.PhotonState(*(x.clone() for x in before)),
+                           ) + args[3:]
+        if "ppath" in kw:
+            kw["ppath"] = kw["ppath"].clone()
     K.reset_launches()
-    got = H.photon_step_host(*args, **kw)
+    got = H.photon_step_host(*args, **kw, inplace=inplace)
     assert dict(K.photon_step_cuda.launches_by) == {
         H.host_key(K.group_mask(len(kw.get("det_geom", ())),
                                 kw.get("record", False),
                                 kw.get("jac_cols", 0),
                                 kw.get("stats", False)), args[5]): 1}
-    _assert_equal(got, tref.photon_steps_ref(*args, **kw))
+    _assert_equal(got, want)
+    for a, b in zip(got[0], args[2]):
+        assert (a is b) == inplace
+    if "ppath" in kw:
+        assert (got[5] is kw["ppath"]) == inplace
     # something happened: lanes moved and weight was deposited
-    assert not torch.equal(got[0].pos, args[2].pos)
+    assert not torch.equal(got[0].pos, before.pos)
     assert int(got[1].sum()) > 0
 
 

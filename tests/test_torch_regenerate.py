@@ -3,7 +3,7 @@ path, on the CPU.
 
 The kernel (``kernels/photon_step/csrc/regenerate.cu``) runs only on the
 card; ``tests/test_torch_cuda.py`` holds it bit-equal to the plain
-``simulator._regenerate`` there.  Here: the entry point's comment and
+``simulator.PlainRegeneration`` there.  Here: the entry point's comment and
 the wrapper's argument order agree, the kernel's source table matches
 what each source type stages, the three places that build the round
 loop's sampler hand it the source class and its staged tensors, a CPU
@@ -169,9 +169,9 @@ def test_each_sampler_maker_hands_the_loop_the_source_and_staged_tensors(
 
 def test_cpu_run_takes_the_plain_path_and_counts_no_kernel_call(
         monkeypatch):
-    """On the CPU the loop never binds the kernel: the run is the plain
-    ``_regenerate``'s, bit for bit, and no ``regenerate/*`` launch is
-    counted."""
+    """On the CPU the loop never binds the kernel: it binds the plain
+    ``PlainRegeneration`` once a run, calls it once a round, the run is
+    its bits, and no ``regenerate/*`` launch is counted."""
     vol = V.benchmark_b1(SHAPE)
     cfg = dataclasses.replace(V.b1_config(), steps_per_round=8)
     args = (vol, cfg, 400, 64, 5)
@@ -184,19 +184,24 @@ def test_cpu_run_takes_the_plain_path_and_counts_no_kernel_call(
     def refuse(*a, **k):
         raise AssertionError("a CPU run bound the regeneration kernel")
 
-    calls = []
+    bound, calls = [], []
 
-    def plain(*a, **k):
-        calls.append(1)
-        return regenerate(*a, **k)
+    class Plain(S.PlainRegeneration):
+        def __init__(self, *a, **k):
+            bound.append(1)
+            super().__init__(*a, **k)
 
-    regenerate = S._regenerate
+        def __call__(self, *a, **k):
+            calls.append(1)
+            return super().__call__(*a, **k)
+
     monkeypatch.setattr(S, "Regeneration", refuse)
-    monkeypatch.setattr(S, "_regenerate", plain)
+    monkeypatch.setattr(S, "PlainRegeneration", Plain)
     again = S.simulate_fixed(*args, **kw)
     # once a round issued: the rounds with work, then no-op rounds up to
     # the next host read
     reads = -(-(again.steps // 8) // S.ROUNDS_PER_READ)
+    assert len(bound) == 1
     assert len(calls) == reads * S.ROUNDS_PER_READ
     for name, x, y in zip(S.FixedResult._fields, before, again):
         if isinstance(x, torch.Tensor):

@@ -202,7 +202,7 @@ def cuda_device():
 def test_small_case_on_card_matches_reference_and_plain_path(
         cuda_device, bench_modules, monkeypatch):
     """On the card: the kernel's run equals the frozen reference's and
-    the plain path's (``_regenerate`` on the card) bit for bit."""
+    the plain path's (``PlainRegeneration`` on the card) bit for bit."""
     _, step, transport = bench_modules
     vol = small_volume(cuda_device)
     cfg = dataclasses.replace(V.skinvessel_config(), steps_per_round=16)
