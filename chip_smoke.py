@@ -45,6 +45,12 @@ script exits non-zero and prints no result:
            counter bit-equal to PlainRegeneration on the card;
            device µs a call, host µs a call, the plain path's device
            and host ms, and the bytes bound
+  tail     the step kernel's launch with and without the round's tail
+           (RoundTail) at the K1 base row's shape (B1 60^3, a mid-run
+           state of 262144 lanes, K=16) and the det/x8 row's (the optode
+           sweep's batched launch of round KEEP_ROUND, 8 x 32768 lanes,
+           50 gates, 3 detectors): the tail equal to the plain version's,
+           device ms a launch of each and what the tail adds
   main     repro_torch.launch.simulate for B1 and B2 at 60^3 with 10^7
            photons, 262144 lanes, K=16: exact photon accounting,
            energy-balance residue < 1e-4, the kernel launched at least
@@ -680,14 +686,23 @@ def fixed_differences(a, b) -> list[str]:
             if not torch.equal(getattr(a, f).cpu(), getattr(b, f).cpu())]
 
 
+def kernel_counts() -> dict:
+    """``launches_by`` less the keys that count no kernel launch:
+    ``TAIL_KEY`` counts the launches that did the round's tail once more
+    beside their variant, and ``round_graph`` counts graph replays, whose
+    kernels are counted under their own keys."""
+    return {k: n for k, n in K.photon_step_cuda.launches_by.items()
+            if not k.endswith(K.TAIL_KEY) and k != "round_graph"}
+
+
 def launched_kernels() -> int:
-    return sum(K.photon_step_cuda.launches_by.values())
+    return sum(kernel_counts().values())
 
 
 def step_launches() -> int:
     """Photon-step launches alone (the regeneration kernel's calls are
     counted under ``regenerate/...`` beside them)."""
-    return sum(n for k, n in K.photon_step_cuda.launches_by.items()
+    return sum(n for k, n in kernel_counts().items()
                if not k.startswith("regenerate/"))
 
 
@@ -826,6 +841,118 @@ def regenerate_phase(card, reps: int = 200) -> dict:
             bytes=moved, bound_us=moved / HBM_BYTES_PER_S * 1e6,
             bound_by="bytes", bit_equal=True)
         emit("regenerate", cell=cell, card=card, **rows[cell])
+    return rows
+
+
+class _Kept(Exception):
+    """Ends a run once the launch it was run for is kept."""
+
+
+def kept_launch(fleet, dev):
+    """The arguments of a fleet's batched photon-step launch of round
+    KEEP_ROUND, cloned, without the round's tail and ``inplace``: from an
+    eager run of the fleet (a graphed run calls the step only in round 1
+    and in the capture), ended once the launch is kept."""
+    from repro_torch import scenarios as SC
+    from repro_torch.core import simulator as S
+
+    step_fn, applies, calls, kept = S.photon_steps, S.graph_applies, [], []
+
+    def keep(*args, tail=None, inplace=False, **kw):
+        calls.append(1)
+        if len(calls) == KEEP_ROUND:
+            kept.append((
+                [a.clone() if isinstance(a, torch.Tensor) else a
+                 for a in args],
+                {k: ([t.clone() for t in v] if k == "totals" else
+                     v.clone() if isinstance(v, torch.Tensor) else v)
+                 for k, v in kw.items()}))
+            raise _Kept
+        return step_fn(*args, tail=tail, inplace=inplace, **kw)
+
+    S.photon_steps, S.graph_applies = keep, lambda *a: False
+    try:
+        SC.simulate_many(fleet, n_lanes=SCENARIO_LANES, device=dev,
+                         cache=SC.CompileCache())
+    except _Kept:
+        pass
+    finally:
+        S.photon_steps, S.graph_applies = step_fn, applies
+    check(bool(kept), f"the fleet ended before round {KEEP_ROUND}")
+    return kept[0]
+
+
+def tail_phase(card, reps: int = 20) -> dict:
+    """The step kernel's launch with and without the round's tail
+    (``photon_step.RoundTail``), at the K1 base row's shape (B1 60^3, a
+    mid-run state of 262144 lanes, K=16, ``kernel_timing.mid_run_state``)
+    and at the det/x8 row's (the optode sweep's batched launch of round
+    KEEP_ROUND, its inputs kept from an eager run of the fleet): the
+    tail held equal to the plain version's tail on the launch's own
+    outputs; device ms a launch of each (CUDA events behind a spin
+    kernel, adding into scratch totals) and the µs the tail adds.
+    Returns each row."""
+    from repro_torch import scenarios as SC
+    from repro_torch.core import volume as V
+    from repro_torch.kernels.photon_step import ref as R
+    from repro_torch.launch import simulate as launch
+    from repro_torch.launch.kernel_timing import mid_run_state
+
+    dev = torch.device("cuda")
+    i64 = dict(dtype=torch.int64, device=dev)
+    cases = {}
+    vol, cfg = launch.get_bench("B1", SIZE, dev)
+    cfg = dataclasses.replace(cfg, steps_per_round=K_MAIN)
+    st, _ = mid_run_state(vol, cfg)
+    cases["K1 base"] = ((vol.labels.reshape(-1), vol.media, st, vol.shape,
+                         1.0, cfg, K_MAIN), {})
+    # the optode sweep's launch of round KEEP_ROUND, from an eager run
+    vol_b2 = V.benchmark_b2((SIZE,) * 3)
+    cfg_sweep = dataclasses.replace(V.b2_config(), steps_per_round=K_MAIN,
+                                    n_time_gates=NTG_DETECT,
+                                    tmax_ns=TMAX_DETECT)
+    fleet = [SC.Scenario(vol_b2, cfg_sweep, SCENARIO_PHOTONS, seed=SEED,
+                         source={"type": "disk",
+                                 "pos": [16.0 + 2.0 * i, 30.0, 0.0],
+                                 "radius": 2.0}, detectors=DETECTORS,
+                         id_offset=i * SCENARIO_PHOTONS)
+             for i in range(SCENARIOS)]
+    cases["K2 det/x8"] = kept_launch(fleet, dev)
+    rows = {}
+    for name, (args, kw) in cases.items():
+        n_sc = args[1].shape[0] if args[1].ndim == 3 else 1
+
+        def scratch():
+            out = dict(kw)
+            if "totals" in kw:
+                out["totals"] = [t.clone() for t in kw["totals"]]
+            return out
+
+        remaining = torch.full((n_sc,), PHOTONS, **i64)
+        tail = K.round_tail(torch.zeros((n_sc,), **i64),
+                            torch.zeros((n_sc,), **i64), remaining)
+        got = K.photon_step_cuda(*args, **scratch(), tail=tail)
+        plain = K.photon_step_cuda(*args, **scratch())
+        want = K.round_tail(torch.zeros((n_sc,), **i64),
+                            torch.zeros((n_sc,), **i64), remaining)
+        R.round_tail_ref(want, plain[3], plain[4], plain[0].alive)
+        K.check_errors(dev)
+        for x, y in zip(got[0], plain[0]):
+            check(torch.equal(x, y), f"tail {name}: the lane state differs")
+        for field, x, y in zip(K.RoundTail._fields, tail, want):
+            check(torch.equal(x, y), f"tail {name}: {field} differs from "
+                  f"the plain version's tail")
+        totals = scratch()
+        ms = time_cuda(lambda: K.photon_step_cuda(*args, **totals), reps)
+        ms_tail = time_cuda(lambda: K.photon_step_cuda(*args, **totals,
+                                                       tail=tail), reps)
+        rows[name] = dict(variant=K.variant_name(
+            K.group_mask(n_det=len(DETECTORS) if "ppath" in kw else 0),
+            args[5]) + (f"/x{n_sc}" if n_sc > 1 else ""),
+            lanes=args[2].w.numel(),
+            k=K_MAIN, ms=ms, ms_tail=ms_tail,
+            tail_us=(ms_tail - ms) * 1e3, tail_equal_to_plain=True)
+        emit("tail", row=name, card=card, **rows[name])
     return rows
 
 
@@ -1106,7 +1233,7 @@ def multidevice_phase(card, main_b2, fleet, fleet_alone, records, replay,
     K.reset_launches()
     shards, wall = timed(lambda: mixed_fn(counts, offsets, SEED))
     mixed_launches = launched("mixed fleet")
-    host_launches = {k: n for k, n in K.photon_step_cuda.launches_by.items()
+    host_launches = {k: n for k, n in kernel_counts().items()
                      if k.startswith("host/")}
     check(sum(host_launches.values()) > 0,
           "mixed fleet: the CPU's share never launched the host kernel")
@@ -1683,6 +1810,9 @@ def main() -> None:
     # --- regenerate: the regeneration kernel at the cells' shapes -----------
     regen_rows = regenerate_phase(card)
 
+    # --- tail: the step launch with and without the round's tail ------------
+    tail_rows = tail_phase(card)
+
     # --- main path ------------------------------------------------------------
     launches = {}
     main_runs = {}
@@ -1708,6 +1838,9 @@ def main() -> None:
         check(regen == issued_rounds(rounds), f"{regen} regeneration "
               f"calls for {rounds} rounds")
         regen_calls += regen
+        tails = K.photon_step_cuda.launches_by[K.TAIL_KEY]
+        check(tails == issued_rounds(rounds), f"{tails} launches with the "
+              f"round's tail for {rounds} rounds")
         check(bool(torch.isfinite(res.energy).all())
               and tuple(res.energy.shape) == shape, "energy grid malformed")
         extra = {}
@@ -1721,7 +1854,7 @@ def main() -> None:
         launches[bench] = n
         emit("main", bench=bench, photons=PHOTONS, lanes=LANES, k=K_MAIN,
              seconds=wall, photons_per_ms=PHOTONS / wall / 1e3,
-             rounds=rounds, kernel_launches=n,
+             rounds=rounds, kernel_launches=n, tail_launches=tails,
              kernel_share_of_wall=n * timed[bench]["ms"] / (wall * 1e3),
              absorbed=bal["absorbed"], escaped=bal["escaped"],
              timed_out=bal["timed_out"], residue_frac=bal["residue_frac"],
@@ -1778,6 +1911,9 @@ def main() -> None:
     fwd_variant = K.variant_name(DET | RECORD | STATS, cfg_detect)
     check(by_variant[fwd_variant] == issued_rounds(rounds),
           f"{by_variant[fwd_variant]} forward launches for {rounds} rounds")
+    check(by_variant.get(K.TAIL_KEY, 0) == issued_rounds(rounds),
+          f"{by_variant.get(K.TAIL_KEY, 0)} launches with the round's tail "
+          f"for {rounds} rounds")
     emit("detect", argv=DETECT_ARGV, seconds=wall,
          forward_seconds=run.seconds,
          photons_per_ms=PHOTONS / run.seconds / 1e3,
@@ -2066,41 +2202,26 @@ def main() -> None:
     tracer = T.Tracer(sinks=[T.InMemorySink()])
     cache = SC.CompileCache()
     captured = {}
-    step_fn = S.photon_steps
-
-    def keep_round(*args, **kw):
-        """The simulator's photon-step call, keeping the inputs of one
-        mid-run batched launch (round KEEP_ROUND) of each fleet."""
-        keep_round.calls += 1
-        if keep_round.calls == KEEP_ROUND:
-            captured[keep_round.fleet] = (
-                [a.clone() if isinstance(a, torch.Tensor) else a
-                 for a in args],
-                {k: ([t.clone() for t in v] if k == "totals" else v)
-                 for k, v in kw.items()})
-        return step_fn(*args, **kw)
-
     scen_rows = {}
     alone_runs = {}
     for fleet_name, (fleet, groups) in fleets.items():
-        keep_round.calls, keep_round.fleet = 0, fleet_name
-        S.photon_steps = keep_round
+        captured[fleet_name] = kept_launch(fleet, dev)
         K.reset_launches()
-        try:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            many = SC.simulate_many(fleet, n_lanes=SCENARIO_LANES, device=dev,
-                                    cache=cache, tracer=tracer)
-            torch.cuda.synchronize()
-            batched_s = time.perf_counter() - t0
-        finally:
-            S.photon_steps = step_fn
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        many = SC.simulate_many(fleet, n_lanes=SCENARIO_LANES, device=dev,
+                                cache=cache, tracer=tracer)
+        torch.cuda.synchronize()
+        batched_s = time.perf_counter() - t0
         batched_launches = dict(K.photon_step_cuda.launches_by)
         variant = K.variant_name(groups, fleet[0].cfg)
         rounds = max(r.steps for r in many) // K_MAIN
         src_cls = type(SRC.as_source(fleet[0].source))
-        check(batched_launches == {f"{variant}/x{SCENARIOS}": rounds,
-                                   RG.source_key(src_cls, SCENARIOS): rounds},
+        issued = issued_rounds(rounds)
+        check(batched_launches == {f"{variant}/x{SCENARIOS}": issued,
+                                   RG.source_key(src_cls, SCENARIOS): issued,
+                                   K.TAIL_KEY: issued, "round_graph":
+                                   issued - 1},
               f"{fleet_name}: batched launches {batched_launches} for "
               f"{rounds} rounds")
         K.reset_launches()
@@ -2179,18 +2300,25 @@ def main() -> None:
         host_loop_ms = time_cuda(
             lambda: K.photon_step_cuda(*args, **kw, totals=scratch), 20,
             backlog=False)
+        tail = K.round_tail(*(torch.zeros((SCENARIOS,), dtype=torch.int64,
+                                          device=dev) for _ in range(2)),
+                            torch.full((SCENARIOS,), SCENARIO_PHOTONS,
+                                       dtype=torch.int64, device=dev))
+        ms_tail = time_cuda(lambda: K.photon_step_cuda(
+            *args, **kw, totals=scratch, tail=tail), 20)
         plain_ms = time_cuda(lambda: photon_steps_ref(*args, **kw), 1)
         bound = group_bound(groups, lanes, live, captures,
                             args[5].n_time_gates, n_det if groups & DET else 0,
                             n_media, 0, spec.STATE_LANE_BYTES_PORT,
                             scenarios=SCENARIOS, grid_bytes=moved)
         scen_rows[fleet_name].update(
-            ms=ms, host_loop_ms=host_loop_ms, plain_ms=plain_ms,
-            max_abs_err=diffs["max_abs_err"], **bound)
+            ms=ms, ms_tail=ms_tail, host_loop_ms=host_loop_ms,
+            plain_ms=plain_ms, max_abs_err=diffs["max_abs_err"], **bound)
         emit("scenarios", fleet=fleet_name, launch=f"round {KEEP_ROUND}",
              variant=f"{scen_rows[fleet_name]['variant']}/x{SCENARIOS}",
-             lanes=lanes, k=K_MAIN, ms=ms, host_loop_ms=host_loop_ms,
-             plain_ms=plain_ms, live_segments=live, captures=captures,
+             lanes=lanes, k=K_MAIN, ms=ms, ms_tail=ms_tail,
+             host_loop_ms=host_loop_ms, plain_ms=plain_ms,
+             live_segments=live, captures=captures,
              cells_touched=touched, **bound, **diffs)
 
     # --- host: the CPU device's kernel against the plain version -------------
@@ -2228,6 +2356,11 @@ def main() -> None:
         "max_abs_err": max(t["max_abs_err"] for t in timed.values()),
         "max_rel_diff": max(t["max_rel_diff"] for t in timed.values()),
         "ms": per_launch(lambda t: t["ms"]),
+        # the main path's launches do the round's tail too: B1's launch
+        # with and without it (the tail phase's K1 base row)
+        "ms_tail_b1": tail_rows["K1 base"]["ms_tail"],
+        "ms_no_tail_b1": tail_rows["K1 base"]["ms"],
+        "ms_is": "launches without the round's tail",
         "host_loop_ms": per_launch(lambda t: t["host_loop_ms"]),
         "plain_ms": per_launch(lambda t: t["plain_ms"]),
         "bound_ms": bound[bound_by], "bound_by": bound_by,
@@ -2263,7 +2396,8 @@ def main() -> None:
         "variant": f"{row['variant']}/x{SCENARIOS}",
         "path": f"scenarios: {fleet_name}", "scenarios": SCENARIOS,
         "launches": row["launches"], "max_abs_err": row["max_abs_err"],
-        "ms": row["ms"], "host_loop_ms": row["host_loop_ms"],
+        "ms": row["ms"], "ms_tail": row["ms_tail"],
+        "host_loop_ms": row["host_loop_ms"],
         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": None}
         for fleet_name, row in scen_rows.items()] + [{

@@ -50,9 +50,14 @@ The loop reads
 the host once every ``ROUNDS_PER_READ`` rounds, for its condition:
 each round leaves on the device whether any scenario has work left,
 and the record cursor, the overflow count and the counters stay there
-too.  With the regeneration kernel on the card a round is a fixed
-chain of launches, so the loop captures it once a run as a CUDA graph
-and replays it between reads (``graph_applies``).  Photon ids are
+too.  The photon-step call does the round's tail itself
+(``photon_step.RoundTail``): it adds the round's escaped and timed-out
+weight into the run's totals, counts the round of each scenario that
+had work and sets the flags the host reads, in the kernel's epilogue on
+the card and in the host kernel's wrapper on the CPU.  With the regeneration
+kernel on the card a round is a fixed chain of launches, so the loop
+captures it once a run as a CUDA graph and replays it between reads
+(``graph_applies``).  Photon ids are
 64-bit, carried as (lo, hi) 32-bit words with the carry propagated, so
 campaigns beyond 2**32 photons keep distinct RNG streams.
 
@@ -91,7 +96,8 @@ from repro_torch.kernels.photon_step import spec
 from repro_torch.kernels.photon_step.ops import photon_steps, resolve_device
 from repro_torch.kernels.photon_step.photon_step import (add_launches,
                                                          check_errors,
-                                                         deferred_launches)
+                                                         deferred_launches,
+                                                         round_tail)
 from repro_torch.kernels.photon_step.regenerate import Regeneration, supports
 from repro_torch.sources import PhotonSource, as_source
 from repro_torch.sources.base import StagedSampler, staged_tensors
@@ -306,7 +312,7 @@ def _append_records(rec, rec_n, overflow, lane_ids, capd, capg,
 # relaunches, dead lanes deposit nothing, the round is not counted) and
 # costs ~0.05 ms of device time at the cells' 262144 lanes (the step's
 # dead warps draw their uniforms and leave, three regeneration launches,
-# the small totals): at most ~0.75 ms against the 600-1000 rounds of
+# the tail in the step): at most ~0.75 ms against the 600-1000 rounds of
 # ~0.16 ms of a 10^7-photon solution.  Each read leaves the device idle
 # while the host reads the flag and issues the next replay, once in R
 # rounds: ~40-60 reads a solution.
@@ -495,11 +501,16 @@ def build_round_loop(shape: tuple[int, int, int], unitinmm: float,
         # overflowing record writes
         rec = torch.zeros((S, capacity + 1 if record else 0, 4), **i64)
         lane_ids = torch.zeros((N, 2), **i64) if record else None
-        rounds = torch.zeros((S,), **i64)
+        # the round's tail, which each photon-step call updates: the
+        # escaped and timed-out totals, each scenario's rounds with work,
         # which scenarios have work at the start of the next round, and
-        # whether any has: the flag the host reads
-        work = torch.zeros((S,), dtype=torch.bool, device=dev)
-        more = torch.zeros((), dtype=torch.bool, device=dev)
+        # whether any has (the flag the host reads).  Before round 1
+        # every lane is dead, so a scenario has work while its budget
+        # lasts (in static mode too: the quotas sum to the budget, and
+        # both regenerations subtract every relaunch from it).
+        tail = round_tail(acc.escaped, acc.timed_out, remaining)
+        torch.gt(remaining, 0, out=tail.work)
+        torch.any(tail.work, out=tail.more)
         # on the card, a staged source regenerates in one kernel call a
         # round; elsewhere in PyTorch operations, with the same bits
         regen = (Regeneration if supports(sample, dev) else PlainRegeneration)(
@@ -507,34 +518,24 @@ def build_round_loop(shape: tuple[int, int, int], unitinmm: float,
             seed_col, n_media if n_det else 0, lane_ids)
         graphed = graph_applies(dev, regen)
 
-        def find_work():
-            alive = state.alive.view(S, n_lanes)
-            if mode == "dynamic":
-                torch.logical_or(alive.any(1), remaining > 0, out=work)
-            else:
-                torch.any(alive | (launched < quota), 1, out=work)
-            torch.any(work, out=more)
-
         def one_round():
             with phase(cap, "round.regenerate", dev):
                 new_id = regen(state, next_id, ppath)
             with phase(cap, "round.step", dev):
                 # the graph steps the run's buffers in place, its addresses
                 # being fixed; an eager round takes the state the step
-                # returns (a copy onto itself does nothing)
+                # returns (a copy onto itself does nothing).  A scenario
+                # with no work left is frozen: it relaunches nothing, its
+                # lanes are dead, and the tail counts no more rounds of it
                 outs = photon_steps(labels, media, state, shape, unitinmm,
                                     cfg, K, ppath=ppath, det_geom=det_geom,
                                     record=record, stats=collect,
-                                    totals=grids, inplace=graphed)
-                for buf, new in zip(state, outs[0]):
+                                    totals=grids, inplace=graphed,
+                                    tail=tail)
+                new_state, _, _, _, _ = outs[:5]
+                for buf, new in zip(state, new_state):
                     buf.copy_(new)
             with phase(cap, "round.totals", dev):
-                # a scenario with no work left is frozen: it relaunches
-                # nothing, its lanes are dead, and its rounds stop here
-                rounds.add_(work.to(torch.int64))
-                _, _, _, esc, timed = outs[:5]
-                acc.escaped.add_(_total_rows(esc, S))
-                acc.timed_out.add_(_total_rows(timed, S))
                 cur = 5
                 if n_det:
                     ppath.copy_(outs[cur])
@@ -553,9 +554,7 @@ def build_round_loop(shape: tuple[int, int, int], unitinmm: float,
                     counters["live_segments"].add_(outs[cur][:, 0].to(
                         torch.int64).view(S, n_lanes).sum(1))
                 ids.copy_(regen.next_out)
-                find_work()
 
-        find_work()
         issued = reads = replays = 0
         graph = None
         # a replay launches on the current stream of the current device
@@ -563,7 +562,7 @@ def build_round_loop(shape: tuple[int, int, int], unitinmm: float,
             while issued < max_rounds:
                 reads += 1
                 with phase(cap, "round.host_read", dev):
-                    if not bool(more):  # reprolint: disable=REP401 - the loop's one host read, once every ROUNDS_PER_READ rounds
+                    if not bool(tail.more):  # reprolint: disable=REP401 - the loop's one host read, once every ROUNDS_PER_READ rounds
                         break
                     if cancel is not None and cancel.is_set():
                         raise RunCancelled(f"run cancelled after "
@@ -596,8 +595,8 @@ def build_round_loop(shape: tuple[int, int, int], unitinmm: float,
             if dev.type == "cuda":
                 check_errors(dev)
             if collect:
-                counters["rounds"].copy_(rounds)
-                counters["lane_segments"].copy_(rounds * (K * n_lanes))
+                counters["rounds"].copy_(tail.rounds)
+                counters["lane_segments"].copy_(tail.rounds * (K * n_lanes))
             # launches per run stay < 2**31, so the low-word difference is
             # the exact count even across a 2**32 boundary
             fixed = acc._replace(
@@ -605,7 +604,7 @@ def build_round_loop(shape: tuple[int, int, int], unitinmm: float,
                 det_rec=rec[:, :capacity])
             out = [FixedResult(*(x[i] if isinstance(x, torch.Tensor) else x
                                  for x in fixed))._replace(steps=steps)
-                   for i, steps in enumerate((rounds * K).tolist())]
+                   for i, steps in enumerate((tail.rounds * K).tolist())]
             return out, reads, replays
 
     return fn

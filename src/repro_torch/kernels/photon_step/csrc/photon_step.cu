@@ -57,6 +57,14 @@
 //     (cudaMemsetAsync on the stream), so the wrapper issues one call;
 //     with add_into the fixed-point grids are the caller's run totals,
 //     which the launch adds into (the simulator issues no grid sums).
+//   - The round's tail in the epilogue.  Given the round loop's tail
+//     buffers (RoundTail in photon_step.py), the launch does what the
+//     loop did after it with ~18 PyTorch launches a round: each block
+//     sums its lanes' escaped and timed-out weight in int64 fixed point
+//     and adds the sums into the run's per-scenario totals, and the last
+//     block to finish counts the round and sets the work flags the host
+//     reads (round_tail below).  The per-lane escaped and timed-out
+//     outputs are then not written.
 //   - Kept: one thread per lane, 256 threads a block, the state in
 //     registers for all K segments.  The measurements that decided:
 //     512- or 1024-thread blocks, 512/2048/4096 cache slots, the media
@@ -138,6 +146,7 @@ constexpr float kZExitFace = 0.25f;
 // launch_plan passes the same number and the block count).
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+static_assert(kWarps >= 3, "the round's tail takes a thread of three warps");
 // Deposit cache: kCacheSlots (key, sum) pairs in each block's shared
 // memory, direct-mapped by a multiplicative hash of the cell.
 constexpr int kCacheLog2 = 10;
@@ -150,6 +159,11 @@ constexpr int kEmpty = -1;
 constexpr float kWeightScale = 68719476736.0f;  // 2^36
 constexpr float kPathScale = 268435456.0f;      // 2^28
 constexpr float kJacScale = 68719476736.0f;     // 2^36, weight * mm
+// Fixed point of the run's escaped and timed-out totals: 2^24 units of
+// weight (spec.TOTAL_SHIFT).
+constexpr float kTotalScale = 16777216.0f;      // 2^24
+// Pointers of the round's tail (RoundTail in photon_step.py).
+constexpr int kTailWords = 7;
 // One deposit holds fewer than 2^44 units (256 weight, 65536 weight *
 // mm): a block's cached sum of at most 256 lanes x 4095 segments of
 // them stays below 2^64, so its sign shows a pass of 2^63.
@@ -189,6 +203,19 @@ struct Groups {
   int n_det, n_media, jac_cols;
 };
 
+// The round's tail (RoundTail in photon_step.py), all null when the
+// caller gives none: the run's per-scenario buffers, in place.
+struct Tail {
+  u64* escaped;                // (S) 2^-24 weight units, added into
+  u64* timed;                  // (S) 2^-24 weight units, added into
+  long long* rounds;           // (S) rounds in which the scenario had work
+  uint8_t* work;               // (S) work left after this round
+  uint8_t* more;               // () any scenario's work: what the host reads
+  const long long* remaining;  // (S) budgets after this round's relaunch
+  unsigned* flags;             // (S + 1) any lane alive, then the ticket;
+                               // zero between launches
+};
+
 // Inputs, base outputs and scalars of one launch.
 struct Args {
   const uint8_t* labels;    // (nvox), or (S, nvox) with labels_stride nvox
@@ -211,13 +238,21 @@ struct Args {
   uint8_t* alive_out;
   u64* fluence;      // (S, nvox * ntg), 2^-36 weight units
   u64* exitance;     // (S, nx * ny), 2^-36 weight units
-  float* esc_out;
-  float* timed_out;
+  float* esc_out;    // null with the tail
+  float* timed_out;  // null with the tail
   int* errors;       // kErrJacCol | kErrOverflow, ORed in
   long long labels_stride;
   int n, nx, ny, nz, n_steps, ntg, general_exact;
   float unit, gate_scale, tmax, w_threshold, roulette_m, roulette_p;
   Groups grp;
+  Tail tail;
+};
+
+// What a lane leaves for the round's tail: its weight escaped and timed
+// out in the launch, and whether it is alive at the end.
+struct LaneEnd {
+  float esc, timed;
+  bool alive;
 };
 
 struct Rng {
@@ -291,7 +326,7 @@ __device__ __forceinline__ void cache_add(int* s_key, u64* s_val, int key,
 // deposits go through the block's cache: fluence cell c under key c,
 // exitance bin b under key nvox * ntg + b, both of the block's scenario.
 template <bool DO_REFLECT, bool TAYLOR>
-__device__ __forceinline__ void run_lane(const Args& A, const int sc,
+__device__ __forceinline__ LaneEnd run_lane(const Args& A, const int sc,
                                          const long long lane, int* s_key,
                                          u64* s_val) {
   // --- LANE: the lane's state in, once a launch ---
@@ -609,8 +644,10 @@ __device__ __forceinline__ void run_lane(const Args& A, const int sc,
   A.rng_out[4 * lane + 2] = (int64_t)r.z;
   A.rng_out[4 * lane + 3] = (int64_t)r.w;
   A.alive_out[lane] = alive ? 1 : 0;
-  A.esc_out[lane] = esc_acc;
-  A.timed_out[lane] = timed_acc;
+  if (A.tail.escaped == nullptr) {
+    A.esc_out[lane] = esc_acc;
+    A.timed_out[lane] = timed_acc;
+  }
   if (kRecord) {
     grp.cap_det[lane] = cap_det;
     grp.cap_gate[lane] = cap_gate;
@@ -619,12 +656,78 @@ __device__ __forceinline__ void run_lane(const Args& A, const int sc,
     grp.stats[2 * lane + 0] = st_live;
     grp.stats[2 * lane + 1] = st_dep;
   }
+  return {esc_acc, timed_acc, alive};
+}
+
+// --- TAIL: the round's totals, round count and work flags ---
+// Each lane's escaped and timed-out weight is rounded once to 2^-24
+// units (to_fixed, as the plain version's to_fixed rounds it), summed
+// over the block in int64 (warp shuffles, then shared memory) and added
+// into its scenario's totals with one checked integer atomic a block and
+// total, so the totals are the same in any order.  Whether any lane of
+// the block is alive is ORed into the scenario's flag word.  Three
+// threads of three warps issue these at once, so that the block's end
+// waits for one chain of atomics, not for three (the totals' adds are
+// not fenced: no block reads them).  The last block to finish (a ticket
+// taken after a fence: the CUDA samples' threadFenceReduction) then,
+// for each scenario, counts the round where
+// the scenario had work before it, sets its work from its flag and its
+// remaining budget (a static-mode lane below its quota is budget left:
+// both regenerations subtract every relaunch from it), sets `more` from
+// them all, and clears the flags and the ticket for the next launch.
+__device__ __forceinline__ void round_tail(const Args& A, const int sc,
+                                           const LaneEnd& end, u64* s_sum,
+                                           int* s_last) {
+  const Tail& T = A.tail;
+  const int tid = threadIdx.x, wid = tid >> 5, lid = tid & 31;
+  const int scenarios = gridDim.y;
+  u64 e = to_fixed(end.esc, kTotalScale, A.errors);
+  u64 t = to_fixed(end.timed, kTotalScale, A.errors);
+#pragma unroll
+  for (int dl = 16; dl > 0; dl >>= 1) {
+    e += __shfl_down_sync(0xffffffffu, e, dl);
+    t += __shfl_down_sync(0xffffffffu, t, dl);
+  }
+  if (lid == 0) {
+    s_sum[wid] = e;
+    s_sum[kWarps + wid] = t;
+  }
+  const int alive = __syncthreads_or(end.alive);
+  if (tid == 0) {
+    if (alive) atomicOr(T.flags + sc, 1u);
+    __threadfence();
+    const unsigned blocks = gridDim.x * gridDim.y;
+    s_last[0] = atomicAdd(T.flags + scenarios, 1u) == blocks - 1u;
+  } else if (tid == 32 || tid == 64) {
+    // warp 1 adds the escaped total, warp 2 the timed-out one
+    const int first = tid == 32 ? 0 : kWarps;
+    u64 sum = 0ull;
+    for (int k = 0; k < kWarps; ++k) sum += s_sum[first + k];
+    if (sum != 0ull)
+      add_fixed((tid == 32 ? T.escaped : T.timed) + sc, sum, A.errors);
+  }
+  __syncthreads();
+  if (!s_last[0]) return;
+  bool any = false;
+  for (int s = tid; s < scenarios; s += kThreads) {
+    const bool alive_s = atomicExch(T.flags + s, 0u) != 0u;
+    if (T.work[s]) T.rounds[s] += 1;
+    const bool w = alive_s || T.remaining[s] > 0;
+    T.work[s] = w ? 1 : 0;
+    any = any || w;
+  }
+  any = __syncthreads_or(any);
+  if (tid == 0) {
+    *T.more = any ? 1 : 0;
+    T.flags[scenarios] = 0u;
+  }
 }
 
 // One block, of one scenario (blockIdx.y): its lanes reordered so that
 // those alive at launch come first (each keeps its own arithmetic; only
 // the thread that runs it changes), K segments of each, then the block's
-// deposit cache added to the scenario's grids in device memory.
+// deposit cache added to the scenario's grids in device memory, then,
+// given the tail, the block's share of the round's tail.
 template <bool DO_REFLECT, bool TAYLOR>
 __global__ void __launch_bounds__(kThreads)
     photon_step_kernel(const __grid_constant__ Args A) {
@@ -633,6 +736,8 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ u64 s_val[kCacheSlots];
   __shared__ int s_order[kThreads];
   __shared__ int s_warp_live[kWarps];
+  __shared__ u64 s_tail[2 * kWarps];
+  __shared__ int s_last[1];
   for (int i = threadIdx.x; i < kCacheSlots; i += kThreads) {
     s_key[i] = kEmpty;
     s_val[i] = 0ull;
@@ -657,8 +762,9 @@ __global__ void __launch_bounds__(kThreads)
   s_order[live ? live_below : n_live + tid - live_below] = tid;
   __syncthreads();
   const int local = first + s_order[tid];
+  LaneEnd end = {0.f, 0.f, false};
   if (local < A.n)
-    run_lane<DO_REFLECT, TAYLOR>(A, sc, base + local, s_key, s_val);
+    end = run_lane<DO_REFLECT, TAYLOR>(A, sc, base + local, s_key, s_val);
   // --- FLUSH: the block's cached sums into device memory ---
   __syncthreads();
   const int n_flu = A.nx * A.ny * A.nz * A.ntg;
@@ -671,6 +777,7 @@ __global__ void __launch_bounds__(kThreads)
       add_fixed(key < n_flu ? fluence + key : exitance + (key - n_flu), u,
                 A.errors);
   }
+  if (A.tail.escaped != nullptr) round_tail(A, sc, end, s_tail, s_last);
 }
 
 template <bool DO_REFLECT, bool TAYLOR>
@@ -700,9 +807,15 @@ cudaError_t launch(const Args& a, int blocks, int scenarios,
 // Returns the cudaError_t of the memsets and the launch (0 on success),
 // or cudaErrorInvalidValue when ``groups`` is not the set this library
 // was built for, ``threads`` is not its block size, ``blocks`` do not
-// cover the lanes or ``scenarios`` is outside [1, 65535].  n is the
-// lane count of one scenario and blocks the blocks of one scenario;
-// lane arrays hold scenarios * n lanes, scenario-major.
+// cover the lanes, ``scenarios`` is outside [1, 65535] or a tail comes
+// with no lane.  n is the lane count of one scenario and blocks the
+// blocks of one scenario; lane arrays hold scenarios * n lanes,
+// scenario-major.
+// ``tail`` is null, or the round's tail, kTailWords pointers: escaped,
+// timed_out, rounds, work, more, remaining, flags (photon_step.py
+// RoundTail, in that order).  Given one, the launch updates it
+// (round_tail) and writes no per-lane escaped or timed weight: those out
+// slots may be null.
 // The out state arrays (and ppath) may be the in ones, as the round
 // loop passes them when it replays a captured round: each lane is read
 // by the thread that runs it before that thread writes it, and a block
@@ -712,14 +825,14 @@ cudaError_t launch(const Args& a, int blocks, int scenarios,
 // writes, are read through __ldg.
 extern "C" int photon_step_launch(const void* const* in, void* const* out,
                                   const int* ints, const float* floats,
-                                  void* stream) {
+                                  void* const* tail, void* stream) {
   const int n = ints[0], groups = ints[9], n_det = ints[10],
             n_media = ints[11], jac_cols = ints[12], scenarios = ints[13],
             labels_stride = ints[14], add_into = ints[15],
             threads = ints[16], blocks = ints[17];
   if (groups != PS_GROUPS || threads != kThreads ||
       (long long)blocks * kThreads < n || (n > 0 && blocks <= 0) ||
-      scenarios < 1 || scenarios > 65535)
+      scenarios < 1 || scenarios > 65535 || (tail != nullptr && n <= 0))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const size_t nvox = (size_t)ints[1] * ints[2] * ints[3];
@@ -785,6 +898,15 @@ extern "C" int photon_step_launch(const void* const* in, void* const* out,
   grp.n_det = n_det;
   grp.n_media = n_media;
   grp.jac_cols = jac_cols;
+  if (tail != nullptr) {
+    a.tail.escaped = (u64*)tail[0];
+    a.tail.timed = (u64*)tail[1];
+    a.tail.rounds = (long long*)tail[2];
+    a.tail.work = (uint8_t*)tail[3];
+    a.tail.more = (uint8_t*)tail[4];
+    a.tail.remaining = (const long long*)tail[5];
+    a.tail.flags = (unsigned*)tail[6];
+  }
 
   const size_t sc = (size_t)scenarios;
   const struct { void* p; size_t bytes; } zero[] = {
@@ -814,9 +936,11 @@ extern "C" int photon_step_launch(const void* const* in, void* const* out,
 extern "C" int photon_step_groups() { return PS_GROUPS; }
 
 // The kernel's compile-time launch constants, which the wrapper checks
-// against its own: threads a block, deposit-cache slots.
+// against its own: threads a block, deposit-cache slots, pointers of the
+// round's tail.
 extern "C" int photon_step_threads() { return kThreads; }
 extern "C" int photon_step_cache_slots() { return kCacheSlots; }
+extern "C" int photon_step_tail_words() { return kTailWords; }
 
 extern "C" const char* photon_step_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

@@ -55,14 +55,17 @@ def photon_steps(labels_flat, media, state, shape, unitinmm, cfg: SimConfig,
                  n_steps: int, ppath=None, det_geom=None,
                  record: bool = False, jac_w=None, jac_col=None,
                  jac_cols: int = 0, stats: bool = False, totals=None,
-                 inplace: bool = False):
+                 inplace: bool = False, tail=None):
     """Returns ``(new_state, fluence, exitance, escaped_per_lane,
     timed_per_lane)`` and the optional output groups the arguments ask
     for (see ``ref.photon_steps_ref``: int64 fixed-point grids, added
     into ``totals`` when given, and a leading scenario axis for a
     ``(S, n_media, 4)`` media table): the CUDA kernel for CUDA tensors,
     the host kernel for CPU tensors.  ``inplace`` writes the new state
-    and ``ppath`` over the inputs."""
+    and ``ppath`` over the inputs.  ``tail`` (a
+    ``photon_step.RoundTail``) has the launch do the round's tail: the
+    escaped and timed-out weights go into its totals, and their slots
+    are None."""
     dev = state.w.device
     if dev.type == "cuda":
         fn = photon_step_cuda
@@ -73,7 +76,7 @@ def photon_steps(labels_flat, media, state, shape, unitinmm, cfg: SimConfig,
     return fn(labels_flat, media, state, shape, unitinmm, cfg, n_steps,
               ppath=ppath, det_geom=det_geom, record=record, jac_w=jac_w,
               jac_col=jac_col, jac_cols=jac_cols, stats=stats,
-              totals=totals, inplace=inplace)
+              totals=totals, inplace=inplace, tail=tail)
 
 
 def launch_ids(n: int, id_offset: int, device) -> xrng.PhotonId:

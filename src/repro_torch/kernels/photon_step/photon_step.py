@@ -29,9 +29,12 @@ itself, or adds into the caller's ``totals``), packs the entry point's
 arrays (``pack``), launches on PyTorch's current stream, and raises
 ``KernelError`` if the launch fails (as the build and load do).  ``check_errors`` raises for what a launch flagged on
 the device (a Jacobian column out of range, a fixed-point overflow).
+Given the round loop's :class:`RoundTail` (``tail=``), a launch also
+does the round's tail in its epilogue: the escaped and timed-out totals,
+the round count and the work flags.
 ``photon_step_cuda.launches_by`` counts its launches by
 ``variant_name``, with ``/xS`` appended for a launch of S > 1
-scenarios.
+scenarios, and those given a tail once more under ``TAIL_KEY``.
 
 Each device of a multi-device run has a process of its own
 (``core.procs``): two processes that build one group mask at once take
@@ -57,6 +60,7 @@ import shutil
 import subprocess
 import threading
 import time
+from typing import NamedTuple
 
 import torch
 
@@ -231,7 +235,7 @@ def _library(groups: int) -> ctypes.CDLL:
 
 def _load_library(groups: int) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build_library(groups)))
-    lib.photon_step_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_void_p]
+    lib.photon_step_launch.argtypes = [ctypes.c_void_p] * 6
     lib.photon_step_launch.restype = ctypes.c_int
     lib.photon_step_error_string.argtypes = [ctypes.c_int]
     lib.photon_step_error_string.restype = ctypes.c_char_p
@@ -239,13 +243,14 @@ def _load_library(groups: int) -> ctypes.CDLL:
     if lib.photon_step_groups() != groups:
         raise KernelError(f"{library_path(groups).name} was built for "
                           f"groups {lib.photon_step_groups()}, not {groups}")
-    built = (lib.photon_step_threads(), lib.photon_step_cache_slots())
-    if built != (THREADS, CACHE_SLOTS):
+    built = (lib.photon_step_threads(), lib.photon_step_cache_slots(),
+             lib.photon_step_tail_words())
+    if built != (THREADS, CACHE_SLOTS, len(RoundTail._fields)):
         raise KernelError(f"{library_path(groups).name} has launch "
                           f"constants {built}, the wrapper "
-                          f"{(THREADS, CACHE_SLOTS)}")
+                          f"{(THREADS, CACHE_SLOTS, len(RoundTail._fields))}")
     try:
-        spec.check_shared(*built)
+        spec.check_shared(*built[:2])
     except ValueError as e:
         raise KernelError(f"{library_path(groups).name}: {e}") from None
     return lib
@@ -271,6 +276,51 @@ CACHE_SLOTS = 1024
 MAX_CELLS = 2**31
 # Scenarios of one launch ride on blockIdx.y.
 MAX_SCENARIOS = 65535
+# The launch-count key of the launches that did the round's tail.
+TAIL_KEY = "photon_step/tail"
+
+
+class RoundTail(NamedTuple):
+    """The round loop's per-run buffers that a photon-step launch given
+    them (``tail=``) updates at its end, in place, for S scenarios: what
+    the loop did after the step with ~18 PyTorch launches a round.  The
+    escaped and timed-out totals gain the launch's per-lane weights, each
+    rounded once to ``2**-spec.TOTAL_SHIFT`` units (as
+    ``core.fixed.to_fixed`` rounds them); ``rounds`` gains 1 where
+    ``work`` held before the launch; then ``work`` is whether a lane of
+    the scenario is alive or its budget ``remaining`` (after this round's
+    relaunch) is positive, and ``more`` whether any ``work`` holds.  The
+    fields are the CUDA entry point's ``tail`` array, in this order."""
+
+    escaped: torch.Tensor    # (S,) int64, 2**-TOTAL_SHIFT weight units
+    timed_out: torch.Tensor  # (S,) int64, 2**-TOTAL_SHIFT weight units
+    rounds: torch.Tensor     # (S,) int64 rounds in which it had work
+    work: torch.Tensor       # (S,) bool work left after the round
+    more: torch.Tensor       # () bool any scenario's work
+    remaining: torch.Tensor  # (S,) int64 photon budgets
+    flags: torch.Tensor      # (S + 1,) int32 scratch, zero between launches
+
+
+def round_tail(escaped, timed_out, remaining) -> RoundTail:
+    """A run's tail on the totals' device: its ``(S,)`` int64 totals and
+    budgets, no round counted, no work and zeroed flags."""
+    S, dev = remaining.shape[0], remaining.device
+    return RoundTail(
+        escaped, timed_out, torch.zeros((S,), dtype=torch.int64, device=dev),
+        torch.zeros((S,), dtype=torch.bool, device=dev),
+        torch.zeros((), dtype=torch.bool, device=dev), remaining,
+        torch.zeros((S + 1,), dtype=torch.int32, device=dev))
+
+
+def _tail_specs(tail: RoundTail, S: int):
+    """``(name, x, dtype, shape)`` of each tensor of a tail."""
+    if not isinstance(tail, RoundTail):
+        raise TypeError(f"tail must be a RoundTail, got "
+                        f"{type(tail).__name__}")
+    dtypes = {"work": torch.bool, "more": torch.bool, "flags": torch.int32}
+    shapes = {"more": (), "flags": (S + 1,)}
+    return [(f"tail.{name}", x, dtypes.get(name, torch.int64),
+             shapes.get(name, (S,))) for name, x in tail._asdict().items()]
 
 
 def _check(name, x, dtype, shape, device):
@@ -318,7 +368,8 @@ def _grid_specs(S, batched, nvox, nxy, ntg, n_det, n_media, jac_cols):
 def prepare(labels_flat, media, state: ph.PhotonState, shape, unitinmm,
             cfg: SimConfig, n_steps: int, ppath=None, det_geom=None,
             record=False, jac_w=None, jac_col=None, jac_cols: int = 0,
-            stats: bool = False, totals=None, inplace: bool = False):
+            stats: bool = False, totals=None, inplace: bool = False,
+            tail: RoundTail | None = None):
     """Check a call's inputs and allocate its outputs on the state's
     device; returns ``(groups, ins, outs, ints, floats)``: the
     tensors, in the order of the C entry point's ``in`` and ``out``
@@ -328,9 +379,11 @@ def prepare(labels_flat, media, state: ph.PhotonState, shape, unitinmm,
     those fixed-point grids are the caller's, which the launch adds into
     and zeroes nothing.  With ``inplace`` the new lane state and
     ``ppath`` are written over the inputs (both kernels read each lane
-    before they write it).  A ``(S, n_media, 4)`` media table makes
-    it a launch of S scenarios (``ref.photon_steps_ref`` gives the
-    shapes)."""
+    before they write it).  With ``tail`` (checked here; ``pack_tail``
+    packs it) the per-lane escaped and timed outputs are None: the
+    launch adds them into the tail's totals instead.  A ``(S, n_media,
+    4)`` media table makes it a launch of S scenarios
+    (``ref.photon_steps_ref`` gives the shapes)."""
     n_det, record, jac_cols = spec.check_groups(ppath, det_geom, record,
                                                 jac_w, jac_col, jac_cols)
     S, batched = spec.scenario_count(media)
@@ -373,6 +426,11 @@ def prepare(labels_flat, media, state: ph.PhotonState, shape, unitinmm,
                              f"{[g for g, _ in grids]}")
         specs += [(f"totals[{name}]", x, torch.int64, shp)
                   for (name, shp), x in zip(grids, totals)]
+    if tail is not None:
+        if n == 0:
+            raise ValueError("a launch given the round's tail needs at "
+                             "least one lane")
+        specs += _tail_specs(tail, S)
     _check_all(specs, dev)
 
     f32 = dict(dtype=torch.float32, device=dev)
@@ -383,8 +441,11 @@ def prepare(labels_flat, media, state: ph.PhotonState, shape, unitinmm,
         for name, shp in grids}
     ins = [labels_flat, media, *state, _error_word(dev)]
     outs = list(state) if inplace else [torch.empty_like(x) for x in state]
-    outs += [fixed["fluence"], fixed["exitance"],
-             torch.empty((n_all,), **f32), torch.empty((n_all,), **f32)]
+    # the per-lane escaped and timed weight, which a tail takes instead
+    esc = timed = None
+    if tail is None:
+        esc, timed = torch.empty((n_all,), **f32), torch.empty((n_all,), **f32)
+    outs += [fixed["fluence"], fixed["exitance"], esc, timed]
     if n_det:
         ins += [ppath, det_geom]
         outs += [ppath if inplace else torch.empty((n_all, n_media), **f32),
@@ -414,22 +475,40 @@ def prepare(labels_flat, media, state: ph.PhotonState, shape, unitinmm,
 
 def pack(ins, outs, ints, floats):
     """The C entry point's four arrays: input and output pointers
-    (uint64), ``ints`` (int32) and ``floats`` (float32)."""
+    (uint64; an output slot of None is a null pointer), ``ints`` (int32)
+    and ``floats`` (float32)."""
     return (array.array("Q", [x.data_ptr() for x in ins]),
-            array.array("Q", [x.data_ptr() for x in outs]),
+            array.array("Q", [0 if x is None else x.data_ptr()
+                              for x in outs]),
             array.array("i", ints), array.array("f", floats))
+
+
+def pack_tail(tail: RoundTail | None):
+    """The CUDA entry point's ``tail`` array (uint64 pointers in
+    ``RoundTail`` order), or None."""
+    return None if tail is None else array.array(
+        "Q", [x.data_ptr() for x in tail])
+
+
+def tail_pointer(packed) -> int | None:
+    """The address of a ``pack_tail`` array, or None (a null
+    pointer)."""
+    return None if packed is None else packed.buffer_info()[0]
 
 
 def photon_step_cuda(labels_flat, media, state: ph.PhotonState, shape,
                      unitinmm, cfg: SimConfig, n_steps: int, ppath=None,
                      det_geom=None, record=False, jac_w=None, jac_col=None,
                      jac_cols: int = 0, stats: bool = False, totals=None,
-                     inplace: bool = False):
+                     inplace: bool = False, tail: RoundTail | None = None):
     """Advance all lanes ``n_steps`` segments on the card; returns what
     ``ref.photon_steps_ref`` returns, output group by output group, the
-    grids bit-equal to it.  ``totals`` and a ``(S, n_media, 4)`` media
-    table (S scenarios) are as there; with ``inplace`` the returned state
-    (and ``ppath``) are the input tensors, rewritten (``prepare``).
+    grids bit-equal to it.  ``totals``, ``tail`` and a ``(S, n_media,
+    4)`` media table (S scenarios) are as there; with ``inplace`` the
+    returned state (and ``ppath``) are the input tensors, rewritten
+    (``prepare``).  Given ``tail`` the launch does the round's tail in
+    its epilogue (:class:`RoundTail`) and the escaped and timed slots
+    of the result are None.
 
     Every tensor must be contiguous on one CUDA device, with the dtypes
     of ``photon.PhotonState`` and labels in ``[0, n_media)`` (the
@@ -446,10 +525,13 @@ def photon_step_cuda(labels_flat, media, state: ph.PhotonState, shape,
         raise ValueError(f"photon_step_cuda needs CUDA tensors, got {dev}")
     groups, ins, outs, ints, floats = prepare(
         labels_flat, media, state, shape, unitinmm, cfg, n_steps, ppath,
-        det_geom, record, jac_w, jac_col, jac_cols, stats, totals, inplace)
+        det_geom, record, jac_w, jac_col, jac_cols, stats, totals, inplace,
+        tail)
     lib = _library(groups)
     arrays = pack(ins, outs, ints, floats)
     ptrs = [a.buffer_info()[0] for a in arrays]
+    packed_tail = pack_tail(tail)
+    ptrs.append(tail_pointer(packed_tail))
     # the current stream's handle without building a Stream object
     # (torch.cuda.current_stream(index).cuda_stream gives the same)
     index = torch.cuda.current_device()
@@ -465,6 +547,8 @@ def photon_step_cuda(labels_flat, media, state: ph.PhotonState, shape,
         raise KernelError(f"photon_step kernel launch failed: {msg} ({err})")
     S = ints[13]
     count_launch(variant_name(groups, cfg) + (f"/x{S}" if S > 1 else ""))
+    if tail is not None:
+        count_launch(TAIL_KEY)
     return (ph.PhotonState(*outs[:len(spec.STATE_FIELDS)]),
             *outs[len(spec.STATE_FIELDS):])
 

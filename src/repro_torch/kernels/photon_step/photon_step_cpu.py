@@ -24,10 +24,13 @@ threads and raises ``KernelError`` when the build, the load or the
 launch fails, and when there is no ``g++``: never the plain version in
 its place.  What a launch flags (a Jacobian column out of range, a
 fixed-point overflow) is raised at once, as ``photon_step.check_errors``
-raises it for a card.  Launches are counted in
-``photon_step_cuda.launches_by`` under ``host_key`` (``host/`` before
-the CUDA variant's name), so the counts of a device's process cover
-both kernels.
+raises it for a card.  Given the round loop's ``RoundTail``, the
+wrapper updates it after the launch with the plain tail
+(``ref.round_tail_ref``), the bits of the card's epilogue.  Launches
+are counted in ``photon_step_cuda.launches_by`` under ``host_key``
+(``host/`` before the CUDA variant's name), those given a tail once
+more under ``host/`` and ``photon_step.TAIL_KEY``, so the counts of a
+device's process cover both kernels.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ import torch
 from repro_torch.core import photon as ph
 from repro_torch.core.volume import SimConfig
 from repro_torch.kernels.photon_step import photon_step as K
+from repro_torch.kernels.photon_step import ref as R
 from repro_torch.kernels.photon_step import spec
 
 _SRC = pathlib.Path(__file__).resolve().parent / "csrc" / "photon_step_cpu.cpp"
@@ -61,6 +65,9 @@ _CAPABILITY_FLAGS = {
     "AVX2": ("-mavx2", "-mfma", "-mf16c"),
 }
 HOST_PREFIX = "host/"
+# The slot of the per-lane escaped weight in a launch's outputs (the
+# timed-out weight follows it).
+_ESC = len(spec.STATE_FIELDS) + spec.BASE_OUTPUTS.index("escaped")
 KernelError = K.KernelError
 
 
@@ -188,14 +195,16 @@ def photon_step_host(labels_flat, media, state: ph.PhotonState, shape,
                      unitinmm, cfg: SimConfig, n_steps: int, ppath=None,
                      det_geom=None, record=False, jac_w=None, jac_col=None,
                      jac_cols: int = 0, stats: bool = False, totals=None,
-                     inplace: bool = False):
+                     inplace: bool = False, tail=None):
     """Advance all lanes ``n_steps`` segments on the host's cores;
     returns what ``ref.photon_steps_ref`` returns, output group by
     output group, bit-equal to it.  The arguments are those of
     ``photon_step.photon_step_cuda``, on the CPU: contiguous tensors of
     ``photon.PhotonState``'s dtypes, labels in ``[0, n_media)``; with
     ``inplace`` the returned state (and ``ppath``) are the input
-    tensors, rewritten.
+    tensors, rewritten; with ``tail`` the round's tail is updated from
+    the launch's per-lane weights (``ref.round_tail_ref``) and the
+    escaped and timed slots are None.
 
     A ``jac_col`` outside ``[0, jac_cols)`` adds nothing for its lane
     and raises ``ValueError`` after the launch; a fixed-point deposit or
@@ -206,7 +215,10 @@ def photon_step_host(labels_flat, media, state: ph.PhotonState, shape,
         raise ValueError(f"photon_step_host needs CPU tensors, got {dev}")
     groups, ins, outs, ints, floats = K.prepare(
         labels_flat, media, state, shape, unitinmm, cfg, n_steps, ppath,
-        det_geom, record, jac_w, jac_col, jac_cols, stats, totals, inplace)
+        det_geom, record, jac_w, jac_col, jac_cols, stats, totals, inplace,
+        tail)
+    if tail is not None:  # the kernel writes the weights the tail sums
+        outs[_ESC:_ESC + 2] = [torch.empty_like(state.w) for _ in range(2)]
     lib = _library()
     arrays = K.pack(ins, outs, ints, floats)
     err = lib.photon_step_cpu_launch(*[a.buffer_info()[0] for a in arrays])
@@ -215,5 +227,10 @@ def photon_step_host(labels_flat, media, state: ph.PhotonState, shape,
         raise KernelError(f"host photon_step launch failed: {msg} ({err})")
     K.count_launch(host_key(groups, cfg, ints[13]))
     K.check_errors(dev)
+    if tail is not None:
+        alive = outs[spec.STATE_FIELDS.index("alive")]
+        R.round_tail_ref(tail, *outs[_ESC:_ESC + 2], alive)
+        outs[_ESC:_ESC + 2] = None, None
+        K.count_launch(HOST_PREFIX + K.TAIL_KEY)
     return (ph.PhotonState(*outs[:len(spec.STATE_FIELDS)]),
             *outs[len(spec.STATE_FIELDS):])

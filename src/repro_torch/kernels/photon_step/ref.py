@@ -28,7 +28,7 @@ import torch
 
 from repro_torch.core import photon as ph
 from repro_torch.core import rng as xrng
-from repro_torch.core.fixed import to_fixed
+from repro_torch.core.fixed import check_range, to_fixed
 from repro_torch.core.volume import SimConfig
 from repro_torch.detectors import accumulate_capture, update_capture
 from repro_torch.kernels.photon_step import spec
@@ -61,7 +61,8 @@ def photon_steps_ref(labels_flat, media, state: ph.PhotonState,
     with ``add_into``.  A ``(S, n_media, 4)`` media table makes the call
     S scenarios of ``n / S`` lanes each, scenario-major: labels are
     ``(nvox,)`` shared or ``(S, nvox)``, ``det_geom`` ``(S, n_det, 3)``,
-    and every grid gains a leading scenario axis.
+    and every grid gains a leading scenario axis.  The kernels' round
+    tail (``tail=``) is :func:`round_tail_ref` on this call's outputs.
     """
     n_det, record, jac_cols = spec.check_groups(ppath, det_geom, record,
                                                 jac_w, jac_col, jac_cols)
@@ -170,3 +171,26 @@ def photon_steps_ref(labels_flat, media, state: ph.PhotonState,
         out = out + (stbl,)
     assert len(out) == spec.output_arity(n_det, record, jac_cols, stats)
     return out
+
+
+def round_tail_ref(tail, esc, timed, alive) -> None:
+    """The round's tail of a launch (``photon_step.RoundTail``) in
+    PyTorch operations, in place: the per-lane escaped and timed-out
+    weights ``esc`` and ``timed`` rounded once to ``2**-TOTAL_SHIFT``
+    units and added into each scenario's totals, the round counted where
+    the scenario had work, then its work (a lane ``alive`` after the
+    launch, or budget left) and ``more``.  The CUDA kernel does this in
+    its epilogue with the same bits, and the host kernel's wrapper calls
+    this.  A weight of ``spec.DEPOSIT_LIMIT`` units or more raises
+    ``OverflowError`` before anything is added, a total past
+    ``2**63 - 1`` units after."""
+    S = tail.rounds.shape[0]
+    units = [to_fixed(x, spec.TOTAL_SHIFT).view(S, -1).sum(1)
+             for x in (esc, timed)]
+    tail.escaped.add_(units[0])
+    tail.timed_out.add_(units[1])
+    check_range((tail.escaped, tail.timed_out))
+    tail.rounds.add_(tail.work.to(torch.int64))
+    torch.logical_or(alive.view(S, -1).any(1), tail.remaining > 0,
+                     out=tail.work)
+    torch.any(tail.work, out=tail.more)

@@ -16,7 +16,10 @@ prints one JSON line with the rounds, the untraced and the traced wall
 time, and for each group of device work (the photon-step kernel, every
 other kernel, memory copies and sets) its launches per round and device
 milliseconds, and the untraced run's photon-step launches by kernel
-variant (``photon_step_variants``).  ``idle_frac`` is the share of the
+variant (``photon_step_variants``), with its graph replays
+(``round_graph``) and the launches that did the round's tail in the
+step's epilogue (``tail_launches``, one a round issued) beside them.
+``idle_frac`` is the share of the
 traced wall time in which no device work ran, from the union of the
 trace's device intervals; tracing slows the host, so it overstates the
 untraced run's idle share.  ``idle_by_span`` charges each idle stretch
@@ -255,6 +258,8 @@ def main(argv=None) -> dict:
            "lanes": args.lanes, "k": cfg.steps_per_round, "rounds": rounds,
            "ntg": cfg.n_time_gates, "n_det": len(detectors or ()),
            "photon_step_variants": variants,
+           "round_graph": variants.get("round_graph", 0),
+           "tail_launches": variants.get(K.TAIL_KEY, 0),
            "untraced_wall_ms": untraced_ms, "wall_ms": wall_us / 1e3,
            "device_busy_ms": busy / 1e3,
            "idle_frac": 1.0 - busy / wall_us, "groups": groups,

@@ -93,16 +93,18 @@ def ablated_library(name: str, groups: int) -> ctypes.CDLL:
         raise RuntimeError(f"nvcc failed for ablation {name}:\n{out.stdout}"
                            f"{out.stderr}")
     lib = ctypes.CDLL(str(so))
-    lib.photon_step_launch.argtypes = [ctypes.c_void_p] * 5
+    lib.photon_step_launch.argtypes = [ctypes.c_void_p] * 6
     lib.photon_step_launch.restype = ctypes.c_int
     return lib
 
 
 def launch_with(lib, args, kw) -> None:
-    """One launch of ``lib``'s entry point on the wrapper's arguments."""
+    """One launch of ``lib``'s entry point on the wrapper's arguments,
+    with no round tail (a null ``tail``)."""
     _, ins, outs, ints, floats = K.prepare(*args, **kw)
     arrays = K.pack(ins, outs, ints, floats)
     err = lib.photon_step_launch(*[a.buffer_info()[0] for a in arrays],
+                                 None,
                                  torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"launch failed ({err})")

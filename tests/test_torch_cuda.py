@@ -48,6 +48,14 @@ loses its CPU worker moves that worker's chunks to the card; a pool
 whose card worker cannot build its kernel (in that worker's process)
 fails instead of moving the work to the CPU; and two threads launching on one card at once each see
 only their own error flags.
+
+The round's tail in the step kernel's epilogue (``RoundTail``): launch
+after launch it leaves the totals, round counts and work flags of the
+plain version's tail, over one and eight scenarios and many blocks; a
+run whose rounds are graphed with it gives the bits of the plain path
+(``PlainRegeneration``, eager rounds, the tail in PyTorch operations)
+for b1-, b2.sweep- and skinvessel-shaped runs; and its range check on
+the totals fires on a planted weight.
 """
 
 import collections
@@ -67,6 +75,7 @@ from repro_torch.core import volume as V  # noqa: E402
 from repro_torch.detectors import as_detectors, det_geometry  # noqa: E402
 from repro_torch.kernels.photon_step import ops  # noqa: E402
 from repro_torch.kernels.photon_step import photon_step as kernel  # noqa: E402
+from repro_torch.kernels.photon_step import ref as R  # noqa: E402
 from repro_torch.kernels.photon_step.ref import photon_steps_ref  # noqa: E402
 from repro_torch.replay import detected_records, replay_jacobian  # noqa: E402
 
@@ -1127,3 +1136,178 @@ def test_profiler_sees_the_round_graphs_kernels(cuda_device):
     assert run.args["replays"] == replays == launches["round_graph"]
     assert replays == issued - 1 and replays >= 0.95 * rounds
     assert run.args["host_reads"] <= rounds / every + 2
+
+
+# ---------------------------------------------------------------------------
+# the round's tail in the step kernel's epilogue
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["mid-run", "all die"])
+@pytest.mark.parametrize("S_,n", [(1, 300), (8, 300), (8, 40_000)])
+def test_the_kernels_tail_matches_the_plain_tail(cuda_device, S_, n, case):
+    """Two launches in a row given a tail (the second reads the flags
+    and ticket the first cleared) leave the escaped and timed-out totals,
+    the round counts, the work flags and ``more`` that the plain
+    version's tail leaves (``_total_rows`` of its per-lane weights, the
+    rounds where work held, a lane alive or budget left), with the lane
+    state and grids of a launch without one; 300 lanes a scenario is no
+    multiple of the block size, 8 x 40000 lanes 1256 blocks."""
+    g = torch.Generator().manual_seed(S_ + n)
+    vol = V.benchmark_b2(SHAPE, cuda_device)
+    cfg = dataclasses.replace(V.b2_config(), n_time_gates=3,
+                              tmax_ns=0.5 if case == "mid-run" else 1e-4)
+    disk = {"type": "disk", "pos": [12.0, 10.0, 0.0], "radius": 3}
+    state = ops.fresh_state(vol, S_ * n, seed=S_, source=disk)
+    state = state._replace(alive=(torch.rand(S_ * n, generator=g)
+                                  < 0.67).to(cuda_device))
+    media = vol.media[None].repeat(S_, 1, 1).contiguous()
+    remaining = torch.randint(0, 40, (S_,), generator=g)
+    remaining[1::3] = 0
+
+    def tail_on(dev):
+        h = torch.Generator().manual_seed(1)
+        t = kernel.round_tail(torch.randint(0, 2**40, (S_,), generator=h),
+                              torch.randint(0, 2**40, (S_,), generator=h),
+                              remaining.clone())
+        t.work.copy_(torch.rand(S_, generator=h) < 0.7)
+        return kernel.RoundTail(*(x.to(dev) for x in t))
+
+    got, want = tail_on(cuda_device), tail_on(cuda_device)
+    st_got = st_want = state
+    for _ in range(2):
+        args = (vol.labels.reshape(-1), media)
+        rest = (SHAPE, 1.0, cfg, 4)
+        plain = kernel.photon_step_cuda(*args, st_want, *rest)
+        R.round_tail_ref(want, plain[3], plain[4], plain[0].alive)
+        outs = kernel.photon_step_cuda(*args, st_got, *rest, tail=got)
+        assert outs[3] is None and outs[4] is None
+        for x, y in zip(outs[0], plain[0]):
+            assert torch.equal(x, y)
+        assert torch.equal(outs[1], plain[1])
+        assert torch.equal(outs[2], plain[2])
+        for name, x, y in zip(kernel.RoundTail._fields, got, want):
+            assert torch.equal(x, y), name
+        st_got, st_want = outs[0], plain[0]
+    kernel.check_errors(cuda_device)
+    assert bool(want.more) == bool(want.work.any())
+    if case == "all die":
+        assert not bool(st_want.alive.any())
+        assert torch.equal(want.work, want.remaining > 0)
+
+
+def _plain_tail_path(monkeypatch):
+    """The loop's plain path: ``PlainRegeneration`` in eager rounds (no
+    graph), and each photon step given no tail, its tail done after it in
+    PyTorch operations (``ref.round_tail_ref``)."""
+    step = S.photon_steps
+
+    def step_then_tail(*args, tail=None, **kw):
+        outs = step(*args, **kw)
+        R.round_tail_ref(tail, outs[3], outs[4], outs[0].alive)
+        return outs
+
+    monkeypatch.setattr(S, "supports", lambda *a: False)
+    monkeypatch.setattr(S, "photon_steps", step_then_tail)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["b1", "sweep", "skinvessel"])
+def test_graphed_runs_with_the_fused_tail_give_the_plain_paths_bits(
+        cuda_device, case, monkeypatch):
+    """A run on the card (the regeneration kernel, the round a CUDA
+    graph, the tail in the step's epilogue, counted once a round issued
+    under ``TAIL_KEY``) gives every ``FixedResult`` field of the plain
+    path's run bit for bit: a B1 pencil run whose ids cross 2**32, a
+    b2.sweep-shaped fleet of 8 disks with 3 detectors and 50 gates in
+    one batch, and a skin-vessel-shaped run (five media, 5 um voxels, a
+    disk beam to 50 ns)."""
+    from repro_torch import scenarios as SC
+
+    def run():
+        kernel.reset_launches()
+        if case == "b1":
+            vol = V.benchmark_b1(SHAPE)
+            cfg = dataclasses.replace(V.b1_config(), steps_per_round=16)
+            out = [S.simulate_fixed(vol, cfg, 30_000, 4096, seed=2**31 + 1,
+                                    source=SRC, device=cuda_device,
+                                    id_offset=2**32 - 7_000)]
+        elif case == "sweep":
+            vol = V.benchmark_b2((30, 30, 30))
+            cfg = dataclasses.replace(V.b2_config(), steps_per_round=16,
+                                      n_time_gates=50, tmax_ns=5.0)
+            fleet = _fleet(vol, cfg, 4000, [
+                {"type": "disk", "pos": [8.0 + 2 * k, 15.0, 0.0],
+                 "radius": 2} for k in range(8)],
+                [(18.0, 15.0, 2.0), (21.0, 15.0, 2.0), (24.0, 15.0, 2.0)])
+            out = SC.simulate_many(fleet, n_lanes=1024, device=cuda_device,
+                                   cache=SC.CompileCache())
+        else:
+            vol = V.volume_from_shapes(
+                [{"Grid": {"Tag": 1, "Size": [24, 24, 24]}},
+                 {"ZLayers": [[1, 3, 1], [4, 5, 4], [6, 24, 3]]},
+                 {"Cylinder": {"Tag": 2, "C0": [0, 12.5, 12.5],
+                               "C1": [24, 12.5, 12.5], "R": 3}}],
+                list(V.SKINVESSEL_MEDIA), V.SKINVESSEL_UNITINMM)
+            cfg = dataclasses.replace(V.skinvessel_config(),
+                                      steps_per_round=16)
+            out = [S.simulate_fixed(
+                vol, cfg, 20_000, 4096, seed=2**31 + 3,
+                source={"type": "disk", "pos": [12.0, 12.0, 3.0],
+                        "dir": [0.0, 0.0, 1.0], "radius": 6.0},
+                device=cuda_device, id_offset=2**32 - 9_000)]
+        torch.cuda.synchronize()
+        return out, collections.Counter(kernel.photon_step_cuda.launches_by)
+
+    got, graphed = run()
+    issued = sum(v for key, v in graphed.items()
+                 if key.startswith(("noreflect/", "reflect/")))
+    assert graphed["round_graph"] == issued - 1 > 0
+    assert graphed[kernel.TAIL_KEY] == issued
+    _plain_tail_path(monkeypatch)
+    want, plain = run()
+    assert plain["round_graph"] == plain[kernel.TAIL_KEY] == 0
+    for a, b in zip(got, want):
+        for name, x, y in zip(a._fields, a, b):
+            if isinstance(x, torch.Tensor):
+                assert torch.equal(x, y), name
+            else:
+                assert x == y, name
+
+
+@pytest.mark.cuda
+def test_the_kernels_tail_range_check_fires(cuda_device):
+    """A lane of weight 1e7 timed out in a medium that absorbs nothing
+    (so no deposit is out of range) holds 2**44 units of the totals: the
+    tail adds nothing for it and flags the launch, which
+    ``check_errors`` raises; the same launch without a tail flags
+    nothing.  A total pushed past 2**63 - 1 is flagged too."""
+    vol = V.benchmark_b1(SHAPE, cuda_device)
+    media = vol.media.clone()
+    media[:, 0] = 0.0
+    cfg = dataclasses.replace(V.b1_config(), tmax_ns=1.0)
+    n = 4096
+    state = ops.fresh_state(vol, n, seed=3, source=SRC)
+    lane5 = torch.arange(n, device=cuda_device) == 5
+    heavy = state._replace(
+        w=torch.where(lane5, torch.full_like(state.w, 1e7), state.w),
+        t=torch.where(lane5, torch.full_like(state.t, 2.0), state.t))
+    args = (vol.labels.reshape(-1), media[None], heavy, SHAPE, 1.0, cfg, 1)
+    kernel.check_errors(cuda_device)  # no flag left from earlier launches
+    out = kernel.photon_step_cuda(*args)
+    assert float(out[4][5]) == 1e7
+    kernel.check_errors(cuda_device)
+    zero = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+    tail = kernel.round_tail(zero.clone(), zero.clone(), zero.clone())
+    kernel.photon_step_cuda(*args, tail=tail)
+    with pytest.raises(OverflowError):
+        kernel.check_errors(cuda_device)
+    assert int(tail.timed_out) == 0
+    full = kernel.round_tail(zero.clone(),
+                             torch.full_like(zero, 2**63 - 1), zero.clone())
+    kernel.photon_step_cuda(vol.labels.reshape(-1), media[None], state,
+                            SHAPE, 1.0, dataclasses.replace(cfg, tmax_ns=1e-4),
+                            1, tail=full)
+    with pytest.raises(OverflowError):
+        kernel.check_errors(cuda_device)

@@ -169,6 +169,58 @@ def test_pack_gives_the_entry_point_its_four_arrays():
     assert list(p_floats) == list(array.array("f", floats))
 
 
+def _documented_tail() -> list[str]:
+    """The names of the ``tail`` array in the CUDA entry point's
+    comment."""
+    text = K._SRC.read_text()
+    doc = text[:text.index('extern "C" int photon_step_launch')]
+    doc = doc[doc.rindex("// Plain C entry point"):]
+    doc = " ".join(ln.strip().lstrip("/").strip() for ln in doc.splitlines())
+    part = doc[doc.index("``tail`` is null"):]
+    part = part[part.index(":") + 1:part.index(".")]
+    return re.findall(r"[a-z_]+", part.split("(")[0])
+
+
+def test_prepare_and_pack_give_the_round_tail_as_documented():
+    """The CUDA entry point documents its ``tail`` array as
+    ``RoundTail``'s fields in order, the kernel's ``kTailWords`` counts
+    them, ``pack_tail`` packs their pointers in that order, and a call
+    given a tail has null per-lane escaped and timed slots (the launch
+    adds them into the tail instead); ``prepare`` checks the tail's
+    tensors and refuses it on a launch of no lane."""
+    fields = list(K.RoundTail._fields)
+    assert _documented_tail() == fields
+    assert re.search(rf"kTailWords = {len(fields)};", K._SRC.read_text())
+    _, _, _, kw, args = _call(groups=("det",))
+    i64 = dict(dtype=torch.int64)
+    tail = K.round_tail(torch.zeros(1, **i64), torch.zeros(1, **i64),
+                        torch.ones(1, **i64))
+    assert [(x.dtype, tuple(x.shape)) for x in tail] == [
+        (torch.int64, (1,)), (torch.int64, (1,)), (torch.int64, (1,)),
+        (torch.bool, (1,)), (torch.bool, ()), (torch.int64, (1,)),
+        (torch.int32, (2,))]
+    _, ins, outs, ints, floats = K.prepare(*args, **kw, tail=tail)
+    assert outs[10] is None and outs[11] is None
+    assert all(x is not None for i, x in enumerate(outs) if i not in (10, 11))
+    p_out = K.pack(ins, outs, ints, floats)[1]
+    assert p_out[10] == p_out[11] == 0
+    packed = K.pack_tail(tail)
+    assert list(packed) == [x.data_ptr() for x in tail]
+    assert K.tail_pointer(packed) == packed.buffer_info()[0]
+    assert K.pack_tail(None) is None and K.tail_pointer(None) is None
+    with pytest.raises(TypeError, match="tail.work has dtype"):
+        K.prepare(*args, **kw, tail=tail._replace(
+            work=torch.zeros(1, dtype=torch.uint8)))
+    with pytest.raises(ValueError, match="tail.flags has shape"):
+        K.prepare(*args, **kw, tail=tail._replace(
+            flags=torch.zeros(1, dtype=torch.int32)))
+    with pytest.raises(TypeError, match="RoundTail"):
+        K.prepare(*args, **kw, tail=tuple(tail))
+    _, _, _, _, none = _call(groups=(), n=0)
+    with pytest.raises(ValueError, match="at least one lane"):
+        K.prepare(*none, tail=tail)
+
+
 @pytest.mark.parametrize("n_media", [3, 6, 40])
 def test_prepare_sizes_ppath_by_the_media_table(n_media):
     _, _, _, kw, args = _call(groups=("det",), n_media=n_media)

@@ -12,7 +12,16 @@ work; the ``max_steps`` cap cuts the last batch of rounds; a cancel is
 seen at the first read.  On the CPU every round is issued eagerly: no
 graph is captured or replayed.  R is a constant of the code; the tests
 set other values of it to hold the semantics against R = 1 (a read
-before every round).  No JAX is imported here.
+before every round).
+
+The round's tail is done by the photon-step call given the run's
+``RoundTail``: the host kernel leaves the totals, the round counts, the
+work flags and the flag the host reads as the loop's PyTorch operations
+left them (``_total_rows`` and its work test, static mode's quota test
+included), for one and eight scenarios, a lane count that is no multiple
+of 256 and a round in which every lane dies; in static mode a lane below
+its quota is budget left, round after round, which is why the tail
+needs no static test of its own.  No JAX is imported here.
 """
 
 import dataclasses
@@ -29,7 +38,9 @@ from repro_torch import telemetry as T  # noqa: E402
 from repro_torch.core import simulator as S  # noqa: E402
 from repro_torch.core import volume as V  # noqa: E402
 from repro_torch.detectors import as_detectors, det_geometry  # noqa: E402
+from repro_torch.kernels.photon_step import ops  # noqa: E402
 from repro_torch.kernels.photon_step import photon_step as K  # noqa: E402
+from repro_torch.kernels.photon_step import ref as R  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SHAPE = (16, 16, 16)
@@ -161,7 +172,7 @@ def test_cpu_runs_replay_no_graph(monkeypatch):
     """Under a capture the ``run`` span counts its reads and no replay;
     no round graph is counted in ``launches_by``, and every round issued
     (the rounds with work, then no-op ones up to the next read) is an
-    eager round of the host kernel."""
+    eager round of the host kernel, which did the round's tail."""
     T.capture_tracer().events.clear()
     K.reset_launches()
     try:
@@ -179,10 +190,12 @@ def test_cpu_runs_replay_no_graph(monkeypatch):
         assert len([e for e in events if e.name == "round.step"]) == (
             batches * 4)
         assert K.photon_step_cuda.launches_by["round_graph"] == 0
+        tail = "host/" + K.TAIL_KEY
         host = [k for k in K.photon_step_cuda.launches_by
-                if k.startswith("host/")]
+                if k.startswith("host/") and k != tail]
         assert len(host) == 1
         assert K.photon_step_cuda.launches_by[host[0]] == batches * 4
+        assert K.photon_step_cuda.launches_by[tail] == batches * 4
     finally:
         T.capture_tracer().events.clear()
 
@@ -200,3 +213,179 @@ def test_a_cancel_set_before_the_run_stops_it_at_the_first_read(
     with pytest.raises(S.RunCancelled, match="after 0 steps"):
         run(vol.labels.reshape(-1), vol.media, 700, 3, cancel=cancel)
     assert calls == []
+
+
+# ---------------------------------------------------------------------------
+# the round's tail, done by the photon-step call
+# ---------------------------------------------------------------------------
+
+TAIL_LANES = 300  # a scenario's lanes: no multiple of the card's 256
+
+
+def _tail_case(S_, mode, case, seed):
+    """A round's inputs: an ``(S_ * TAIL_LANES)``-lane state (a third of
+    its lanes dead; for ``"all die"`` and ``"run ends"`` every live lane
+    times out in the round), a media table of S_ rows, and a tail
+    part-way through a run with its mode's budgets (static: the
+    remaining quotas; none left anywhere for ``"run ends"``).  Returns
+    ``(args, tail, launched, quota)``."""
+    g = torch.Generator().manual_seed(seed)
+    vol = V.benchmark_b2(SHAPE)
+    cfg = dataclasses.replace(_cfg(k=4), tmax_ns=0.5 if case == "mid-run"
+                              else 1e-4)
+    n_all = S_ * TAIL_LANES
+    state = ops.fresh_state(vol, n_all, seed=seed, source=DISK)
+    state = state._replace(alive=torch.rand(n_all, generator=g) < 0.67)
+    media = vol.media[None].repeat(S_, 1, 1).contiguous()
+    args = (vol.labels.reshape(-1), media, state, SHAPE, 1.0, cfg, 4)
+    # static mode: each lane's quota as the loop splits a budget, some
+    # lanes a launch short of it; the budget left is what they lack
+    photons = torch.randint(0, 3 * TAIL_LANES, (S_,), generator=g)
+    lane = torch.arange(TAIL_LANES)
+    quota = photons[:, None] // TAIL_LANES + (
+        lane[None] < (photons % TAIL_LANES)[:, None]).to(torch.int64)
+    short = torch.rand((S_, TAIL_LANES), generator=g) < 0.02
+    if case == "run ends":
+        short[:] = False  # no budget left anywhere
+    short[1::3] = False  # scenarios with no budget left
+    launched = quota - (short & (quota > 0)).to(torch.int64)
+    remaining = (quota - launched).sum(1)
+    if mode == "dynamic" and case != "run ends":
+        remaining = torch.randint(0, 40, (S_,), generator=g)
+        remaining[1::3] = 0
+    tail = K.round_tail(torch.randint(0, 2**40, (S_,), generator=g),
+                        torch.randint(0, 2**40, (S_,), generator=g),
+                        remaining)
+    tail.rounds.copy_(torch.randint(0, 500, (S_,), generator=g))
+    tail.work.copy_(torch.rand(S_, generator=g) < 0.7)
+    return args, tail, launched, quota
+
+
+def _tail_as_the_loop_did(tail, outs, mode, launched, quota):
+    """The tail as the round loop computed it after the step, in PyTorch
+    operations: ``_total_rows`` of the per-lane weights, the rounds of
+    the scenarios that had work, then each mode's work test."""
+    S_ = tail.rounds.shape[0]
+    alive = outs[0].alive.view(S_, -1)
+    if mode == "dynamic":
+        work = alive.any(1) | (tail.remaining > 0)
+    else:
+        work = (alive | (launched < quota)).any(1)
+    return K.RoundTail(
+        escaped=tail.escaped + S._total_rows(outs[3], S_),
+        timed_out=tail.timed_out + S._total_rows(outs[4], S_),
+        rounds=tail.rounds + tail.work.to(torch.int64), work=work,
+        more=work.any(), remaining=tail.remaining,
+        flags=torch.zeros_like(tail.flags))
+
+
+@pytest.mark.parametrize("case", ["mid-run", "all die", "run ends"])
+@pytest.mark.parametrize("mode", ["dynamic", "static"])
+@pytest.mark.parametrize("S_", [1, 8])
+def test_the_steps_tail_leaves_what_the_loop_computed(S_, mode, case):
+    """The host kernel given the run's tail leaves the escaped and
+    timed-out totals, the round counts, the work flags and ``more``
+    equal to what the loop's ``_total_rows`` and work test gave on the
+    same state (static mode's test by quota included), clears its
+    flags, writes no per-lane weights, and changes no other output; the
+    plain version's tail (``ref.round_tail_ref``) gives the same."""
+    args, tail, launched, quota = _tail_case(S_, mode, case, seed=S_ + 7)
+    plain = ops.photon_steps(*args)
+    want = _tail_as_the_loop_did(tail, plain, mode, launched, quota)
+    ref_tail = K.RoundTail(*(x.clone() for x in tail))
+    K.reset_launches()
+    got = ops.photon_steps(*args, tail=tail)
+    assert K.photon_step_cuda.launches_by["host/" + K.TAIL_KEY] == 1
+    assert got[3] is None and got[4] is None
+    for x, y in zip(got[0], plain[0]):
+        assert torch.equal(x, y)
+    assert torch.equal(got[1], plain[1]) and torch.equal(got[2], plain[2])
+    if case != "mid-run":
+        assert bool(plain[0].alive.any()) is False
+        assert torch.equal(tail.work, tail.remaining > 0)
+        assert bool(tail.more) == bool((tail.remaining > 0).any())
+        assert case == "all die" or not bool(tail.more)
+    assert bool(tail.more) == bool(tail.work.any())
+    for name, x, y in zip(K.RoundTail._fields, tail, want):
+        assert torch.equal(x, y), name
+    R.round_tail_ref(ref_tail, plain[3], plain[4], plain[0].alive)
+    for name, x, y in zip(K.RoundTail._fields, ref_tail, want):
+        assert torch.equal(x, y), name
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_in_static_mode_a_lane_below_its_quota_is_budget_left(seed):
+    """Over random budgets and lane counts of 1 to 4 scenarios in static
+    mode, after every regeneration ``any(launched < quota, 1)`` equals
+    ``remaining > 0`` (``PlainRegeneration`` subtracts each relaunch from
+    the budget, as the regeneration kernel does, and the quotas sum to
+    it), so the work test of the round's tail (a lane alive, or budget
+    left) is the loop's static test (a lane alive or below its quota),
+    round after round until the run ends."""
+    g = torch.Generator().manual_seed(seed)
+    S_ = int(torch.randint(1, 5, (), generator=g))
+    n = int(torch.randint(1, 700, (), generator=g))
+    photons = torch.randint(0, 4 * n, (S_,), generator=g)
+    vol = V.benchmark_b2(SHAPE)
+    lane = torch.arange(n)
+    quota = photons[:, None] // n + (
+        lane[None] < (photons % n)[:, None]).to(torch.int64)
+    remaining = photons.clone()
+    launched = torch.zeros((S_, n), dtype=torch.int64)
+    launched_w = torch.zeros((S_,), dtype=torch.int64)
+    seeds = torch.arange(S_, dtype=torch.int64)[:, None] + seed
+    sample = S.source_sampler(DISK, "cpu")
+    regen = S.PlainRegeneration(
+        lambda ids, sd: tuple(x.expand((S_,) + x.shape[1:]) if S_ > 1 else x
+                              for x in sample(ids, sd[:1])),
+        "static", vol.shape, remaining, launched, quota, launched_w, seeds)
+    state = ops.fresh_state(vol, S_ * n, source=DISK)._replace(
+        alive=torch.zeros(S_ * n, dtype=torch.bool))
+    next_id = (torch.zeros(S_, dtype=torch.int64),
+               torch.zeros(S_, dtype=torch.int64))
+    tail = K.round_tail(torch.zeros(S_, dtype=torch.int64),
+                        torch.zeros(S_, dtype=torch.int64), remaining)
+    zeros = torch.zeros(S_ * n)
+    for _ in range(200):
+        next_id = tuple(x.clone() for x in regen(state, next_id))
+        assert torch.equal((launched < quota).any(1), remaining > 0)
+        # a step: each live lane dies with chance 0.4
+        state.alive.logical_and_(torch.rand(S_ * n, generator=g) < 0.6)
+        R.round_tail_ref(tail, zeros, zeros, state.alive)
+        assert torch.equal(tail.work, (state.alive.view(S_, n)
+                                       | (launched < quota)).any(1))
+        if not bool(tail.more):
+            break
+    else:
+        raise AssertionError("the run did not end in 200 rounds")
+    assert torch.equal(launched, quota) and int(remaining.sum()) == 0
+
+
+def test_the_tails_range_check_fires_on_the_host():
+    """A weight of 2**44 units of the totals (here a lane of weight 1e7
+    timed out, in a medium that absorbs nothing, so no deposit is out of
+    range) adds nothing to the totals and raises, as the card's kernel
+    flags it; without the tail the same launch raises nothing.  A total
+    pushed past 2**63 - 1 raises too."""
+    vol = V.benchmark_b1(SHAPE)
+    media = vol.media.clone()
+    media[:, 0] = 0.0
+    cfg = dataclasses.replace(V.b1_config(), tmax_ns=1.0)
+    state = ops.fresh_state(vol, 64, seed=3)
+    heavy = state._replace(
+        w=torch.where(torch.arange(64) == 5, torch.tensor(1e7), state.w),
+        t=torch.where(torch.arange(64) == 5, torch.tensor(2.0), state.t))
+    args = (vol.labels.reshape(-1), media[None], heavy, SHAPE, 1.0, cfg, 1)
+    out = ops.photon_steps(*args)
+    assert float(out[4][5]) == 1e7
+    zero = torch.zeros(1, dtype=torch.int64)
+    tail = K.round_tail(zero.clone(), zero.clone(), zero.clone())
+    with pytest.raises(OverflowError):
+        ops.photon_steps(*args, tail=tail)
+    assert int(tail.timed_out) == 0
+    full = K.round_tail(zero.clone(), torch.full((1,), 2**63 - 1),
+                        zero.clone())
+    args = (vol.labels.reshape(-1), media[None], state, SHAPE, 1.0,
+            dataclasses.replace(cfg, tmax_ns=1e-4), 1)
+    with pytest.raises(OverflowError):
+        ops.photon_steps(*args, tail=full)
