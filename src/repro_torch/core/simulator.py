@@ -400,10 +400,12 @@ def build_round_loop(shape: tuple[int, int, int], unitinmm: float,
 
     Under a ``torch.profiler`` capture (read once a call) the call is a
     ``run`` span of the process-wide tracer (``telemetry.capture_tracer``;
-    args photons, scenarios, lanes, K, rounds, host_reads and replays)
-    holding ``round.host_read`` at each read, ``round.regenerate``,
+    args photons, scenarios, lanes, K, rounds, host_reads and replays,
+    and with records ``records`` kept and ``record_overflow``) holding
+    ``round.host_read`` at each read, ``round.regenerate``,
     ``round.step`` (the host side of the photon-step call) and
-    ``round.totals`` for each round issued eagerly and for the capture,
+    ``round.totals`` (with records, ``round.records`` inside it, around
+    the append) for each round issued eagerly and for the capture,
     ``round.replay`` around each graph launch, then ``run.finish``
     (everything after the loop).  None of them synchronises the device.
     """
@@ -441,6 +443,10 @@ def build_round_loop(shape: tuple[int, int, int], unitinmm: float,
             out, reads, replays = loop(cap, *args)
             span.note(rounds=max(f.steps for f in out) // K,
                       host_reads=reads, replays=replays)
+            if record:
+                span.note(records=sum(int(f.det_rec_n) for f in out),
+                          record_overflow=sum(int(f.det_rec_overflow)
+                                              for f in out))
         return out
 
     def loop(cap, labels, media, det_geom, n_photons, seeds, id_lo, id_hi,
@@ -541,9 +547,10 @@ def build_round_loop(shape: tuple[int, int, int], unitinmm: float,
                     ppath.copy_(outs[cur])
                     cur += 3
                 if record:
-                    _append_records(rec, acc.det_rec_n, acc.det_rec_overflow,
-                                    lane_ids, outs[cur], outs[cur + 1],
-                                    capacity)
+                    with phase(cap, "round.records", dev):
+                        _append_records(rec, acc.det_rec_n,
+                                        acc.det_rec_overflow, lane_ids,
+                                        outs[cur], outs[cur + 1], capacity)
                     cur += 2
                 if collect:
                     # launches per round stay < 2**31, so the low-word

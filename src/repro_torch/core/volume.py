@@ -20,6 +20,13 @@ And MCX's skin-vessel example (``example/skinvessel``; mcxlab's
 200^3 voxels of 5 um built from MCX shapes (``core/shapes.py``), a
 water layer over epidermis over dermis, crossed by a blood vessel along
 x; a disk beam, no reflection, one gate to 50 ns.
+
+And the five-layer adult head of the fNIRS literature (Okada & Delpy,
+Appl. Opt. 42(16):2906, 2003): scalp, skull, CSF, gray and white matter
+as z slabs of 1 mm voxels, with the 830 nm media MCX runs on its colin27
+atlas (Fang & Boas, Opt. Express 17(22):20178, 2009), probed in the time
+domain by a pencil beam and four detectors 10-40 mm away, with Fresnel
+reflection, 50 gates to 5 ns and detected-photon records.
 """
 
 from __future__ import annotations
@@ -181,6 +188,38 @@ def benchmark_skinvessel(device="cpu") -> Volume:
                               SKINVESSEL_UNITINMM, device)
 
 
+# Okada & Delpy's five-layer head at 830 nm (MCX's colin27 media): tags 1
+# scalp, 2 skull, 3 CSF, 4 gray matter, 5 white matter
+HEAD5_MEDIA = (
+    AIR,
+    Medium(mua=0.019, mus=7.8, g=0.89, n=1.37),
+    Medium(mua=0.019, mus=7.8, g=0.89, n=1.37),
+    Medium(mua=0.004, mus=0.009, g=0.89, n=1.37),
+    Medium(mua=0.02, mus=9.0, g=0.89, n=1.37),
+    Medium(mua=0.08, mus=40.9, g=0.84, n=1.37),
+)
+# white matter to the floor, then scalp 3 mm, skull 7, CSF 2, gray matter 4
+HEAD5_SHAPES = (
+    {"Grid": {"Tag": 5, "Size": [120, 120, 60]}},
+    {"ZLayers": [[1, 3, 1], [4, 10, 2], [11, 12, 3], [13, 16, 4]]},
+)
+HEAD5_UNITINMM = 1.0
+# the probe on the scalp (voxel units): a pencil beam at (60, 60, 0) and
+# four detector disks of radius 2 mm at 10, 20, 30 and 40 mm from it
+HEAD5_SOURCE = {"type": "pencil", "pos": [60.0, 60.0, 0.0],
+                "dir": [0.0, 0.0, 1.0]}
+HEAD5_DETECTORS = tuple({"x": 60 + d, "y": 60, "radius": 2}
+                        for d in (10, 20, 30, 40))
+# detected-photon record slots: MCX's maxdetphoton default of 10^6
+HEAD5_RECORD_SLOTS = 1 << 20
+
+
+def benchmark_head5(device="cpu") -> Volume:
+    """The five-layer adult head: 120 x 120 x 60 voxels of 1 mm."""
+    return volume_from_shapes(HEAD5_SHAPES, list(HEAD5_MEDIA),
+                              HEAD5_UNITINMM, device)
+
+
 @dataclasses.dataclass(frozen=True)
 class Source:
     """Legacy pencil-beam source (the paper's configuration).
@@ -241,3 +280,9 @@ def skinvessel_config() -> SimConfig:
     """No reflection (the demo is compared against mcxyz, which models no
     index mismatch), one gate to 50 ns."""
     return SimConfig(do_reflect=False, tmax_ns=50.0)
+
+
+def head5_config() -> SimConfig:
+    """Fresnel reflection at the scalp (tissue n 1.37 against air), and
+    a time-domain instrument's TPSF: 50 gates of 0.1 ns to 5 ns."""
+    return SimConfig(do_reflect=True, tmax_ns=5.0, n_time_gates=50)

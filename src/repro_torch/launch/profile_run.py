@@ -10,6 +10,10 @@ The detection forward takes the CLI's flags for it:
         --detectors '[{"x": 40, "y": 30, "radius": 2}]' \\
         --save-detected 1048576 --collect-stats
 
+A preset brings its own probe (``launch.simulate.BENCHES``): ``--bench
+head5`` traces the five-layer head's time-domain forward, four
+detectors, 50 gates and 2^20 record slots, unless the flags say other.
+
 Runs the simulator twice untraced (kernel build and warm-up, then a
 timed run) and once under ``torch.profiler`` with CUDA activity, then
 prints one JSON line with the rounds, the untraced and the traced wall
@@ -26,13 +30,15 @@ untraced run's idle share.  ``idle_by_span`` charges each idle stretch
 of the device to the innermost of the port's spans open then (their
 ``record_function`` ranges in the trace: ``round.host_read``,
 ``round.regenerate``, ``round.step``, ``round.totals``,
-``round.replay``, ``run``, ``run.finish``, ``convert``, ``simulate``),
-in seconds; ``host_ms_per_round`` gives the spans' host milliseconds a
-round by name (``telemetry.capture_tracer``), ``host_reads`` and
-``replays`` the traced run's host reads and graph replays (its ``run``
-span), and ``clock_offset_us`` the median distance of a round span's
-start on the port's clock from its start in the trace.  ``--trace`` also writes the Chrome trace.  It needs a CUDA
-device.
+``round.records``, ``round.replay``, ``run``, ``run.finish``,
+``convert``, ``simulate``), in seconds; ``host_ms_per_round`` gives
+the spans' host milliseconds a round by name
+(``telemetry.capture_tracer``), ``host_reads`` and ``replays`` the
+traced run's host reads and graph replays (its ``run`` span) and,
+with records, ``records`` kept and ``record_overflow`` (its ``run``
+span too), and ``clock_offset_us`` the median distance of a round
+span's start on the port's clock from its start in the trace.
+``--trace`` also writes the Chrome trace.  It needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -51,7 +57,8 @@ from repro_torch import telemetry
 from repro_torch.core import simulator as S
 from repro_torch.detectors import as_detectors
 from repro_torch.kernels.photon_step import photon_step as K
-from repro_torch.launch.simulate import BENCHES, bench_source, get_bench
+from repro_torch.launch.simulate import (BENCHES, bench_defaults,
+                                         bench_source, get_bench)
 
 DEVICE_CATS = {"kernel": "kernel", "gpu_memcpy": "memcpy",
                "gpu_memset": "memset"}
@@ -187,15 +194,16 @@ def main(argv=None) -> dict:
                     help="voxels a side of B1/B2 (default 60)")
     ap.add_argument("--seed", type=int, default=1234)
     ap.add_argument("--steps-per-round", type=int, default=16)
-    ap.add_argument("--time-gates", type=int, default=1)
+    ap.add_argument("--time-gates", type=int, default=None)
     ap.add_argument("--tmax-ns", type=float, default=None)
     ap.add_argument("--detectors", default=None,
                     help="JSON detector disks, as the CLI takes them")
-    ap.add_argument("--save-detected", type=int, default=0, metavar="CAP")
+    ap.add_argument("--save-detected", type=int, default=None, metavar="CAP")
     ap.add_argument("--collect-stats", action="store_true")
     ap.add_argument("--trace", default=None,
                     help="also write the Chrome trace to this path")
     args = ap.parse_args(argv)
+    bench_defaults(args)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_run needs a CUDA device")
 
@@ -271,6 +279,9 @@ def main(argv=None) -> dict:
               for k in ("host_reads", "replays")},
            "clock_offset_us": clock_offset_us(
                spans, trace_events, int(trace["baseTimeNanoseconds"]))}
+    if args.save_detected:
+        out.update({k: sum(e.args.get(k, 0) for e in spans if e.name == "run")
+                    for k in ("records", "record_overflow")})
     print(json.dumps(out), flush=True)
     return out
 

@@ -13,6 +13,14 @@ absorption Jacobians, with round counters:
       --save-detected 1048576 --replay --replay-gate-resolved \
       --collect-stats
 
+A preset of ``BENCHES`` may bring its own probe: ``--bench head5`` runs
+the five-layer head's time-domain fNIRS forward (a pencil beam, four
+detectors, 50 gates to 5 ns, 2^20 record slots) unless the flags say
+other:
+
+  PYTHONPATH=src python -m repro_torch.launch.simulate --bench head5 \
+      --photons 3000000 --lanes 262144 --steps-per-round 16
+
 Any registered source (``--source``), a lane-count pilot sweep
 (``--autotune``), and a fleet of scenarios batched into one round loop
 (``--scenarios``, one kernel launch a round for each group of
@@ -53,7 +61,7 @@ import argparse
 import dataclasses
 import json
 import time
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -71,42 +79,84 @@ from repro_torch.replay import (ReplayResult, detected_records,
 from repro_torch.telemetry.trace import phase
 
 
-BENCHES = ("B1", "B2", "B2a", "skinvessel")
-# MCX's skin-vessel volume is offered at its published size only
-SKINVESSEL_SIZE = 200
+class Bench(NamedTuple):
+    """A benchmark the CLI offers: ``volume(size, device)`` and
+    ``config()`` its volume and physics; its own source, detectors and
+    record slots (None, none and 0: the paper's pencil beam, no
+    detectors, no records), which the flags override; and ``size``, the
+    one ``--size`` of a preset whose grid is fixed (None: a cube of
+    ``--size`` voxels a side, 60 by default)."""
+
+    volume: Callable
+    config: Callable
+    source: dict | None = None
+    detectors: tuple = ()
+    record_slots: int = 0
+    size: int | None = None
+
+
+BENCHES = {
+    "B1": Bench(lambda size, dev: V.benchmark_b1((size,) * 3, dev),
+                V.b1_config),
+    "B2": Bench(lambda size, dev: V.benchmark_b2((size,) * 3, dev),
+                V.b2_config),
+    "B2a": Bench(lambda size, dev: V.benchmark_b2((size,) * 3, dev),
+                 V.b2_config),
+    # MCX's skin-vessel volume, at its published 200^3 grid only
+    "skinvessel": Bench(lambda size, dev: V.benchmark_skinvessel(dev),
+                        V.skinvessel_config, V.SKINVESSEL_SOURCE, size=200),
+    # the five-layer head, 120 x 120 x 60: --size names its depth
+    "head5": Bench(lambda size, dev: V.benchmark_head5(dev),
+                   V.head5_config, V.HEAD5_SOURCE, V.HEAD5_DETECTORS,
+                   V.HEAD5_RECORD_SLOTS, size=60),
+}
 
 
 def get_bench(name: str, size: int | None = None, device="cpu"):
     """``(volume, config)`` of a benchmark; ``size`` (voxels a side)
-    scales B1 and B2 (default 60), and must be 200 or ``None`` for the
-    skin-vessel volume, whose shapes are MCX's own."""
-    if name == "skinvessel":
-        if size not in (None, SKINVESSEL_SIZE):
-            raise ValueError(f"skinvessel is MCX's {SKINVESSEL_SIZE}^3 "
-                             f"grid only; got --size {size}")
-        return V.benchmark_skinvessel(device), V.skinvessel_config()
-    shape = (size or 60,) * 3
-    if name == "B1":
-        return V.benchmark_b1(shape, device), V.b1_config()
-    if name in ("B2", "B2a"):
-        return V.benchmark_b2(shape, device), V.b2_config()
-    raise ValueError(name)
+    scales B1 and B2 (default 60), and must be the preset's own or
+    ``None`` for a preset of fixed grid."""
+    if name not in BENCHES:
+        raise ValueError(name)
+    bench = BENCHES[name]
+    if bench.size is not None and size not in (None, bench.size):
+        raise ValueError(f"{name} is offered at its published grid only "
+                         f"(--size {bench.size}); got --size {size}")
+    return bench.volume(size or 60, device), bench.config()
 
 
 def bench_source(name: str):
-    """A benchmark's own source: the skin-vessel disk beam, else None
-    (the paper's pencil beam)."""
-    return dict(V.SKINVESSEL_SOURCE) if name == "skinvessel" else None
+    """A benchmark's own source, or None (the paper's pencil beam)."""
+    source = BENCHES[name].source
+    return dict(source) if source else None
+
+
+def _fixed_sizes() -> str:
+    return ", ".join(f"{n} {b.size}" for n, b in BENCHES.items() if b.size)
+
+
+def bench_defaults(args) -> None:
+    """Fill the probe flags left unset with the benchmark's own: its
+    detectors, record slots and time gates."""
+    bench = BENCHES[args.bench]
+    if args.detectors is None and bench.detectors:
+        args.detectors = json.dumps(list(bench.detectors))
+    if args.save_detected is None:
+        args.save_detected = bench.record_slots
+    if args.time_gates is None:
+        args.time_gates = bench.config().n_time_gates
 
 
 def build_bench(name: str, size: int | None, device, n_time_gates: int,
-                tracer=None):
+                tracer=None, *, n_det: int = 0, record_slots: int = 0):
     """:func:`get_bench` inside a ``volume.shapes`` span (recorded in
     ``tracer`` and, while a ``torch.profiler`` capture runs, in the
     capture's tracer; never synchronising), then the counters
     ``volume.voxels``, ``volume.media`` and ``volume.grid_bytes`` (the
     int64 fluence and exitance grids a run of ``n_time_gates`` gates
-    holds) in ``tracer``."""
+    holds) in ``tracer``, and ``detectors.n`` with detectors,
+    ``records.capacity_bytes`` (the record buffer and its write-off
+    row) with records."""
     cap = T.capture()
     with phase(tracer or cap, "volume.shapes", device,
                also=cap if tracer is not None else None, bench=name):
@@ -118,6 +168,11 @@ def build_bench(name: str, size: int | None, device, n_time_gates: int,
         tracer.counter("volume.media", int(vol.media.shape[0]), bench=name)
         tracer.counter("volume.grid_bytes", 8 * (nvox * n_time_gates
                                                  + nx * ny), bench=name)
+        if n_det:
+            tracer.counter("detectors.n", int(n_det), bench=name)
+        if record_slots:
+            tracer.counter("records.capacity_bytes",
+                           32 * (int(record_slots) + 1), bench=name)
     return vol, cfg
 
 
@@ -261,25 +316,29 @@ def run(argv=None) -> Run:
     ap.add_argument("--photons", type=int, default=100_000)
     ap.add_argument("--lanes", type=int, default=4096)
     ap.add_argument("--size", type=int, default=None,
-                    help="voxels a side of B1/B2 (default 60); skinvessel "
-                         "is MCX's 200^3 grid only")
+                    help="voxels a side of B1/B2 (default 60); the "
+                         "presets of published grid take theirs only: "
+                         + _fixed_sizes())
     ap.add_argument("--seed", type=int, default=1234)
     ap.add_argument("--steps-per-round", type=int, default=1,
                     help="K: fused transport segments per regeneration/"
                          "flush round")
-    ap.add_argument("--time-gates", type=int, default=1,
+    ap.add_argument("--time-gates", type=int, default=None,
                     help="bin deposited energy over this many time-of-"
                          "flight gates spanning [0, tmax_ns]; 1 = CW "
-                         "(default)")
+                         "(default: the benchmark's own, BENCHES)")
     ap.add_argument("--detectors", default=None,
                     help="JSON detector disks on the z=0 face (voxel "
                          "units), e.g. '[{\"x\": 40, \"y\": 30, "
                          "\"radius\": 2}]'; records per-detector TPSF "
-                         "and mean partial pathlengths")
-    ap.add_argument("--save-detected", type=int, default=0, metavar="CAP",
+                         "and mean partial pathlengths (default: the "
+                         "benchmark's own probe, BENCHES)")
+    ap.add_argument("--save-detected", type=int, default=None,
+                    metavar="CAP",
                     help="record detected-photon ids (global photon id, "
                          "detector, exit gate) for replay, up to CAP "
-                         "records; requires --detectors")
+                         "records; requires --detectors (default: the "
+                         "benchmark's own, BENCHES)")
     ap.add_argument("--replay", action="store_true",
                     help="after the forward run, replay the recorded "
                          "detected photons into per-detector absorption "
@@ -291,8 +350,7 @@ def run(argv=None) -> Run:
                          "--replay)")
     ap.add_argument("--tmax-ns", type=float, default=None,
                     help="time-of-flight cutoff in ns (default: the "
-                         "benchmark config's 5.0, skinvessel's 50.0); "
-                         "weight still in "
+                         "benchmark's own, BENCHES); weight still in "
                          "flight at the cutoff is retired as timed-out")
     ap.add_argument("--collect-stats", action="store_true",
                     help="accumulate round counters (lane occupancy, "
@@ -302,8 +360,8 @@ def run(argv=None) -> Run:
     ap.add_argument("--source", default=None,
                     help="JSON source spec (repro_torch.sources), e.g. "
                          '\'{"type": "disk", "pos": [30, 30, 0], '
-                         '"radius": 5}\'; default: the pencil beam, or '
-                         "skinvessel's own disk beam")
+                         '"radius": 5}\'; default: the benchmark\'s own '
+                         "(BENCHES), else the pencil beam at (30, 30, 0)")
     ap.add_argument("--autotune", action="store_true",
                     help="Opt2: pilot-sweep the lane count (at the chosen "
                          "steps-per-round) and run with the fastest")
@@ -374,6 +432,14 @@ def run(argv=None) -> Run:
                          "if it already holds a matching campaign "
                          "checkpoint the run resumes from it")
     args = ap.parse_args(argv)
+    if args.scenarios:
+        for flag in ("chunk", "autotune", "save_detected", "replay",
+                     "source", "detectors", "collect_stats"):
+            if getattr(args, flag):
+                ap.error(f"--scenarios is incompatible with "
+                         f"--{flag.replace('_', '-')} (scenario dicts "
+                         f"carry their own per-scenario config)")
+    bench_defaults(args)
     if args.save_detected and not args.detectors:
         ap.error("--save-detected requires --detectors")
     if args.replay and not args.save_detected:
@@ -385,13 +451,6 @@ def run(argv=None) -> Run:
             ap.error(f"--{flag.replace('_', '-')} requires --chunk")
     if args.checkpoint_every and not (args.chunk and args.checkpoint_dir):
         ap.error("--checkpoint-every requires --chunk and --checkpoint-dir")
-    if args.scenarios:
-        for flag in ("chunk", "autotune", "save_detected", "replay",
-                     "source", "detectors", "collect_stats"):
-            if getattr(args, flag):
-                ap.error(f"--scenarios is incompatible with "
-                         f"--{flag.replace('_', '-')} (scenario dicts "
-                         f"carry their own per-scenario config)")
 
     dev = resolve_device(args.device)
     sinks = [T.JsonlSink(args.metrics_out)] if args.metrics_out else []
@@ -404,7 +463,8 @@ def run(argv=None) -> Run:
         json.loads(args.detectors)) if args.detectors else None
     try:
         vol, cfg = build_bench(args.bench, args.size, dev, args.time_gates,
-                               tracer)
+                               tracer, n_det=len(detectors or ()),
+                               record_slots=args.save_detected)
     except ValueError as e:  # a --size the benchmark does not offer
         ap.error(str(e))
     cfg = dataclasses.replace(cfg, steps_per_round=args.steps_per_round,
