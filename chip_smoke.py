@@ -37,7 +37,8 @@ script exits non-zero and prints no result:
            bit-equal, the lane state bit-equal with the groups on and
            off, and the checks failing a detector index swapped, a gate
            off by one and a Jacobian column off by one; times and bounds
-           as for K1
+           as for K1, the detection forward's launch timed with the
+           round's tail and records, as that path launches it
   regenerate  the regeneration kernel (csrc/regenerate.cu) at the
            benchmark cells' shapes, b1.cw (a pencil, 262144 lanes) and
            b2.sweep (8 disks of 32768 lanes, per-lane paths), on a
@@ -51,6 +52,15 @@ script exits non-zero and prints no result:
            sweep's batched launch of round KEEP_ROUND, 8 x 32768 lanes,
            50 gates, 3 detectors): the tail equal to the plain version's,
            device ms a launch of each and what the tail adds
+  records  the step kernel's launch with the tail, with and without the
+           records' append (RoundRecords), at head5.td's shape (the
+           five-layer head, 4 detectors, 50 gates, 262144 lanes, K=16,
+           2^20 slots, a mid-run round): every output of the appending
+           launch bit-equal to the launch without records and held to
+           the plain version, the append bit-equal to
+           simulator._append_records on the launch's captures, device µs
+           of each launch, the plain append's device and host ms, the
+           bounds, and a graphed run's RECORDS_KEY launches
   main     repro_torch.launch.simulate for B1 and B2 at 60^3 with 10^7
            photons, 262144 lanes, K=16: exact photon accounting,
            energy-balance residue < 1e-4, the kernel launched at least
@@ -142,9 +152,10 @@ script exits non-zero and prints no result:
            the main, detect and scenario runs, error against the plain
            version, times and bound at the shapes those runs give the
            variant; K1's weighted by the main runs' launches of each
-           template instantiation), and the host kernel's (route "host":
-           its launches in the mixed fleet's CPU share, its times on
-           every core at that shape)
+           template instantiation; the appending kernel's launches in
+           the detect run, its times at head5.td's shape), and the host
+           kernel's (route "host": its launches in the mixed fleet's CPU
+           share, its times on every core at that shape)
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or without the repository's ``src/`` beside it, the script
@@ -257,6 +268,11 @@ GPU_PILOT = (1_000_000, 5_000_000)
 GPU_PILOT_REPEATS = 3
 CPU_PILOT = (8 * CPU_LANES, 32 * CPU_LANES)
 MIXED_MARGIN_S, MIXED_MAKESPAN_S = 1.5, (4.0, 15.0)
+# the mixed fleet's step cap: the card's share of a makespan of up to 15 s
+# runs ~115,000 rounds of K = 16 at ~0.13 ms a round, and B1's default
+# cap of 500,000 segments (31,250 rounds, ~4 s) stopped a 4 s share at
+# 640,974,941 of ~645 million photons on an H100
+MIXED_MAX_STEPS = 4_000_000
 POOL_PHOTONS, POOL_CHUNK = 2_000_000, 250_000
 POOL_THROTTLE_S, POOL_TIMEOUT_S = 0.5, 0.3
 # its fault schedule: with these chunks, chunk 750000 is corrupted at its
@@ -557,7 +573,7 @@ def check_groups_see_index_errors(got, want, base, groups, n_det, ntg,
 
 def group_bound(groups, lanes, live, captures, ntg, n_det, n_media,
                 jac_cols, state_lane_bytes, scenarios: int = 1,
-                grid_bytes=None) -> dict:
+                grid_bytes=None, nvox: int = SIZE**3) -> dict:
     """Least time of one launch, in ms, from the bytes it must move and
     the operations it must do on these inputs (HBM rate; float32 and
     special-function rates), as K1's bound counts them.  ``lanes`` are
@@ -566,8 +582,7 @@ def group_bound(groups, lanes, live, captures, ntg, n_det, n_media,
     adds into run totals moves only the cells its deposits reach, and
     a replay launch only those of the grids the replay reads: its
     caller passes their bytes as ``grid_bytes`` (the whole grids are
-    counted otherwise)."""
-    nvox = SIZE**3
+    counted otherwise).  ``nvox``: the labels' voxels."""
     grid_override = grid_bytes
     lane_bytes = 2 * state_lane_bytes + 8
     grid_bytes = (FIXED_BYTES * nvox * ntg + FIXED_BYTES * SIZE * SIZE
@@ -680,6 +695,15 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def equal_outputs(a, b) -> bool:
+    """Two outputs of a launch (a tensor, a ``PhotonState`` or None) bit
+    for bit."""
+    if isinstance(a, tuple):
+        return all(equal_outputs(x, y) for x, y in zip(a, b))
+    return a is b is None or (a is not None and b is not None
+                              and torch.equal(a, b))
+
+
 def fixed_differences(a, b) -> list[str]:
     """The int64 grids and totals of two FixedResults that differ."""
     return [f for f in FIXED_GRIDS + FIXED_TOTALS
@@ -688,11 +712,13 @@ def fixed_differences(a, b) -> list[str]:
 
 def kernel_counts() -> dict:
     """``launches_by`` less the keys that count no kernel launch:
-    ``TAIL_KEY`` counts the launches that did the round's tail once more
-    beside their variant, and ``round_graph`` counts graph replays, whose
-    kernels are counted under their own keys."""
+    ``TAIL_KEY`` and ``RECORDS_KEY`` count the launches that did the
+    round's tail and appended its records once more beside their
+    variant, and ``round_graph`` counts graph replays, whose kernels are
+    counted under their own keys."""
     return {k: n for k, n in K.photon_step_cuda.launches_by.items()
-            if not k.endswith(K.TAIL_KEY) and k != "round_graph"}
+            if not k.endswith((K.TAIL_KEY, K.RECORDS_KEY))
+            and k != "round_graph"}
 
 
 def launched_kernels() -> int:
@@ -844,44 +870,6 @@ def regenerate_phase(card, reps: int = 200) -> dict:
     return rows
 
 
-class _Kept(Exception):
-    """Ends a run once the launch it was run for is kept."""
-
-
-def kept_launch(fleet, dev):
-    """The arguments of a fleet's batched photon-step launch of round
-    KEEP_ROUND, cloned, without the round's tail and ``inplace``: from an
-    eager run of the fleet (a graphed run calls the step only in round 1
-    and in the capture), ended once the launch is kept."""
-    from repro_torch import scenarios as SC
-    from repro_torch.core import simulator as S
-
-    step_fn, applies, calls, kept = S.photon_steps, S.graph_applies, [], []
-
-    def keep(*args, tail=None, inplace=False, **kw):
-        calls.append(1)
-        if len(calls) == KEEP_ROUND:
-            kept.append((
-                [a.clone() if isinstance(a, torch.Tensor) else a
-                 for a in args],
-                {k: ([t.clone() for t in v] if k == "totals" else
-                     v.clone() if isinstance(v, torch.Tensor) else v)
-                 for k, v in kw.items()}))
-            raise _Kept
-        return step_fn(*args, tail=tail, inplace=inplace, **kw)
-
-    S.photon_steps, S.graph_applies = keep, lambda *a: False
-    try:
-        SC.simulate_many(fleet, n_lanes=SCENARIO_LANES, device=dev,
-                         cache=SC.CompileCache())
-    except _Kept:
-        pass
-    finally:
-        S.photon_steps, S.graph_applies = step_fn, applies
-    check(bool(kept), f"the fleet ended before round {KEEP_ROUND}")
-    return kept[0]
-
-
 def tail_phase(card, reps: int = 20) -> dict:
     """The step kernel's launch with and without the round's tail
     (``photon_step.RoundTail``), at the K1 base row's shape (B1 60^3, a
@@ -896,7 +884,7 @@ def tail_phase(card, reps: int = 20) -> dict:
     from repro_torch.core import volume as V
     from repro_torch.kernels.photon_step import ref as R
     from repro_torch.launch import simulate as launch
-    from repro_torch.launch.kernel_timing import mid_run_state
+    from repro_torch.launch.kernel_timing import kept_launch, mid_run_state
 
     dev = torch.device("cuda")
     i64 = dict(dtype=torch.int64, device=dev)
@@ -917,7 +905,9 @@ def tail_phase(card, reps: int = 20) -> dict:
                                  "radius": 2.0}, detectors=DETECTORS,
                          id_offset=i * SCENARIO_PHOTONS)
              for i in range(SCENARIOS)]
-    cases["K2 det/x8"] = kept_launch(fleet, dev)
+    cases["K2 det/x8"] = kept_launch(lambda: SC.simulate_many(
+        fleet, n_lanes=SCENARIO_LANES, device=dev, cache=SC.CompileCache()),
+        KEEP_ROUND)
     rows = {}
     for name, (args, kw) in cases.items():
         n_sc = args[1].shape[0] if args[1].ndim == 3 else 1
@@ -954,6 +944,185 @@ def tail_phase(card, reps: int = 20) -> dict:
             tail_us=(ms_tail - ms) * 1e3, tail_equal_to_plain=True)
         emit("tail", row=name, card=card, **rows[name])
     return rows
+
+
+# the records phase: head5.td's launch of round RECORDS_ROUND (photons
+# live ~68 rounds there), appending to a buffer of HEAD5_RECORD_SLOTS
+# slots that holds RECORDS_KEPT rows, about half a solution's
+RECORDS_ROUND = 60
+RECORDS_KEPT = 8_000
+# bytes of one record row: [id_lo, id_hi, det, gate], int64
+RECORD_ROW_BYTES = 32
+
+
+def records_phase(card, reps: int = 20) -> dict:
+    """The step kernel's launch with the round's tail, with and without
+    the records' append (``photon_step.RoundRecords``, which
+    ``photon_step_append_kernel`` does), at head5.td's shape (the
+    five-layer head, four detectors, 50 gates, 262144 lanes, K=16, 2^20
+    record slots; the launch of round RECORDS_ROUND, its inputs kept from
+    an eager run), each launch adding into fresh copies of the run's
+    totals.  The appending launch gives every output of the launch
+    without records bit for bit (lane state, fluence, exitance, paths,
+    TPSF, path sums, captures, the tail), and so of the launch without a
+    tail, whose per-lane weights give its tail (``ref.round_tail_ref``);
+    with those weights its outputs are held to the plain version
+    (``ref.photon_steps_ref``) as the groups phase holds a launch; its
+    rows, kept and overflow counts are ``simulator._append_records``' on
+    the launch's captures and on the plain version's.  Device µs of each
+    launch (CUDA events behind a spin kernel), device and host ms of
+    ``_append_records`` on those captures, the plain version's ms (its
+    step, then ``_append_records``), the append's bytes bound (the
+    capture flags read, RECORD_ROW_BYTES a row written, over HBM) and
+    the launch's bound (``group_bound``: the cells its deposits reach,
+    the append's staged and kept rows), and the ``RECORDS_KEY`` launches
+    of a graphed run of 3*10^5 photons.  Returns the row."""
+    from repro_torch.core import simulator as S
+    from repro_torch.core import volume as V
+    from repro_torch.kernels.photon_step import ref as R
+    from repro_torch.kernels.photon_step import spec
+    from repro_torch.launch.kernel_timing import kept_launch
+
+    dev = torch.device("cuda")
+    i64 = dict(dtype=torch.int64, device=dev)
+    vol = V.benchmark_head5(dev)
+    cfg = dataclasses.replace(V.head5_config(), steps_per_round=K_MAIN)
+    cap = V.HEAD5_RECORD_SLOTS
+    n_det, n_media = len(V.HEAD5_DETECTORS), vol.media.shape[0]
+
+    def solve(photons):
+        return S.simulate_fixed(vol, cfg, photons, LANES, seed=SEED,
+                                source=V.HEAD5_SOURCE, device=dev,
+                                detectors=V.HEAD5_DETECTORS,
+                                record_detected=cap)
+
+    args, kw = kept_launch(lambda: solve(3_000_000), RECORDS_ROUND)
+    totals = kw.pop("totals")
+    groups = K.group_mask(n_det=n_det, record=True, stats=bool(kw["stats"]))
+    names = (["state", "fluence", "exitance", "escaped", "timed", "ppath",
+              "det_w", "det_ppath", "cap_det", "cap_gate"]
+             + (["stats"] if groups & STATS else []))
+
+    def tail():
+        return K.round_tail(torch.zeros((1,), **i64),
+                            torch.zeros((1,), **i64),
+                            torch.full((1,), PHOTONS, **i64))
+
+    def buffers():
+        return K.RoundRecords(
+            torch.zeros((1, cap + 1, 4), **i64),
+            torch.full((1,), RECORDS_KEPT, **i64), torch.zeros((1,), **i64),
+            torch.randint(0, 2**32, (LANES, 2), **i64,
+                          generator=torch.Generator(dev).manual_seed(1)),
+            *K.record_scratch(1, LANES, dev))
+
+    def launch(**extra):
+        return K.photon_step_cuda(*args, **kw, **extra,
+                                  totals=[t.clone() for t in totals])
+
+    got, t_got, t_plain = buffers(), tail(), tail()
+    outs = launch(tail=t_got, records=got)
+    plain = launch(tail=t_plain)
+    untailed = launch()
+    want = R.photon_steps_ref(*args, **kw,
+                              totals=[t.clone() for t in totals])
+    base = K.photon_step_cuda(*args)
+    K.check_errors(dev)
+    check(len(outs) == len(plain) == len(untailed) == len(names),
+          f"records: {len(outs)} outputs, {len(names)} expected")
+    for name, x, y, z in zip(names, outs, plain, untailed):
+        check(equal_outputs(x, y), f"records: {name} differs with the "
+              f"append")
+        check(name in ("escaped", "timed") or equal_outputs(x, z),
+              f"records: {name} differs from the launch without a tail")
+    t_want = tail()
+    R.round_tail_ref(t_want, untailed[3], untailed[4], untailed[0].alive)
+    for field, x, y, z in zip(K.RoundTail._fields, t_got, t_plain, t_want):
+        check(torch.equal(x, y) and torch.equal(x, z),
+              f"records: the tail's {field} differs with the append or "
+              f"from the plain version's tail")
+    # the appending launch's outputs, with the per-lane weights that its
+    # tail added, against the plain version
+    full = list(outs)
+    full[3], full[4] = untailed[3], untailed[4]
+    diffs, fails = measure_groups(full, want, base, groups,
+                                  cell_tol(LANES, K_MAIN))
+    check(not fails, "records against the plain version: " + "; ".join(fails))
+    capd, capg = plain[8], plain[9]
+    for what, (cd, cg) in (("the launch's", (capd, capg)),
+                           ("the plain version's", (want[8], want[9]))):
+        ref_buf = buffers()
+        S._append_records(ref_buf.rec, ref_buf.kept, ref_buf.overflow,
+                          ref_buf.lane_ids, cd, cg, cap)
+        for field in ("rec", "kept", "overflow"):
+            x, y = getattr(got, field), getattr(ref_buf, field)
+            if field == "rec":
+                x, y = x[:, :cap], y[:, :cap]
+            check(torch.equal(x, y), f"records: {field} differs from "
+                  f"_append_records' on {what} captures")
+    check(not bool(got.counts.any()), "records: the block counts are not zero")
+    captures = int((capd >= 0).sum())
+    check(captures > 0, f"records: no capture in round {RECORDS_ROUND}")
+    # live lane-segments from the plain version's stats block, and the
+    # cells the launch's deposits reach in the run's totals
+    work = R.photon_steps_ref(*args, **dict(kw, stats=True))
+    live = float(work[-1][:, 0].double().sum())
+    touched = sum(int((a != b).sum()) for a, b in zip(
+        [outs[1], outs[2], outs[6], outs[7]], totals))
+    blocks = got.counts.numel()
+    # the append: each captured row staged, read back and written to the
+    # buffer, its two id words read; each block's count written and read
+    append_bytes = captures * (3 * RECORD_ROW_BYTES + 16) + 8 * blocks
+    bound = group_bound(groups, LANES, live, captures, cfg.n_time_gates,
+                        n_det, n_media, 0, spec.STATE_LANE_BYTES_PORT,
+                        grid_bytes=2 * FIXED_BYTES * touched + 16 * n_media
+                        + 12 * n_det + append_bytes,
+                        nvox=vol.labels.numel())
+    scratch = [t.clone() for t in totals]
+    t_a, t_b = tail(), tail()
+    ms = time_cuda(lambda: K.photon_step_cuda(*args, **kw, totals=scratch,
+                                              tail=t_a), reps)
+    timed = buffers()
+    ms_rec = time_cuda(lambda: K.photon_step_cuda(
+        *args, **kw, totals=scratch, tail=t_b, records=timed), reps)
+    plain_buf = buffers()
+
+    def plain_append():
+        S._append_records(plain_buf.rec, plain_buf.kept, plain_buf.overflow,
+                          plain_buf.lane_ids, capd, capg, cap)
+
+    plain_append_ms = time_cuda(plain_append, reps)
+    plain_host_ms = time_cuda(plain_append, reps, backlog=False)
+    plain_step_ms = time_cuda(lambda: R.photon_steps_ref(
+        *args, **kw, totals=scratch), 2)
+    moved = LANES * 4 + RECORD_ROW_BYTES * captures
+    # a graphed run: one append a step launch, every record kept
+    K.reset_launches()
+    res = solve(300_000)
+    torch.cuda.synchronize()
+    launches = dict(K.photon_step_cuda.launches_by)
+    steps = step_launches()
+    check(launches.get(K.RECORDS_KEY, 0) == steps == launches[K.TAIL_KEY]
+          and launches["round_graph"] == steps - 1,
+          f"records: {launches} for a graphed run")
+    check(int(res.det_rec_overflow) == 0 and int(res.det_rec_n) > 0,
+          "records: the graphed run kept no record or dropped some")
+    row = dict(variant=K.variant_name(groups, cfg), lanes=LANES, k=K_MAIN,
+               ntg=cfg.n_time_gates, slots=cap, round=RECORDS_ROUND,
+               captures=captures, ms=ms, ms_records=ms_rec,
+               append_us=(ms_rec - ms) * 1e3,
+               plain_device_ms=plain_append_ms, plain_host_ms=plain_host_ms,
+               plain_step_ms=plain_step_ms,
+               plain_ms=plain_step_ms + plain_append_ms, bytes=moved,
+               bound_us=moved / HBM_BYTES_PER_S * 1e6, bound_by="bytes",
+               launch_bound_ms=bound["bound_ms"],
+               launch_bound_by=bound["bound_by"],
+               live_segments=live, cells_touched=touched,
+               max_abs_err=diffs["max_abs_err"], outputs_bit_equal=True,
+               bit_equal=True, record_launches=launches[K.RECORDS_KEY],
+               step_launches=steps, records_kept=int(res.det_rec_n))
+    emit("records", card=card, **row)
+    return row
 
 
 def host_phase(card, records, cfg_detect) -> dict:
@@ -1192,7 +1361,8 @@ def multidevice_phase(card, main_b2, fleet, fleet_alone, records, replay,
     # each device pilots in the process its share runs in, the other
     # shard given no photons
     vol1, cfg1 = launch.get_bench("B1", SIZE, gpu)
-    cfg1 = dataclasses.replace(cfg1, steps_per_round=K_MAIN)
+    cfg1 = dataclasses.replace(cfg1, steps_per_round=K_MAIN,
+                               max_steps=MIXED_MAX_STEPS)
     tracer = T.Tracer()
     mixed_fn = M.sharded_sim_fn(vol1, cfg1, [LANES, CPU_LANES], [gpu, cpu],
                                 tracer=tracer)
@@ -1241,7 +1411,10 @@ def multidevice_phase(card, main_b2, fleet, fleet_alone, records, replay,
     res = S.to_sim_result(mixed)
     bal = A.energy_balance(res)
     check(int(res.n_launched) == budget and abs(bal["residue_frac"]) < 1e-4,
-          "mixed fleet: photon accounting or energy balance")
+          f"mixed fleet: {int(res.n_launched)} of {budget} photons launched "
+          f"(shards {[int(x.n_launched) for x in shards]} of {counts}, "
+          f"{[int(x.steps) for x in shards]} steps, cap {cfg1.max_steps}), "
+          f"residue {bal['residue_frac']:.3e}")
     seconds = shard_seconds(tracer)
     emit("multidevice", item="mixed fleet", card=card, bench="B1",
          mesh=[device_label(gpu), "cpu"], lanes=[LANES, CPU_LANES],
@@ -1554,7 +1727,7 @@ def main() -> None:
     from repro_torch import telemetry as T
     from repro_torch.core import simulator as S
     from repro_torch.launch import simulate as launch
-    from repro_torch.launch.kernel_timing import mid_run_state
+    from repro_torch.launch.kernel_timing import kept_launch, mid_run_state
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -1688,6 +1861,22 @@ def main() -> None:
             kw["stats"] = True
         return kw
 
+    def path_tail():
+        zero = torch.zeros((1,), dtype=torch.int64, device=dev)
+        return K.round_tail(zero.clone(), zero.clone(),
+                            torch.full_like(zero, PHOTONS))
+
+    def path_records(lanes):
+        """The detection forward's record buffers, empty, on ``lanes``
+        lanes of random photon ids."""
+        i64 = dict(dtype=torch.int64, device=dev)
+        return K.RoundRecords(
+            torch.zeros((1, SAVE_DETECTED + 1, 4), **i64),
+            torch.zeros((1,), **i64), torch.zeros((1,), **i64),
+            torch.randint(0, 2**32, (lanes, 2), **i64,
+                          generator=torch.Generator(dev).manual_seed(2)),
+            *K.record_scratch(1, lanes, dev))
+
     def groups_vs_plain(vol, cfg, state, ppath, n_steps, reps, start):
         args = (vol.labels.reshape(-1), vol.media, state, vol.shape,
                 vol.unitinmm, cfg, n_steps)
@@ -1720,22 +1909,42 @@ def main() -> None:
                   + "; ".join(fails))
             seen = check_groups_see_index_errors(
                 got, want, base, groups, n_det, ntg, n_det * ntg, tol)
-            ms = time_cuda(lambda: K.photon_step_cuda(*args, **kw), reps)
-            host_loop_ms = time_cuda(lambda: K.photon_step_cuda(*args, **kw),
-                                     reps, backlog=False)
+            path_kw = dict(kw)
+            if groups == FORWARD:
+                # the detection forward launches with the round's tail and
+                # records (photon_step_append_kernel): that launch is timed,
+                # its outputs those of the launch without them
+                path_kw.update(tail=path_tail(), records=path_records(lanes))
+                appended = K.photon_step_cuda(*args, **path_kw)
+                tailed = K.photon_step_cuda(*args, **kw, tail=path_tail())
+                for i, (x, y, z) in enumerate(zip(appended, tailed, got)):
+                    check(equal_outputs(x, y) and (
+                        i in (3, 4) or equal_outputs(x, z)),
+                        f"groups {K.group_names(groups)}: output {i} "
+                        f"differs with the tail and records")
+            ms = time_cuda(lambda: K.photon_step_cuda(*args, **path_kw), reps)
+            host_loop_ms = time_cuda(
+                lambda: K.photon_step_cuda(*args, **path_kw), reps,
+                backlog=False)
+            ms_no_tail = ms if groups != FORWARD else time_cuda(
+                lambda: K.photon_step_cuda(*args, **kw), reps)
             plain_ms = time_cuda(lambda: photon_steps_ref(*args, **kw), 2)
             bound = group_bound(groups, lanes, live, captures, ntg, n_det,
                                 n_media, n_det * ntg,
                                 spec.STATE_LANE_BYTES_PORT)
+            ms_is = ("launches with the round's tail and records"
+                     if groups == FORWARD else "launches without a tail")
             emit("groups", variant=K.variant_name(groups, cfg),
                  rows=[r for b, r in GROUP_ROWS.items() if groups & b],
                  start=start, lanes=lanes, k=n_steps, ntg=ntg,
-                 tmax_ns=cfg.tmax_ns, n_det=n_det, ms=ms,
-                 host_loop_ms=host_loop_ms, plain_ms=plain_ms,
+                 tmax_ns=cfg.tmax_ns, n_det=n_det, ms=ms, ms_is=ms_is,
+                 ms_no_tail=ms_no_tail, host_loop_ms=host_loop_ms,
+                 plain_ms=plain_ms,
                  live_segments=live, captures=captures,
                  mutations_seen={k: v[0] for k, v in seen.items()},
                  **bound, **diffs)
             out[groups] = {"variant": K.variant_name(groups, cfg), "ms": ms,
+                           "ms_is": ms_is, "ms_no_tail": ms_no_tail,
                            "host_loop_ms": host_loop_ms, "plain_ms": plain_ms,
                            "max_abs_err": diffs["max_abs_err"], **bound}
         return out
@@ -1812,6 +2021,9 @@ def main() -> None:
 
     # --- tail: the step launch with and without the round's tail ------------
     tail_rows = tail_phase(card)
+
+    # --- records: the step launch with and without the records' append ------
+    rec_row = records_phase(card)
 
     # --- main path ------------------------------------------------------------
     launches = {}
@@ -1914,6 +2126,9 @@ def main() -> None:
     check(by_variant.get(K.TAIL_KEY, 0) == issued_rounds(rounds),
           f"{by_variant.get(K.TAIL_KEY, 0)} launches with the round's tail "
           f"for {rounds} rounds")
+    check(by_variant.get(K.RECORDS_KEY, 0) == issued_rounds(rounds),
+          f"{by_variant.get(K.RECORDS_KEY, 0)} launches that appended the "
+          f"records for {rounds} rounds")
     emit("detect", argv=DETECT_ARGV, seconds=wall,
          forward_seconds=run.seconds,
          photons_per_ms=PHOTONS / run.seconds / 1e3,
@@ -2205,7 +2420,9 @@ def main() -> None:
     scen_rows = {}
     alone_runs = {}
     for fleet_name, (fleet, groups) in fleets.items():
-        captured[fleet_name] = kept_launch(fleet, dev)
+        captured[fleet_name] = kept_launch(lambda: SC.simulate_many(
+            fleet, n_lanes=SCENARIO_LANES, device=dev,
+            cache=SC.CompileCache()), KEEP_ROUND)
         K.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2385,9 +2602,24 @@ def main() -> None:
         "bound_ms": timed_groups[g]["bound_ms"],
         "bound_by": timed_groups[g]["bound_by"], "library_ms": None, **{
             k: timed_groups[g][k] for k in (
-                "lanes", "steps_per_launch", "cells_touched")
+                "ms_is", "ms_no_tail", "lanes", "steps_per_launch",
+                "cells_touched")
             if k in timed_groups[g]}}
         for g, where in PATH_VARIANTS.items()] + [{
+        # the detection forward's appending kernel (launched once a round
+        # there), timed and held at head5.td's shape (the records phase)
+        "name": "photon_step_append_kernel", "route": "cuda",
+        "source": "src/repro_torch/kernels/photon_step/csrc/photon_step.cu",
+        "replaces": "src/repro/core/simulator.py:470",
+        "variant": rec_row["variant"], "path": "detection forward; head5.td",
+        "launches": by_variant.get(K.RECORDS_KEY, 0),
+        "max_abs_err": rec_row["max_abs_err"], "ms": rec_row["ms_records"],
+        "ms_is": "launches with the round's tail and records",
+        "ms_no_records": rec_row["ms"], "plain_ms": rec_row["plain_ms"],
+        "bound_ms": rec_row["launch_bound_ms"],
+        "bound_by": rec_row["launch_bound_by"], "library_ms": None,
+        "lanes": rec_row["lanes"], "k": rec_row["k"],
+        "captures": rec_row["captures"]}] + [{
         "name": "photon_step_" + K.group_names(row["groups"]).replace(
             "+", "_") + "_batched",
         "route": "cuda",

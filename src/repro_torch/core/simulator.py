@@ -54,7 +54,9 @@ too.  The photon-step call does the round's tail itself
 (``photon_step.RoundTail``): it adds the round's escaped and timed-out
 weight into the run's totals, counts the round of each scenario that
 had work and sets the flags the host reads, in the kernel's epilogue on
-the card and in the host kernel's wrapper on the CPU.  With the regeneration
+the card and in the host kernel's wrapper on the CPU; on the card it
+appends the round's records too (``photon_step.RoundRecords``), which
+the loop appends after the step elsewhere.  With the regeneration
 kernel on the card a round is a fixed chain of launches, so the loop
 captures it once a run as a CUDA graph and replays it between reads
 (``graph_applies``).  Photon ids are
@@ -94,9 +96,11 @@ from repro_torch.detectors import (as_detectors, det_geometry,
                                    validate_detectors)
 from repro_torch.kernels.photon_step import spec
 from repro_torch.kernels.photon_step.ops import photon_steps, resolve_device
-from repro_torch.kernels.photon_step.photon_step import (add_launches,
+from repro_torch.kernels.photon_step.photon_step import (RoundRecords,
+                                                         add_launches,
                                                          check_errors,
                                                          deferred_launches,
+                                                         record_scratch,
                                                          round_tail)
 from repro_torch.kernels.photon_step.regenerate import Regeneration, supports
 from repro_torch.sources import PhotonSource, as_source
@@ -286,7 +290,11 @@ def _append_records(rec, rec_n, overflow, lane_ids, capd, capg,
     ``(S,)``.  Slots come from a prefix sum over each scenario's
     captured lanes, so lanes never collide; masked and over-capacity
     writes land in the scenario's write-off row ``rec[s, capacity]``.
-    ``rec``, ``rec_n`` and ``overflow`` are updated in place.
+    ``rec``, ``rec_n`` and ``overflow`` are updated in place.  The plain
+    version of the append that the CUDA step does in its epilogue
+    (``photon_step.RoundRecords``), with the same bits in
+    ``rec[:, :capacity]``; the round loop calls it wherever the step is
+    not the CUDA kernel.
     """
     S = rec.shape[0]
     captured = (capd >= 0).view(S, -1)
@@ -403,9 +411,11 @@ def build_round_loop(shape: tuple[int, int, int], unitinmm: float,
     args photons, scenarios, lanes, K, rounds, host_reads and replays,
     and with records ``records`` kept and ``record_overflow``) holding
     ``round.host_read`` at each read, ``round.regenerate``,
-    ``round.step`` (the host side of the photon-step call) and
-    ``round.totals`` (with records, ``round.records`` inside it, around
-    the append) for each round issued eagerly and for the capture,
+    ``round.step`` (the host side of the photon-step call; on the card
+    with records, ``round.records`` inside it, around the append's
+    arguments) and ``round.totals`` (with records off the card,
+    ``round.records`` inside it, around ``_append_records``) for each
+    round issued eagerly and for the capture,
     ``round.replay`` around each graph launch, then ``run.finish``
     (everything after the loop).  None of them synchronises the device.
     """
@@ -517,6 +527,12 @@ def build_round_loop(shape: tuple[int, int, int], unitinmm: float,
         tail = round_tail(acc.escaped, acc.timed_out, remaining)
         torch.gt(remaining, 0, out=tail.work)
         torch.any(tail.work, out=tail.more)
+        # on the card the step appends each round's captures in its
+        # epilogue, with a scratch of block counts (zero between
+        # launches) and staged rows; elsewhere _append_records does
+        # after it
+        appends = record and dev.type == "cuda"
+        scratch = record_scratch(S, n_lanes, dev) if appends else None
         # on the card, a staged source regenerates in one kernel call a
         # round; elsewhere in PyTorch operations, with the same bits
         regen = (Regeneration if supports(sample, dev) else PlainRegeneration)(
@@ -528,6 +544,12 @@ def build_round_loop(shape: tuple[int, int, int], unitinmm: float,
             with phase(cap, "round.regenerate", dev):
                 new_id = regen(state, next_id, ppath)
             with phase(cap, "round.step", dev):
+                records = None
+                if appends:
+                    with phase(cap, "round.records", dev):
+                        records = RoundRecords(
+                            rec, acc.det_rec_n, acc.det_rec_overflow,
+                            lane_ids, *scratch)
                 # the graph steps the run's buffers in place, its addresses
                 # being fixed; an eager round takes the state the step
                 # returns (a copy onto itself does nothing).  A scenario
@@ -537,7 +559,7 @@ def build_round_loop(shape: tuple[int, int, int], unitinmm: float,
                                     cfg, K, ppath=ppath, det_geom=det_geom,
                                     record=record, stats=collect,
                                     totals=grids, inplace=graphed,
-                                    tail=tail)
+                                    tail=tail, records=records)
                 new_state, _, _, _, _ = outs[:5]
                 for buf, new in zip(state, new_state):
                     buf.copy_(new)
@@ -547,10 +569,12 @@ def build_round_loop(shape: tuple[int, int, int], unitinmm: float,
                     ppath.copy_(outs[cur])
                     cur += 3
                 if record:
-                    with phase(cap, "round.records", dev):
-                        _append_records(rec, acc.det_rec_n,
-                                        acc.det_rec_overflow, lane_ids,
-                                        outs[cur], outs[cur + 1], capacity)
+                    if not appends:
+                        with phase(cap, "round.records", dev):
+                            _append_records(rec, acc.det_rec_n,
+                                            acc.det_rec_overflow, lane_ids,
+                                            outs[cur], outs[cur + 1],
+                                            capacity)
                     cur += 2
                 if collect:
                     # launches per round stay < 2**31, so the low-word

@@ -65,6 +65,21 @@
 //     block to finish counts the round and sets the work flags the host
 //     reads (round_tail below).  The per-lane escaped and timed-out
 //     outputs are then not written.
+//   - The records' append in the epilogue.  Given also the round loop's
+//     record buffers (RoundRecords in photon_step.py; the RECORD
+//     group), the launch appends each captured lane's row [id_lo, id_hi,
+//     det, gate] to its scenario's record buffer, where the loop ran ~24
+//     PyTorch launches over every lane a round for ~13 captures.  Each
+//     block that captured stages its captures' rows in lane order and
+//     publishes their count; the last block scans the counts of each
+//     scenario in block order and moves the staged rows into the
+//     buffer, so the rows land in the slots of a prefix sum in lane
+//     order, the same bits as the plain append, overflow included
+//     (append_records below).  Slots picked in arrival order by atomics
+//     would change the buffer's order and, when it fills, which records
+//     are kept.  Such a launch runs photon_step_append_kernel, the same
+//     block code with the append compiled in, so the launches without
+//     records (the replay's) run the code they ran before it came.
 //   - Kept: one thread per lane, 256 threads a block, the state in
 //     registers for all K segments.  The measurements that decided:
 //     512- or 1024-thread blocks, 512/2048/4096 cache slots, the media
@@ -164,6 +179,9 @@ constexpr float kJacScale = 68719476736.0f;     // 2^36, weight * mm
 constexpr float kTotalScale = 16777216.0f;      // 2^24
 // Pointers of the round's tail (RoundTail in photon_step.py).
 constexpr int kTailWords = 7;
+// Words of the round's records (RoundRecords in photon_step.py): six
+// pointers and the capacity.
+constexpr int kRecordWords = 7;
 // One deposit holds fewer than 2^44 units (256 weight, 65536 weight *
 // mm): a block's cached sum of at most 256 lanes x 4095 segments of
 // them stays below 2^64, so its sign shows a pass of 2^63.
@@ -216,6 +234,21 @@ struct Tail {
                                // zero between launches
 };
 
+// The round's records (RoundRecords in photon_step.py), all null when the
+// caller gives none: the run's per-scenario record buffers, in place.
+struct Records {
+  long long* rec;              // (S, capacity + 1, 4) rows [id_lo, id_hi,
+                               // det, gate]; the last row is not written
+  long long* kept;             // (S) rows kept
+  long long* overflow;         // (S) captures dropped, the buffer full
+  const long long* lane_ids;   // (S * n, 2) each lane's photon id words
+  unsigned* counts;            // (S * blocks) each block's captures, zero
+                               // between launches
+  long long* rows;             // (S * blocks * kThreads, 4) each block's
+                               // staged rows, in lane order
+  long long capacity;
+};
+
 // Inputs, base outputs and scalars of one launch.
 struct Args {
   const uint8_t* labels;    // (nvox), or (S, nvox) with labels_stride nvox
@@ -246,13 +279,16 @@ struct Args {
   float unit, gate_scale, tmax, w_threshold, roulette_m, roulette_p;
   Groups grp;
   Tail tail;
+  Records rec;
 };
 
 // What a lane leaves for the round's tail: its weight escaped and timed
-// out in the launch, and whether it is alive at the end.
+// out in the launch, whether it is alive at the end, and its capture
+// (RECORD; det -1: none).
 struct LaneEnd {
   float esc, timed;
   bool alive;
+  int det, gate;
 };
 
 struct Rng {
@@ -656,7 +692,107 @@ __device__ __forceinline__ LaneEnd run_lane(const Args& A, const int sc,
     grp.stats[2 * lane + 0] = st_live;
     grp.stats[2 * lane + 1] = st_dep;
   }
-  return {esc_acc, timed_acc, alive};
+  return {esc_acc, timed_acc, alive, cap_det, cap_gate};
+}
+
+// --- RECORDS: the round's captures appended ---
+// Each block stages its captures' rows [id_lo, id_hi, det, gate] in lane
+// order (stage_row), and the last block to finish moves them into the
+// record buffers (append_records).  For each scenario, in tiles of
+// kThreads * kScanRun blocks, each thread loads the capture counts of
+// kScanRun consecutive blocks, a block-wide scan of their sums gives the
+// first slot of its blocks (the scenario's kept count, the captures of
+// the tiles and threads before), and the thread copies its blocks'
+// staged rows there, drops a row whose slot is at the capacity or past
+// it, and zeroes the counts it read.  Thread 0 then clamps the kept count
+// at the capacity and adds the rest to the overflow count: the slots,
+// counts and overflow of simulator._append_records.  A capture is rare
+// (~13 in 262144 lanes a round in head5.td), so the last block's work is
+// a chain of two loads (the counts, then the staged rows) while the rest
+// of the card waits, and its loops stay small: their instructions are
+// fetched once a launch.  Values that other blocks wrote in this launch
+// are read past L1 (__ldcg).
+constexpr int kScanRun = 4;
+
+// A captured lane's row, at its rank among its block's captures in lane
+// order (the bits below its own in the block's complete mask `s_cap`),
+// fenced before the block's count is published.
+__device__ __forceinline__ void stage_row(const Args& A, const int sc,
+                                          const int pos, const LaneEnd& end,
+                                          const unsigned* s_cap) {
+  int rank = __popc(s_cap[pos >> 5] & ((1u << (pos & 31)) - 1u));
+  for (int w = 0; w < (pos >> 5); ++w) rank += __popc(s_cap[w]);
+  const long long block = (long long)sc * gridDim.x + blockIdx.x;
+  const long long lane =
+      (long long)sc * A.n + (long long)blockIdx.x * kThreads + pos;
+  longlong2* row = (longlong2*)(A.rec.rows + (block * kThreads + rank) * 4);
+  row[0] = ((const longlong2*)A.rec.lane_ids)[lane];
+  row[1] = make_longlong2(end.det, end.gate);
+  __threadfence();  // the row before the block's count
+}
+
+// Out of line: inlined into the appending kernel it cost that launch ~4 µs
+// more (chip_smoke.py's records phase), the compiler then allocating the
+// step's registers otherwise.
+__device__ __noinline__ void append_records(const Args& A, u64* s_scan) {
+  const Records& R = A.rec;
+  const int tid = threadIdx.x, wid = tid >> 5, lid = tid & 31;
+  const int blocks = gridDim.x, scenarios = gridDim.y;
+  for (int s = 0; s < scenarios; ++s) {
+    const long long first = (long long)s * blocks;  // the scenario's blocks
+    long long kept = R.kept[s];  // the running count, unclamped
+    const long long overflow = R.overflow[s];
+    for (int tile = 0; tile < blocks; tile += kThreads * kScanRun) {
+      const int b0 = tile + tid * kScanRun;
+      u64 packed = 0ull;  // the counts, 16 bits each (at most kThreads)
+      unsigned mine = 0u;
+#pragma unroll
+      for (int j = 0; j < kScanRun; ++j) {
+        const unsigned c =
+            b0 + j < blocks ? __ldcg(R.counts + first + b0 + j) : 0u;
+        packed |= (u64)c << (16 * j);
+        mine += c;
+      }
+      unsigned incl = mine;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const unsigned v = __shfl_up_sync(0xffffffffu, incl, d);
+        if (lid >= d) incl += v;
+      }
+      if (lid == 31) s_scan[wid] = incl;
+      __syncthreads();
+      u64 before = 0ull, total = 0ull;
+#pragma unroll
+      for (int i = 0; i < kWarps; ++i) {
+        before += i < wid ? s_scan[i] : 0ull;
+        total += s_scan[i];
+      }
+      long long slot = kept + (long long)(before + incl - mine);
+      kept += (long long)total;
+#pragma unroll 1
+      for (int j = 0; j < kScanRun; ++j) {
+        const int c = (int)(packed >> (16 * j) & 0xffffull);
+        if (c == 0) continue;
+        const long long b = first + b0 + j;
+        R.counts[b] = 0u;
+        const longlong2* from = (const longlong2*)(R.rows + b * kThreads * 4);
+#pragma unroll 1
+        for (int i = 0; i < c; ++i, ++slot) {
+          if (slot >= R.capacity) continue;
+          longlong2* row =
+              (longlong2*)(R.rec + (s * (R.capacity + 1) + slot) * 4);
+          row[0] = __ldcg(from + 2 * i);
+          row[1] = __ldcg(from + 2 * i + 1);
+        }
+      }
+      __syncthreads();  // every thread has read s_scan
+    }
+    if (tid == 0) {
+      const long long kept_now = kept < R.capacity ? kept : R.capacity;
+      R.overflow[s] = overflow + (kept - kept_now);
+      R.kept[s] = kept_now;
+    }
+  }
 }
 
 // --- TAIL: the round's totals, round count and work flags ---
@@ -675,12 +811,20 @@ __device__ __forceinline__ LaneEnd run_lane(const Args& A, const int sc,
 // remaining budget (a static-mode lane below its quota is budget left:
 // both regenerations subtract every relaunch from it), sets `more` from
 // them all, and clears the flags and the ticket for the next launch.
+// Given the records, each captured lane stages its row (stage_row; the
+// block's capture mask `s_cap` is complete, the lanes having set their
+// bits before the flush's barrier), thread 0 publishes the block's count
+// of captures before its fence and ticket, and the last block appends
+// (append_records).
+template <bool APPEND>
 __device__ __forceinline__ void round_tail(const Args& A, const int sc,
-                                           const LaneEnd& end, u64* s_sum,
-                                           int* s_last) {
+                                           const LaneEnd& end, const int pos,
+                                           u64* s_sum, int* s_last,
+                                           const unsigned* s_cap) {
   const Tail& T = A.tail;
   const int tid = threadIdx.x, wid = tid >> 5, lid = tid & 31;
   const int scenarios = gridDim.y;
+  if (APPEND && end.det >= 0) stage_row(A, sc, pos, end, s_cap);
   u64 e = to_fixed(end.esc, kTotalScale, A.errors);
   u64 t = to_fixed(end.timed, kTotalScale, A.errors);
 #pragma unroll
@@ -695,6 +839,12 @@ __device__ __forceinline__ void round_tail(const Args& A, const int sc,
   const int alive = __syncthreads_or(end.alive);
   if (tid == 0) {
     if (alive) atomicOr(T.flags + sc, 1u);
+    if (APPEND) {
+      unsigned count = 0u;
+      for (int w = 0; w < kWarps; ++w) count += __popc(s_cap[w]);
+      if (count != 0u)
+        A.rec.counts[(long long)sc * gridDim.x + blockIdx.x] = count;
+    }
     __threadfence();
     const unsigned blocks = gridDim.x * gridDim.y;
     s_last[0] = atomicAdd(T.flags + scenarios, 1u) == blocks - 1u;
@@ -721,16 +871,17 @@ __device__ __forceinline__ void round_tail(const Args& A, const int sc,
     *T.more = any ? 1 : 0;
     T.flags[scenarios] = 0u;
   }
+  if (APPEND) append_records(A, s_sum);
 }
 
 // One block, of one scenario (blockIdx.y): its lanes reordered so that
 // those alive at launch come first (each keeps its own arithmetic; only
 // the thread that runs it changes), K segments of each, then the block's
 // deposit cache added to the scenario's grids in device memory, then,
-// given the tail, the block's share of the round's tail.
-template <bool DO_REFLECT, bool TAYLOR>
-__global__ void __launch_bounds__(kThreads)
-    photon_step_kernel(const __grid_constant__ Args A) {
+// given the tail, the block's share of the round's tail, and with APPEND
+// (the launch was given the round's records) its share of their append.
+template <bool DO_REFLECT, bool TAYLOR, bool APPEND>
+__device__ __forceinline__ void step_block(const Args& A) {
   // --- BLOCK: the cache emptied, the lanes ordered ---
   __shared__ int s_key[kCacheSlots];
   __shared__ u64 s_val[kCacheSlots];
@@ -738,11 +889,13 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ int s_warp_live[kWarps];
   __shared__ u64 s_tail[2 * kWarps];
   __shared__ int s_last[1];
+  __shared__ unsigned s_cap[kWarps];
   for (int i = threadIdx.x; i < kCacheSlots; i += kThreads) {
     s_key[i] = kEmpty;
     s_val[i] = 0ull;
   }
   const int tid = threadIdx.x, wid = tid >> 5, lid = tid & 31;
+  if (APPEND && tid < kWarps) s_cap[tid] = 0u;
   const int sc = blockIdx.y;
   const long long base = (long long)sc * A.n;  // the scenario's first lane
   const int first = blockIdx.x * kThreads;     // within the scenario
@@ -762,9 +915,11 @@ __global__ void __launch_bounds__(kThreads)
   s_order[live ? live_below : n_live + tid - live_below] = tid;
   __syncthreads();
   const int local = first + s_order[tid];
-  LaneEnd end = {0.f, 0.f, false};
+  LaneEnd end = {0.f, 0.f, false, -1, 0};
   if (local < A.n)
     end = run_lane<DO_REFLECT, TAYLOR>(A, sc, base + local, s_key, s_val);
+  if (APPEND && end.det >= 0)
+    atomicOr(s_cap + (s_order[tid] >> 5), 1u << (s_order[tid] & 31));
   // --- FLUSH: the block's cached sums into device memory ---
   __syncthreads();
   const int n_flu = A.nx * A.ny * A.nz * A.ntg;
@@ -777,14 +932,39 @@ __global__ void __launch_bounds__(kThreads)
       add_fixed(key < n_flu ? fluence + key : exitance + (key - n_flu), u,
                 A.errors);
   }
-  if (A.tail.escaped != nullptr) round_tail(A, sc, end, s_tail, s_last);
+  if (A.tail.escaped != nullptr)
+    round_tail<APPEND>(A, sc, end, s_order[tid], s_tail, s_last, s_cap);
 }
+
+template <bool DO_REFLECT, bool TAYLOR>
+__global__ void __launch_bounds__(kThreads)
+    photon_step_kernel(const __grid_constant__ Args A) {
+  step_block<DO_REFLECT, TAYLOR, false>(A);
+}
+
+#if PS_GROUPS & 2  // kGroupRecord
+// The launch given the round's records: a kernel of its own, so that the
+// launches without them (the replay's, parity tests) run the code they
+// ran before the append came.
+template <bool DO_REFLECT, bool TAYLOR>
+__global__ void __launch_bounds__(kThreads)
+    photon_step_append_kernel(const __grid_constant__ Args A) {
+  step_block<DO_REFLECT, TAYLOR, true>(A);
+}
+#endif
 
 template <bool DO_REFLECT, bool TAYLOR>
 cudaError_t launch(const Args& a, int blocks, int scenarios,
                    cudaStream_t stream) {
-  photon_step_kernel<DO_REFLECT, TAYLOR>
-      <<<dim3(blocks, scenarios), kThreads, 0, stream>>>(a);
+  const dim3 grid(blocks, scenarios);
+#if PS_GROUPS & 2  // kGroupRecord
+  if (a.rec.rec != nullptr) {
+    photon_step_append_kernel<DO_REFLECT, TAYLOR>
+        <<<grid, kThreads, 0, stream>>>(a);
+    return cudaGetLastError();
+  }
+#endif
+  photon_step_kernel<DO_REFLECT, TAYLOR><<<grid, kThreads, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -808,14 +988,20 @@ cudaError_t launch(const Args& a, int blocks, int scenarios,
 // or cudaErrorInvalidValue when ``groups`` is not the set this library
 // was built for, ``threads`` is not its block size, ``blocks`` do not
 // cover the lanes, ``scenarios`` is outside [1, 65535] or a tail comes
-// with no lane.  n is the lane count of one scenario and blocks the
-// blocks of one scenario; lane arrays hold scenarios * n lanes,
-// scenario-major.
+// with no lane, or records come with no tail or to a library without
+// RECORD.  n is the lane count of one scenario and blocks the blocks of
+// one scenario; lane arrays hold scenarios * n lanes, scenario-major.
 // ``tail`` is null, or the round's tail, kTailWords pointers: escaped,
 // timed_out, rounds, work, more, remaining, flags (photon_step.py
 // RoundTail, in that order).  Given one, the launch updates it
 // (round_tail) and writes no per-lane escaped or timed weight: those out
 // slots may be null.
+// ``records`` is null, or the round's records, kRecordWords words: rec,
+// kept, overflow, lane_ids, counts, rows, capacity (the pointers of
+// photon_step.py RoundRecords, in that order, then rec's rows less the
+// write-off row).  Given them (and a tail), the launch appends its
+// captures (append_records); cap_det and cap_gate are written as
+// without them.
 // The out state arrays (and ppath) may be the in ones, as the round
 // loop passes them when it replays a captured round: each lane is read
 // by the thread that runs it before that thread writes it, and a block
@@ -825,14 +1011,17 @@ cudaError_t launch(const Args& a, int blocks, int scenarios,
 // writes, are read through __ldg.
 extern "C" int photon_step_launch(const void* const* in, void* const* out,
                                   const int* ints, const float* floats,
-                                  void* const* tail, void* stream) {
+                                  void* const* tail,
+                                  const long long* records, void* stream) {
   const int n = ints[0], groups = ints[9], n_det = ints[10],
             n_media = ints[11], jac_cols = ints[12], scenarios = ints[13],
             labels_stride = ints[14], add_into = ints[15],
             threads = ints[16], blocks = ints[17];
   if (groups != PS_GROUPS || threads != kThreads ||
       (long long)blocks * kThreads < n || (n > 0 && blocks <= 0) ||
-      scenarios < 1 || scenarios > 65535 || (tail != nullptr && n <= 0))
+      scenarios < 1 || scenarios > 65535 || (tail != nullptr && n <= 0) ||
+      (records != nullptr &&
+       (tail == nullptr || !kRecord || records[6] < 1)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const size_t nvox = (size_t)ints[1] * ints[2] * ints[3];
@@ -907,6 +1096,15 @@ extern "C" int photon_step_launch(const void* const* in, void* const* out,
     a.tail.remaining = (const long long*)tail[5];
     a.tail.flags = (unsigned*)tail[6];
   }
+  if (records != nullptr) {
+    a.rec.rec = (long long*)records[0];
+    a.rec.kept = (long long*)records[1];
+    a.rec.overflow = (long long*)records[2];
+    a.rec.lane_ids = (const long long*)records[3];
+    a.rec.counts = (unsigned*)records[4];
+    a.rec.rows = (long long*)records[5];
+    a.rec.capacity = records[6];
+  }
 
   const size_t sc = (size_t)scenarios;
   const struct { void* p; size_t bytes; } zero[] = {
@@ -937,10 +1135,11 @@ extern "C" int photon_step_groups() { return PS_GROUPS; }
 
 // The kernel's compile-time launch constants, which the wrapper checks
 // against its own: threads a block, deposit-cache slots, pointers of the
-// round's tail.
+// round's tail, words of the round's records.
 extern "C" int photon_step_threads() { return kThreads; }
 extern "C" int photon_step_cache_slots() { return kCacheSlots; }
 extern "C" int photon_step_tail_words() { return kTailWords; }
+extern "C" int photon_step_record_words() { return kRecordWords; }
 
 extern "C" const char* photon_step_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

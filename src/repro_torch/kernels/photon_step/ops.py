@@ -55,7 +55,7 @@ def photon_steps(labels_flat, media, state, shape, unitinmm, cfg: SimConfig,
                  n_steps: int, ppath=None, det_geom=None,
                  record: bool = False, jac_w=None, jac_col=None,
                  jac_cols: int = 0, stats: bool = False, totals=None,
-                 inplace: bool = False, tail=None):
+                 inplace: bool = False, tail=None, records=None):
     """Returns ``(new_state, fluence, exitance, escaped_per_lane,
     timed_per_lane)`` and the optional output groups the arguments ask
     for (see ``ref.photon_steps_ref``: int64 fixed-point grids, added
@@ -65,18 +65,24 @@ def photon_steps(labels_flat, media, state, shape, unitinmm, cfg: SimConfig,
     and ``ppath`` over the inputs.  ``tail`` (a
     ``photon_step.RoundTail``) has the launch do the round's tail: the
     escaped and timed-out weights go into its totals, and their slots
-    are None."""
+    are None.  ``records`` (a ``photon_step.RoundRecords``, with a tail)
+    has the CUDA kernel append the round's captures; the host kernel
+    takes none (on the CPU the round loop appends them after the
+    step)."""
     dev = state.w.device
-    if dev.type == "cuda":
-        fn = photon_step_cuda
-    elif dev.type == "cpu":
-        fn = photon_step_host
-    else:
-        raise ValueError(f"unsupported device {dev}")
-    return fn(labels_flat, media, state, shape, unitinmm, cfg, n_steps,
-              ppath=ppath, det_geom=det_geom, record=record, jac_w=jac_w,
+    kw = dict(ppath=ppath, det_geom=det_geom, record=record, jac_w=jac_w,
               jac_col=jac_col, jac_cols=jac_cols, stats=stats,
               totals=totals, inplace=inplace, tail=tail)
+    if dev.type == "cuda":
+        return photon_step_cuda(labels_flat, media, state, shape, unitinmm,
+                                cfg, n_steps, **kw, records=records)
+    if dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}")
+    if records is not None:
+        raise ValueError("the host kernel appends no records: on the CPU "
+                         "the round loop appends them after the step")
+    return photon_step_host(labels_flat, media, state, shape, unitinmm, cfg,
+                            n_steps, **kw)
 
 
 def launch_ids(n: int, id_offset: int, device) -> xrng.PhotonId:

@@ -31,10 +31,13 @@ arrays (``pack``), launches on PyTorch's current stream, and raises
 the device (a Jacobian column out of range, a fixed-point overflow).
 Given the round loop's :class:`RoundTail` (``tail=``), a launch also
 does the round's tail in its epilogue: the escaped and timed-out totals,
-the round count and the work flags.
+the round count and the work flags; given its :class:`RoundRecords`
+too (``records=``), it appends the round's captures to the record
+buffers.
 ``photon_step_cuda.launches_by`` counts its launches by
 ``variant_name``, with ``/xS`` appended for a launch of S > 1
-scenarios, and those given a tail once more under ``TAIL_KEY``.
+scenarios, those given a tail once more under ``TAIL_KEY`` and those
+given records under ``RECORDS_KEY``.
 
 Each device of a multi-device run has a process of its own
 (``core.procs``): two processes that build one group mask at once take
@@ -235,7 +238,7 @@ def _library(groups: int) -> ctypes.CDLL:
 
 def _load_library(groups: int) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build_library(groups)))
-    lib.photon_step_launch.argtypes = [ctypes.c_void_p] * 6
+    lib.photon_step_launch.argtypes = [ctypes.c_void_p] * 7
     lib.photon_step_launch.restype = ctypes.c_int
     lib.photon_step_error_string.argtypes = [ctypes.c_int]
     lib.photon_step_error_string.restype = ctypes.c_char_p
@@ -244,11 +247,12 @@ def _load_library(groups: int) -> ctypes.CDLL:
         raise KernelError(f"{library_path(groups).name} was built for "
                           f"groups {lib.photon_step_groups()}, not {groups}")
     built = (lib.photon_step_threads(), lib.photon_step_cache_slots(),
-             lib.photon_step_tail_words())
-    if built != (THREADS, CACHE_SLOTS, len(RoundTail._fields)):
+             lib.photon_step_tail_words(), lib.photon_step_record_words())
+    wrapper = (THREADS, CACHE_SLOTS, len(RoundTail._fields),
+               len(RoundRecords._fields) + 1)
+    if built != wrapper:
         raise KernelError(f"{library_path(groups).name} has launch "
-                          f"constants {built}, the wrapper "
-                          f"{(THREADS, CACHE_SLOTS, len(RoundTail._fields))}")
+                          f"constants {built}, the wrapper {wrapper}")
     try:
         spec.check_shared(*built[:2])
     except ValueError as e:
@@ -276,8 +280,10 @@ CACHE_SLOTS = 1024
 MAX_CELLS = 2**31
 # Scenarios of one launch ride on blockIdx.y.
 MAX_SCENARIOS = 65535
-# The launch-count key of the launches that did the round's tail.
+# The launch-count keys of the launches that did the round's tail, and
+# of those that appended the round's records.
 TAIL_KEY = "photon_step/tail"
+RECORDS_KEY = "photon_step/records"
 
 
 class RoundTail(NamedTuple):
@@ -290,7 +296,9 @@ class RoundTail(NamedTuple):
     ``work`` held before the launch; then ``work`` is whether a lane of
     the scenario is alive or its budget ``remaining`` (after this round's
     relaunch) is positive, and ``more`` whether any ``work`` holds.  The
-    fields are the CUDA entry point's ``tail`` array, in this order."""
+    fields are the CUDA entry point's ``tail`` array, in this order.  A
+    recording run's launch takes its :class:`RoundRecords` beside the
+    tail: the tail's last block appends the round's captures after it."""
 
     escaped: torch.Tensor    # (S,) int64, 2**-TOTAL_SHIFT weight units
     timed_out: torch.Tensor  # (S,) int64, 2**-TOTAL_SHIFT weight units
@@ -310,6 +318,67 @@ def round_tail(escaped, timed_out, remaining) -> RoundTail:
         torch.zeros((S,), dtype=torch.bool, device=dev),
         torch.zeros((), dtype=torch.bool, device=dev), remaining,
         torch.zeros((S + 1,), dtype=torch.int32, device=dev))
+
+
+class RoundRecords(NamedTuple):
+    """The round loop's record buffers of S scenarios of n lanes, which
+    a photon-step launch of the RECORD group given them (``records=``,
+    with a tail) appends the round's captures to, in place: what
+    ``core.simulator._append_records`` does, with the same bits.  Each
+    captured lane's row ``[id_lo, id_hi, det, gate]`` goes to its
+    scenario's slot ``kept + rank``, ``rank`` its place among the
+    scenario's captures in lane order; a row whose slot is ``capacity``
+    (``rec``'s rows less the write-off row, which the launch does not
+    write) or past it is dropped and counted in ``overflow``, and
+    ``kept`` is clamped at ``capacity``.  ``counts`` and ``rows`` are
+    the launch's scratch: each block's count of captures, zero between
+    launches, and its captures' rows staged in lane order
+    (``record_scratch`` makes them).  ``rec``, ``lane_ids`` and ``rows``
+    are 16-byte aligned, as PyTorch allocates them.  The tensor fields,
+    then the capacity, are the CUDA entry point's ``records`` array."""
+
+    rec: torch.Tensor       # (S, capacity + 1, 4) int64 rows
+    kept: torch.Tensor      # (S,) int64 rows kept
+    overflow: torch.Tensor  # (S,) int64 captures dropped
+    lane_ids: torch.Tensor  # (S * n, 2) int64 [lo, hi] photon id words
+    counts: torch.Tensor    # (S * blocks,) int32, zero between launches
+    rows: torch.Tensor      # (S * blocks * THREADS, 4) int64 staged rows
+
+
+def _record_blocks(S: int, n: int) -> int:
+    """Blocks of a launch of S scenarios of ``n`` lanes."""
+    return S * -(-n // THREADS)
+
+
+def record_scratch(S: int, n: int, device) -> tuple[torch.Tensor,
+                                                     torch.Tensor]:
+    """``(counts, rows)`` of ``RoundRecords`` for S scenarios of ``n``
+    lanes on ``device``: the counts zeroed, the rows left as allocated
+    (a launch reads only the rows it staged)."""
+    blocks = _record_blocks(S, n)
+    return (torch.zeros((blocks,), dtype=torch.int32, device=device),
+            torch.empty((blocks * THREADS, 4), dtype=torch.int64,
+                        device=device))
+
+
+def _records_specs(records: RoundRecords, S: int, n: int):
+    """``(name, x, dtype, shape)`` of each tensor of the records."""
+    if not isinstance(records, RoundRecords):
+        raise TypeError(f"records must be a RoundRecords, got "
+                        f"{type(records).__name__}")
+    rec = records.rec
+    rows = rec.shape[1] if isinstance(rec, torch.Tensor) and rec.ndim == 3 \
+        else 2
+    if rows < 2:
+        raise ValueError("records.rec must hold a capacity of at least one "
+                         "row and the write-off row")
+    blocks = _record_blocks(S, n)
+    shapes = {"rec": (S, rows, 4), "kept": (S,), "overflow": (S,),
+              "lane_ids": (S * n, 2), "counts": (blocks,),
+              "rows": (blocks * THREADS, 4)}
+    return [(f"records.{name}", x,
+             torch.int32 if name == "counts" else torch.int64, shapes[name])
+            for name, x in records._asdict().items()]
 
 
 def _tail_specs(tail: RoundTail, S: int):
@@ -369,7 +438,8 @@ def prepare(labels_flat, media, state: ph.PhotonState, shape, unitinmm,
             cfg: SimConfig, n_steps: int, ppath=None, det_geom=None,
             record=False, jac_w=None, jac_col=None, jac_cols: int = 0,
             stats: bool = False, totals=None, inplace: bool = False,
-            tail: RoundTail | None = None):
+            tail: RoundTail | None = None,
+            records: RoundRecords | None = None):
     """Check a call's inputs and allocate its outputs on the state's
     device; returns ``(groups, ins, outs, ints, floats)``: the
     tensors, in the order of the C entry point's ``in`` and ``out``
@@ -381,9 +451,10 @@ def prepare(labels_flat, media, state: ph.PhotonState, shape, unitinmm,
     ``ppath`` are written over the inputs (both kernels read each lane
     before they write it).  With ``tail`` (checked here; ``pack_tail``
     packs it) the per-lane escaped and timed outputs are None: the
-    launch adds them into the tail's totals instead.  A ``(S, n_media,
-    4)`` media table makes it a launch of S scenarios
-    (``ref.photon_steps_ref`` gives the shapes)."""
+    launch adds them into the tail's totals instead.  ``records``
+    (checked here; ``pack_records`` packs them) needs the RECORD group
+    and a tail.  A ``(S, n_media, 4)`` media table makes it a launch of
+    S scenarios (``ref.photon_steps_ref`` gives the shapes)."""
     n_det, record, jac_cols = spec.check_groups(ppath, det_geom, record,
                                                 jac_w, jac_col, jac_cols)
     S, batched = spec.scenario_count(media)
@@ -431,7 +502,18 @@ def prepare(labels_flat, media, state: ph.PhotonState, shape, unitinmm,
             raise ValueError("a launch given the round's tail needs at "
                              "least one lane")
         specs += _tail_specs(tail, S)
+    if records is not None:
+        if not record or tail is None:
+            raise ValueError("records need the RECORD group (record=True) "
+                             "and the round's tail, whose last block "
+                             "appends them")
+        specs += _records_specs(records, S, n)
     _check_all(specs, dev)
+    if records is not None and any(x.data_ptr() % 16 for x in (
+            records.rec, records.lane_ids, records.rows)):
+        raise ValueError("records.rec, records.lane_ids and records.rows "
+                         "must be 16-byte aligned: the kernel moves ids and "
+                         "rows as 16-byte vectors")
 
     f32 = dict(dtype=torch.float32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
@@ -490,9 +572,16 @@ def pack_tail(tail: RoundTail | None):
         "Q", [x.data_ptr() for x in tail])
 
 
+def pack_records(records: RoundRecords | None):
+    """The CUDA entry point's ``records`` array (int64 words: the
+    pointers in ``RoundRecords`` order, then the capacity), or None."""
+    return None if records is None else array.array(
+        "q", [x.data_ptr() for x in records] + [records.rec.shape[1] - 1])
+
+
 def tail_pointer(packed) -> int | None:
-    """The address of a ``pack_tail`` array, or None (a null
-    pointer)."""
+    """The address of a ``pack_tail`` or ``pack_records`` array, or None
+    (a null pointer)."""
     return None if packed is None else packed.buffer_info()[0]
 
 
@@ -500,7 +589,8 @@ def photon_step_cuda(labels_flat, media, state: ph.PhotonState, shape,
                      unitinmm, cfg: SimConfig, n_steps: int, ppath=None,
                      det_geom=None, record=False, jac_w=None, jac_col=None,
                      jac_cols: int = 0, stats: bool = False, totals=None,
-                     inplace: bool = False, tail: RoundTail | None = None):
+                     inplace: bool = False, tail: RoundTail | None = None,
+                     records: RoundRecords | None = None):
     """Advance all lanes ``n_steps`` segments on the card; returns what
     ``ref.photon_steps_ref`` returns, output group by output group, the
     grids bit-equal to it.  ``totals``, ``tail`` and a ``(S, n_media,
@@ -508,7 +598,8 @@ def photon_step_cuda(labels_flat, media, state: ph.PhotonState, shape,
     returned state (and ``ppath``) are the input tensors, rewritten
     (``prepare``).  Given ``tail`` the launch does the round's tail in
     its epilogue (:class:`RoundTail`) and the escaped and timed slots
-    of the result are None.
+    of the result are None; given ``records`` too, it appends the
+    round's captures (:class:`RoundRecords`).
 
     Every tensor must be contiguous on one CUDA device, with the dtypes
     of ``photon.PhotonState`` and labels in ``[0, n_media)`` (the
@@ -526,12 +617,12 @@ def photon_step_cuda(labels_flat, media, state: ph.PhotonState, shape,
     groups, ins, outs, ints, floats = prepare(
         labels_flat, media, state, shape, unitinmm, cfg, n_steps, ppath,
         det_geom, record, jac_w, jac_col, jac_cols, stats, totals, inplace,
-        tail)
+        tail, records)
     lib = _library(groups)
     arrays = pack(ins, outs, ints, floats)
     ptrs = [a.buffer_info()[0] for a in arrays]
-    packed_tail = pack_tail(tail)
-    ptrs.append(tail_pointer(packed_tail))
+    packed_tail, packed_records = pack_tail(tail), pack_records(records)
+    ptrs += [tail_pointer(packed_tail), tail_pointer(packed_records)]
     # the current stream's handle without building a Stream object
     # (torch.cuda.current_stream(index).cuda_stream gives the same)
     index = torch.cuda.current_device()
@@ -549,6 +640,8 @@ def photon_step_cuda(labels_flat, media, state: ph.PhotonState, shape,
     count_launch(variant_name(groups, cfg) + (f"/x{S}" if S > 1 else ""))
     if tail is not None:
         count_launch(TAIL_KEY)
+    if records is not None:
+        count_launch(RECORDS_KEY)
     return (ph.PhotonState(*outs[:len(spec.STATE_FIELDS)]),
             *outs[len(spec.STATE_FIELDS):])
 

@@ -169,8 +169,9 @@ def count(disasm: str, source: str, source_name: str) -> dict:
 
 
 def template_flags(mangled: str) -> tuple[bool, ...]:
-    """The bool template arguments of a mangled kernel name, in order."""
-    m = re.search(r"photon_step_kernelI((?:Lb[01]E)+)E", mangled)
+    """The bool template arguments of a mangled kernel name (the step
+    kernel or, in the RECORD libraries, its appending twin), in order."""
+    m = re.search(r"photon_step_(?:append_)?kernelI((?:Lb[01]E)+)E", mangled)
     return tuple(f == "1" for f in re.findall(r"Lb([01])E", m.group(1))) \
         if m else ()
 
@@ -200,10 +201,13 @@ def disassemble(library: pathlib.Path) -> str:
 
 def library_counts(library: pathlib.Path, source: pathlib.Path = SRC) -> dict:
     """``count`` of a built library against the source it was built
-    from, keyed by the kernel's template flags joined by ``/``."""
+    from, keyed by the kernel's template flags joined by ``/`` (and
+    ``/append`` for the kernel that appends the round's records); device
+    functions that are not kernels are left out."""
     counts = count(disassemble(library), source.read_text(), source.name)
-    return {"/".join(str(int(f)) for f in template_flags(k)): v
-            for k, v in counts.items()}
+    return {"/".join(str(int(f)) for f in template_flags(k))
+            + ("/append" if "append_kernel" in k else ""): v
+            for k, v in counts.items() if template_flags(k)}
 
 
 def main(argv=None) -> dict:

@@ -118,20 +118,22 @@ def scenario_count(media) -> tuple[int, bool]:
 
 
 # Static shared memory of one block of the kernel (csrc/photon_step.cu,
-# photon_step_kernel): the deposit cache's keys (int32) and sums (int64),
-# the lane order (int32 a thread), each warp's live-lane count (int32),
-# each warp's two sums of the round's tail (int64) and the tail's
-# last-block flag (int32).  A block may ask for at most SHARED_LIMIT bytes statically
-# (48 KiB on Hopper, as on every architecture since Volta; more needs
-# dynamic shared memory and an opt-in).
+# step_block): the deposit cache's keys (int32) and sums (int64), the
+# lane order (int32 a thread), each warp's live-lane count (int32), each
+# warp's two sums of the round's tail (int64), each warp's mask of
+# captured lanes (uint32; only photon_step_append_kernel, which appends
+# the round's records, keeps it) and the tail's last-block flag (int32).
+# A block may ask for at most SHARED_LIMIT bytes statically (48 KiB on
+# Hopper, as on every architecture since Volta; more needs dynamic shared
+# memory and an opt-in).
 SHARED_LIMIT = 48 * 1024
 
 
 def shared_bytes(threads: int, cache_slots: int) -> int:
     """Static shared bytes a block of ``threads`` threads with a deposit
     cache of ``cache_slots`` cells asks for."""
-    return (cache_slots * (4 + 8) + threads * 4 + (threads // 32) * (4 + 16)
-            + 4)
+    return (cache_slots * (4 + 8) + threads * 4
+            + (threads // 32) * (4 + 16 + 4) + 4)
 
 
 def check_shared(threads: int, cache_slots: int) -> int:

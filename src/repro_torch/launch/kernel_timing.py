@@ -13,7 +13,9 @@ as the simulator launches it, ``device_ms_add_into``), the ms a launch
 of the loop as the host issues it, and the
 wrapper's host µs a call (median and quartiles over 25 loops of 40
 calls, each queued behind a spin kernel so that the device never holds
-the host back).  It needs a CUDA device.
+the host back).  It needs a CUDA device.  ``kept_launch`` keeps the
+inputs of one round's launch of any run, to time and check that launch
+alone.
 
 To compare two checkouts' kernels on one card, run this file by its
 path under each one's ``PYTHONPATH`` in turns (parent, change, change,
@@ -89,6 +91,45 @@ def mid_run_state(vol, cfg, lanes: int = LANES, photons: int = PHOTONS,
         outs = K.photon_step_cuda(vol.labels.reshape(-1), vol.media, st,
                                   shape, 1.0, cfg, n_steps, **kw)
         st, pp = outs[0], (outs[5] if groups else None)
+
+
+class _Kept(Exception):
+    """Ends a run once the launch it was run for is kept."""
+
+
+def kept_launch(run, round_no: int):
+    """``(args, kwargs)`` of the photon-step call of round ``round_no``
+    of ``run()``, cloned, without the round's tail, records and
+    ``inplace``: the rounds are issued eagerly (a graphed run calls the
+    step only in round 1 and in the capture), and the run ends at that
+    call.  Raises RuntimeError if the run ends before it."""
+    from repro_torch.core import simulator as S
+
+    step_fn, applies, calls, kept = S.photon_steps, S.graph_applies, [], []
+
+    def keep(*args, tail=None, records=None, inplace=False, **kw):
+        calls.append(1)
+        if len(calls) == round_no:
+            kept.append((
+                [a.clone() if isinstance(a, torch.Tensor) else a
+                 for a in args],
+                {k: ([t.clone() for t in v] if k == "totals" else
+                     v.clone() if isinstance(v, torch.Tensor) else v)
+                 for k, v in kw.items()}))
+            raise _Kept
+        return step_fn(*args, tail=tail, records=records, inplace=inplace,
+                       **kw)
+
+    S.photon_steps, S.graph_applies = keep, lambda *a: False
+    try:
+        run()
+    except _Kept:
+        pass
+    finally:
+        S.photon_steps, S.graph_applies = step_fn, applies
+    if not kept:
+        raise RuntimeError(f"the run ended before round {round_no}")
+    return kept[0]
 
 
 def device_ms(fn, reps: int) -> float:

@@ -21,8 +21,10 @@ time, and for each group of device work (the photon-step kernel, every
 other kernel, memory copies and sets) its launches per round and device
 milliseconds, and the untraced run's photon-step launches by kernel
 variant (``photon_step_variants``), with its graph replays
-(``round_graph``) and the launches that did the round's tail in the
-step's epilogue (``tail_launches``, one a round issued) beside them.
+(``round_graph``), the launches that did the round's tail in the
+step's epilogue (``tail_launches``, one a round issued) and those that
+appended the round's records there (``record_launches``, one a round
+issued with records) beside them.
 ``idle_frac`` is the share of the
 traced wall time in which no device work ran, from the union of the
 trace's device intervals; tracing slows the host, so it overstates the
@@ -268,6 +270,10 @@ def main(argv=None) -> dict:
            "photon_step_variants": variants,
            "round_graph": variants.get("round_graph", 0),
            "tail_launches": variants.get(K.TAIL_KEY, 0),
+           # (an older checkout's wrapper, timed with this file, has no
+           # RECORDS_KEY and appends no records in the step)
+           "record_launches": variants.get(
+               getattr(K, "RECORDS_KEY", None), 0),
            "untraced_wall_ms": untraced_ms, "wall_ms": wall_us / 1e3,
            "device_busy_ms": busy / 1e3,
            "idle_frac": 1.0 - busy / wall_us, "groups": groups,

@@ -93,18 +93,21 @@ def ablated_library(name: str, groups: int) -> ctypes.CDLL:
         raise RuntimeError(f"nvcc failed for ablation {name}:\n{out.stdout}"
                            f"{out.stderr}")
     lib = ctypes.CDLL(str(so))
-    lib.photon_step_launch.argtypes = [ctypes.c_void_p] * 6
+    # the entry point takes a records array since RoundRecords came
+    lib.photon_step_launch.argtypes = [ctypes.c_void_p] * (
+        7 if hasattr(K, "RoundRecords") else 6)
     lib.photon_step_launch.restype = ctypes.c_int
     return lib
 
 
 def launch_with(lib, args, kw) -> None:
     """One launch of ``lib``'s entry point on the wrapper's arguments,
-    with no round tail (a null ``tail``)."""
+    with no round tail and no records (null pointers)."""
     _, ins, outs, ints, floats = K.prepare(*args, **kw)
     arrays = K.pack(ins, outs, ints, floats)
+    nulls = [None] * (len(lib.photon_step_launch.argtypes) - 5)
     err = lib.photon_step_launch(*[a.buffer_info()[0] for a in arrays],
-                                 None,
+                                 *nulls,
                                  torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"launch failed ({err})")

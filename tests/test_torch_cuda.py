@@ -53,9 +53,18 @@ The round's tail in the step kernel's epilogue (``RoundTail``): launch
 after launch it leaves the totals, round counts and work flags of the
 plain version's tail, over one and eight scenarios and many blocks; a
 run whose rounds are graphed with it gives the bits of the plain path
-(``PlainRegeneration``, eager rounds, the tail in PyTorch operations)
-for b1-, b2.sweep- and skinvessel-shaped runs; and its range check on
-the totals fires on a planted weight.
+(``PlainRegeneration``, eager rounds, the tail in PyTorch operations,
+the records appended by ``simulator._append_records``) for b1-,
+b2.sweep-, skinvessel- and head5-shaped runs, the last with records, in
+a buffer with room for all and in one that fills; and its range check
+on the totals fires on a planted weight.
+
+The records' append in the same epilogue (``RoundRecords``): a launch
+given the record buffers leaves the rows, kept counts and overflow that
+``simulator._append_records`` leaves from the same launch's per-lane
+captures, bit for bit, at head5.td's mid-run shape, part-way past the
+capacity, over two scenarios and in a round with no capture; a graphed
+run with records appends in every step and gives the same bits twice.
 """
 
 import collections
@@ -77,6 +86,7 @@ from repro_torch.kernels.photon_step import ops  # noqa: E402
 from repro_torch.kernels.photon_step import photon_step as kernel  # noqa: E402
 from repro_torch.kernels.photon_step import ref as R  # noqa: E402
 from repro_torch.kernels.photon_step.ref import photon_steps_ref  # noqa: E402
+from repro_torch.launch.kernel_timing import kept_launch  # noqa: E402
 from repro_torch.replay import detected_records, replay_jacobian  # noqa: E402
 
 SHAPE = (24, 20, 16)
@@ -1199,13 +1209,18 @@ def test_the_kernels_tail_matches_the_plain_tail(cuda_device, S_, n, case):
 
 def _plain_tail_path(monkeypatch):
     """The loop's plain path: ``PlainRegeneration`` in eager rounds (no
-    graph), and each photon step given no tail, its tail done after it in
-    PyTorch operations (``ref.round_tail_ref``)."""
+    graph), and each photon step given no tail and no records, its tail
+    done after it in PyTorch operations (``ref.round_tail_ref``) and its
+    records appended by ``simulator._append_records``."""
     step = S.photon_steps
 
-    def step_then_tail(*args, tail=None, **kw):
+    def step_then_tail(*args, tail=None, records=None, **kw):
         outs = step(*args, **kw)
         R.round_tail_ref(tail, outs[3], outs[4], outs[0].alive)
+        if records is not None:
+            S._append_records(records.rec, records.kept, records.overflow,
+                              records.lane_ids, outs[8], outs[9],
+                              records.rec.shape[1] - 1)
         return outs
 
     monkeypatch.setattr(S, "supports", lambda *a: False)
@@ -1213,16 +1228,21 @@ def _plain_tail_path(monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["b1", "sweep", "skinvessel"])
+@pytest.mark.parametrize("case", ["b1", "sweep", "skinvessel", "head5",
+                                  "head5-overflow"])
 def test_graphed_runs_with_the_fused_tail_give_the_plain_paths_bits(
         cuda_device, case, monkeypatch):
     """A run on the card (the regeneration kernel, the round a CUDA
     graph, the tail in the step's epilogue, counted once a round issued
-    under ``TAIL_KEY``) gives every ``FixedResult`` field of the plain
-    path's run bit for bit: a B1 pencil run whose ids cross 2**32, a
-    b2.sweep-shaped fleet of 8 disks with 3 detectors and 50 gates in
-    one batch, and a skin-vessel-shaped run (five media, 5 um voxels, a
-    disk beam to 50 ns)."""
+    under ``TAIL_KEY``, and with records their append there too, under
+    ``RECORDS_KEY``) gives every ``FixedResult`` field of the plain
+    path's run bit for bit, the records in slot order: a B1 pencil run
+    whose ids cross 2**32, a b2.sweep-shaped fleet of 8 disks with 3
+    detectors and 50 gates in one batch, a skin-vessel-shaped run (five
+    media, 5 um voxels, a disk beam to 50 ns), and a head5-shaped run
+    with records (a 40 x 40 x 30 mm cut of the head, three detectors,
+    50 gates), once with room for every record and once with a buffer
+    that fills part-way through a round."""
     from repro_torch import scenarios as SC
 
     def run():
@@ -1243,7 +1263,7 @@ def test_graphed_runs_with_the_fused_tail_give_the_plain_paths_bits(
                 [(18.0, 15.0, 2.0), (21.0, 15.0, 2.0), (24.0, 15.0, 2.0)])
             out = SC.simulate_many(fleet, n_lanes=1024, device=cuda_device,
                                    cache=SC.CompileCache())
-        else:
+        elif case == "skinvessel":
             vol = V.volume_from_shapes(
                 [{"Grid": {"Tag": 1, "Size": [24, 24, 24]}},
                  {"ZLayers": [[1, 3, 1], [4, 5, 4], [6, 24, 3]]},
@@ -1257,6 +1277,13 @@ def test_graphed_runs_with_the_fused_tail_give_the_plain_paths_bits(
                 source={"type": "disk", "pos": [12.0, 12.0, 3.0],
                         "dir": [0.0, 0.0, 1.0], "radius": 6.0},
                 device=cuda_device, id_offset=2**32 - 9_000)]
+        else:
+            vol, cfg, src, dets = _head5_cut(cuda_device)
+            out = [S.simulate_fixed(
+                vol, cfg, 60_000, 8192, seed=2**31 + 5, source=src,
+                device=cuda_device, detectors=dets,
+                record_detected=1 << 16 if case == "head5" else 300,
+                id_offset=2**32 - 20_000)]
         torch.cuda.synchronize()
         return out, collections.Counter(kernel.photon_step_cuda.launches_by)
 
@@ -1265,9 +1292,18 @@ def test_graphed_runs_with_the_fused_tail_give_the_plain_paths_bits(
                  if key.startswith(("noreflect/", "reflect/")))
     assert graphed["round_graph"] == issued - 1 > 0
     assert graphed[kernel.TAIL_KEY] == issued
+    assert graphed[kernel.RECORDS_KEY] == (
+        issued if case.startswith("head5") else 0)
+    if case == "head5":
+        assert 0 < int(got[0].det_rec_n) < 1 << 16
+        assert int(got[0].det_rec_overflow) == 0
+    elif case == "head5-overflow":
+        assert int(got[0].det_rec_n) == 300
+        assert int(got[0].det_rec_overflow) > 0
     _plain_tail_path(monkeypatch)
     want, plain = run()
-    assert plain["round_graph"] == plain[kernel.TAIL_KEY] == 0
+    assert (plain["round_graph"] == plain[kernel.TAIL_KEY]
+            == plain[kernel.RECORDS_KEY] == 0)
     for a, b in zip(got, want):
         for name, x, y in zip(a._fields, a, b):
             if isinstance(x, torch.Tensor):
@@ -1311,3 +1347,164 @@ def test_the_kernels_tail_range_check_fires(cuda_device):
                             1, tail=full)
     with pytest.raises(OverflowError):
         kernel.check_errors(cuda_device)
+
+
+# ---------------------------------------------------------------------------
+# the records' append in the step kernel's epilogue
+# ---------------------------------------------------------------------------
+
+
+def _head5_cut(dev):
+    """A 40 x 40 x 30 mm cut of the five-layer head with head5.td's
+    media and gates (K = 16), a pencil at its centre and three 2 mm
+    detectors 5, 10 and 15 mm from it: ``(vol, cfg, source, dets)``."""
+    vol = V.volume_from_shapes(
+        [{"Grid": {"Tag": 5, "Size": [40, 40, 30]}},
+         {"ZLayers": [[1, 3, 1], [4, 10, 2], [11, 12, 3], [13, 16, 4]]}],
+        list(V.HEAD5_MEDIA), V.HEAD5_UNITINMM, dev)
+    cfg = dataclasses.replace(V.head5_config(), steps_per_round=16)
+    src = {"type": "pencil", "pos": [20.0, 20.0, 0.0], "dir": [0.0, 0.0, 1.0]}
+    dets = [{"x": 20 + d, "y": 20, "radius": 2} for d in (5, 10, 15)]
+    return vol, cfg, src, dets
+
+
+def _head5_launch(dev, round_no=40):
+    """A mid-run launch of head5.td's shape: the five-layer head, its
+    probe (four detectors, 50 gates), 262144 lanes, K = 16, records."""
+    vol = V.benchmark_head5(dev)
+    cfg = dataclasses.replace(V.head5_config(), steps_per_round=16)
+    return kept_launch(lambda: S.simulate_fixed(
+        vol, cfg, 3_000_000, 262_144, seed=2**31 + 29,
+        source=V.HEAD5_SOURCE, device=dev, detectors=V.HEAD5_DETECTORS,
+        record_detected=V.HEAD5_RECORD_SLOTS), round_no)
+
+
+def _fleet_launch(dev, n_sc=2, n=40_000, round_no=6):
+    """A mid-run batched launch of ``n_sc`` disk scenarios of ``n`` lanes
+    (157 blocks each) with three detectors and records."""
+    vol = V.benchmark_b2(SHAPE, dev)
+    cfg = dataclasses.replace(V.b2_config(), steps_per_round=16,
+                              n_time_gates=10, tmax_ns=2.0)
+    geom = det_geometry(as_detectors(DETS), dev)[None].repeat(n_sc, 1, 1)
+    loop = S.build_round_loop(vol.shape, vol.unitinmm, cfg, n, "dynamic",
+                              _staged_sampler("disk", n_sc, dev), dev,
+                              len(DETS), 4096)
+    return kept_launch(lambda: loop(
+        vol.labels.reshape(-1), vol.media[None].repeat(n_sc, 1, 1), geom,
+        [200_000] * n_sc, [2**31 + k for k in range(n_sc)],
+        [2**32 - 1000 * (k + 1) for k in range(n_sc)], [0] * n_sc),
+        round_no)
+
+
+def _records_on(dev, S_, N, capacity, kept, seed=0):
+    """Record buffers of S_ scenarios: rows and ids of random words (the
+    append must leave the rows it does not write as they are), the given
+    kept counts and some overflow already counted."""
+    g = torch.Generator().manual_seed(seed)
+    i64 = dict(dtype=torch.int64)
+    buffers = (torch.randint(0, 2**32, (S_, capacity + 1, 4), generator=g),
+               torch.as_tensor(kept, **i64).reshape(S_),
+               torch.randint(0, 5, (S_,), generator=g),
+               torch.randint(0, 2**32, (N, 2), generator=g))
+    return kernel.RoundRecords(*(x.to(dev) for x in buffers),
+                               *kernel.record_scratch(S_, N // S_, dev))
+
+
+def _append_matches_plain(dev, args, kw, capacity, kept):
+    """The launch given records against the same launch without them and
+    ``_append_records`` on its per-lane captures: the captures, the rows
+    ``rec[:, :capacity]``, the kept and overflow counts bit for bit, and
+    the scratch zero again.  Returns the round's captures a scenario."""
+    media = args[1]
+    S_ = media.shape[0] if media.ndim == 3 else 1
+    N = args[2].w.shape[0]
+    i64 = dict(dtype=torch.int64, device=dev)
+
+    def launch(**extra):
+        kwc = dict(kw, totals=[t.clone() for t in kw["totals"]])
+        tail = kernel.round_tail(torch.zeros(S_, **i64),
+                                 torch.zeros(S_, **i64),
+                                 torch.zeros(S_, **i64))
+        return kernel.photon_step_cuda(*args, **kwc, tail=tail, **extra)
+
+    got = _records_on(dev, S_, N, capacity, kept)
+    want = kernel.RoundRecords(*(x.clone() for x in got))
+    outs = launch(records=got)
+    plain = launch()
+    kernel.check_errors(dev)
+    capd, capg = plain[8], plain[9]
+    assert torch.equal(outs[8], capd) and torch.equal(outs[9], capg)
+    S._append_records(want.rec, want.kept, want.overflow, want.lane_ids,
+                      capd, capg, capacity)
+    assert torch.equal(got.rec[:, :capacity], want.rec[:, :capacity])
+    assert torch.equal(got.kept, want.kept)
+    assert torch.equal(got.overflow, want.overflow)
+    assert not bool(got.counts.any())
+    return (capd >= 0).view(S_, -1).sum(1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["mid-run", "overflow", "no capture"])
+def test_the_kernels_append_matches_append_records(cuda_device, case):
+    """head5.td's mid-run launch (262144 lanes, 1024 blocks, 50 gates,
+    four detectors) appends in its epilogue what ``_append_records``
+    appends from the same launch's per-lane captures: mid-run into a
+    buffer of 2**20 slots already holding rows, part-way past the
+    capacity (2 slots left for more captures, the rest dropped and
+    counted), and, with every lane dead, nothing."""
+    args, kw = _head5_launch(cuda_device)
+    if case == "no capture":
+        st = args[2]
+        args = (*args[:2], st._replace(alive=torch.zeros_like(st.alive)),
+                *args[3:])
+    capacity = 64 if case == "overflow" else 1 << 20
+    kept = capacity - 2 if case == "overflow" else 12_345
+    n_cap = _append_matches_plain(cuda_device, args, kw, capacity, kept)
+    if case == "no capture":
+        assert int(n_cap.sum()) == 0
+    else:
+        assert int(n_cap.sum()) > 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("overflow", [False, True])
+def test_the_kernels_append_over_two_scenarios(cuda_device, overflow):
+    """A launch of two scenarios of 40000 lanes appends each scenario's
+    captures to its own buffer at its own kept count, as
+    ``_append_records`` does; one scenario's buffer may fill while the
+    other's does not."""
+    args, kw = _fleet_launch(cuda_device)
+    kept = [10, 4096 - 1] if overflow else [0, 100]
+    n_cap = _append_matches_plain(cuda_device, args, kw, 4096, kept)
+    assert bool((n_cap > 1).all())
+
+
+@pytest.mark.cuda
+def test_graphed_runs_with_records_append_in_the_step(cuda_device):
+    """A head5-shaped run on the card (a 40 x 40 x 30 mm cut of the head,
+    its probe, 16384 lanes) appends in every step it issues
+    (``RECORDS_KEY`` counts one a step launch), keeps every record it
+    captured, and gives the same bits run after run."""
+    vol, cfg, src, dets = _head5_cut(cuda_device)
+
+    def run():
+        kernel.reset_launches()
+        out = S.simulate_fixed(vol, cfg, 200_000, 16_384, seed=2**31 + 3,
+                               source=src, device=cuda_device,
+                               detectors=dets, record_detected=1 << 16,
+                               id_offset=2**32 - 50_000)
+        torch.cuda.synchronize()
+        return out, collections.Counter(kernel.photon_step_cuda.launches_by)
+
+    (got, launches), (again, _) = run(), run()
+    issued = sum(v for key, v in launches.items()
+                 if key.startswith(("noreflect/", "reflect/")))
+    assert launches["round_graph"] == issued - 1 > 0
+    assert launches[kernel.RECORDS_KEY] == launches[kernel.TAIL_KEY] == issued
+    assert 0 < int(got.det_rec_n) < 1 << 16
+    assert int(got.det_rec_overflow) == 0
+    for name, x, y in zip(got._fields, got, again):
+        if isinstance(x, torch.Tensor):
+            assert torch.equal(x, y), name
+        else:
+            assert x == y, name

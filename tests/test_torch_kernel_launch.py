@@ -5,7 +5,10 @@ The CUDA entry point (``csrc/photon_step.cu``, ``photon_step_launch``)
 documents the order of its ``in``, ``out``, ``ints`` and ``floats``
 arrays in a comment; these tests read that comment and hold
 ``photon_step.prepare`` and ``photon_step.pack`` to it, so the contract
-and the wrapper cannot drift apart without a card to show it.
+and the wrapper cannot drift apart without a card to show it.  The
+``tail`` and ``records`` arrays are held to ``RoundTail`` and
+``RoundRecords`` the same way, and ``prepare`` refuses records it
+cannot take.
 """
 
 import array
@@ -221,6 +224,118 @@ def test_prepare_and_pack_give_the_round_tail_as_documented():
         K.prepare(*none, tail=tail)
 
 
+def _documented_records() -> list[str]:
+    """The names of the ``records`` array in the CUDA entry point's
+    comment."""
+    text = K._SRC.read_text()
+    doc = text[:text.index('extern "C" int photon_step_launch')]
+    doc = doc[doc.rindex("// Plain C entry point"):]
+    doc = " ".join(ln.strip().lstrip("/").strip() for ln in doc.splitlines())
+    part = doc[doc.index("``records`` is null"):]
+    part = part[part.index(":") + 1:part.index(".")]
+    return re.findall(r"[a-z_]+", part.split("(")[0])
+
+
+def _records(S_=1, n=N, capacity=8, dev="cpu"):
+    i64 = dict(dtype=torch.int64, device=dev)
+    return K.RoundRecords(torch.zeros((S_, capacity + 1, 4), **i64),
+                          torch.zeros(S_, **i64), torch.zeros(S_, **i64),
+                          torch.zeros((S_ * n, 2), **i64),
+                          *K.record_scratch(S_, n, dev))
+
+
+def test_prepare_and_pack_give_the_round_records_as_documented():
+    """The CUDA entry point documents its ``records`` array as
+    ``RoundRecords``' fields in order and then the capacity, the
+    kernel's ``kRecordWords`` counts them, ``record_scratch`` gives a
+    zeroed int32 count a block and a staged row a lane of the blocks,
+    and ``pack_records`` packs the pointers and the capacity; a call
+    given records keeps its per-lane ``cap_det`` and ``cap_gate``
+    outputs."""
+    fields = list(K.RoundRecords._fields)
+    assert _documented_records() == fields + ["capacity"]
+    assert re.search(rf"kRecordWords = {len(fields) + 1};",
+                     K._SRC.read_text())
+    records = _records(capacity=5)
+    blocks = -(-N // K.THREADS)
+    assert (records.counts.dtype, records.counts.shape) == (torch.int32,
+                                                            (blocks,))
+    assert not records.counts.any()
+    assert (records.rows.dtype, records.rows.shape) == (
+        torch.int64, (blocks * K.THREADS, 4))
+    counts, rows = K.record_scratch(3, N, "cpu")
+    assert counts.shape == (3 * blocks,) and rows.shape == (
+        3 * blocks * K.THREADS, 4)
+    packed = K.pack_records(records)
+    assert list(packed) == [x.data_ptr() for x in records] + [5]
+    assert K.tail_pointer(packed) == packed.buffer_info()[0]
+    assert K.pack_records(None) is None
+    _, _, _, kw, args = _call(groups=("det", "record"))
+    i64 = dict(dtype=torch.int64)
+    tail = K.round_tail(torch.zeros(1, **i64), torch.zeros(1, **i64),
+                        torch.ones(1, **i64))
+    groups, _, outs, _, _ = K.prepare(*args, **kw, tail=tail,
+                                      records=records)
+    assert K.group_names(groups) == "det+record"
+    assert [(x.dtype, tuple(x.shape)) for x in outs[15:17]] == [
+        (torch.int32, (N,))] * 2
+
+
+@pytest.mark.parametrize("case", [
+    "no record group", "no tail", "not RoundRecords", "kept dtype",
+    "counts dtype", "lane_ids shape", "rows shape", "no capacity",
+    "rec shape", "device", "misaligned"])
+def test_prepare_refuses_records_it_cannot_take(case):
+    """Records need the RECORD group and a tail (whose last block
+    appends them), int64 buffers of the launch's scenarios and lanes, a
+    capacity of one row or more and the scratch ``record_scratch``
+    makes, on the launch's device and 16-byte aligned."""
+    groups = ("det",) if case == "no record group" else ("det", "record")
+    _, _, _, kw, args = _call(groups=groups)
+    i64 = dict(dtype=torch.int64)
+    tail = K.round_tail(torch.zeros(1, **i64), torch.zeros(1, **i64),
+                        torch.ones(1, **i64))
+    rec = _records()
+    bad = {
+        "no record group": (rec, ValueError, "RECORD group"),
+        "no tail": (rec, ValueError, "round's tail"),
+        "not RoundRecords": (tuple(rec), TypeError, "RoundRecords"),
+        "kept dtype": (rec._replace(kept=rec.kept.to(torch.int32)),
+                       TypeError, "records.kept has dtype"),
+        "counts dtype": (rec._replace(counts=rec.counts.long()), TypeError,
+                         "records.counts has dtype"),
+        "lane_ids shape": (rec._replace(lane_ids=rec.lane_ids[:-1]),
+                           ValueError, "records.lane_ids has shape"),
+        "rows shape": (rec._replace(rows=rec.rows[:-1]), ValueError,
+                       "records.rows has shape"),
+        "no capacity": (rec._replace(rec=rec.rec[:, :1]), ValueError,
+                        "capacity of at least one"),
+        "rec shape": (rec._replace(rec=rec.rec[..., :3]), ValueError,
+                      "records.rec has shape"),
+        "device": (rec._replace(overflow=torch.zeros(1, **i64,
+                                                     device="meta")),
+                   ValueError, "records.overflow is on meta"),
+        "misaligned": (rec._replace(rows=torch.zeros(
+            rec.rows.numel() + 1, dtype=torch.int64)[1:].view(-1, 4)),
+            ValueError, "16-byte aligned"),
+    }
+    records, err, match = bad[case]
+    with pytest.raises(err, match=match):
+        K.prepare(*args, **kw, tail=None if case == "no tail" else tail,
+                  records=records)
+
+
+def test_the_host_kernel_takes_no_records():
+    """On the CPU the round loop appends the records after the step: the
+    dispatcher refuses records for the host kernel."""
+    _, _, _, kw, args = _call(groups=("det", "record"))
+    i64 = dict(dtype=torch.int64)
+    tail = K.round_tail(torch.zeros(1, **i64), torch.zeros(1, **i64),
+                        torch.ones(1, **i64))
+    with pytest.raises(ValueError, match="host kernel appends no records"):
+        ops.photon_steps(*args, **kw, tail=tail, records=_records())
+
+
 @pytest.mark.parametrize("n_media", [3, 6, 40])
 def test_prepare_sizes_ppath_by_the_media_table(n_media):
     _, _, _, kw, args = _call(groups=("det",), n_media=n_media)
@@ -350,6 +465,19 @@ $slowpath:
         /*00a0*/                   RET.REL.NODEC R38 ;
         /*00b0*/                   NOP;
 """
+
+
+def test_sass_names_the_kernels_by_their_template_flags():
+    """The step kernel and its appending twin (the RECORD libraries'
+    launch given the round's records) are named by their template flags;
+    a device function that is no kernel has none."""
+    ns = "_ZN12_GLOBAL__N_1"
+    assert sass.template_flags(
+        ns + "18photon_step_kernelILb1ELb0EEEvNS_4ArgsE") == (True, False)
+    assert sass.template_flags(
+        ns + "25photon_step_append_kernelILb0ELb1EEEvNS_4ArgsE") == (
+        False, True)
+    assert sass.template_flags(ns + "14append_recordsERKNS_4ArgsEPy") == ()
 
 
 def test_sass_counts_by_region_with_cold_paths_apart():

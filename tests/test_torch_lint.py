@@ -316,8 +316,10 @@ def test_shared_memory_is_quiet_on_the_real_kernel(tmp_path):
     root = _tree(tmp_path, {}, copy=[L.KERNEL_SOURCE,
                                      f"{PKG}/photon_step.py"])
     assert _rule(root, "REP501") == []
-    # what ptxas reports for the kernel: "13476 bytes smem"
-    assert spec.check_shared(256, 1024) == 13476 <= spec.SHARED_LIMIT
+    # what ptxas reports for the kernel that appends the round's records:
+    # "13508 bytes smem" (the step kernel leaves the 32-byte capture mask
+    # out: 13476)
+    assert spec.check_shared(256, 1024) == 13508 <= spec.SHARED_LIMIT
     with pytest.raises(ValueError, match="limit"):
         spec.check_shared(256, 4096)
 

@@ -21,7 +21,9 @@ left them (``_total_rows`` and its work test, static mode's quota test
 included), for one and eight scenarios, a lane count that is no multiple
 of 256 and a round in which every lane dies; in static mode a lane below
 its quota is budget left, round after round, which is why the tail
-needs no static test of its own.  No JAX is imported here.
+needs no static test of its own.  Off the card the step takes no
+records: the loop appends each round's captures with
+``_append_records`` after it.  No JAX is imported here.
 """
 
 import dataclasses
@@ -198,6 +200,39 @@ def test_cpu_runs_replay_no_graph(monkeypatch):
         assert K.photon_step_cuda.launches_by[tail] == batches * 4
     finally:
         T.capture_tracer().events.clear()
+
+
+def test_the_cpu_loop_appends_the_records_after_the_step(monkeypatch):
+    """Off the card the step takes no records: the loop appends each
+    round's captures with ``_append_records`` after it, once a round
+    issued, inside a ``round.records`` span, and the run is the same
+    bits as without the counting wrappers."""
+    want = _run(monkeypatch, 4)
+    steps, appends = [], []
+    step, append = S.photon_steps, S._append_records
+
+    def step_given(*a, **k):
+        steps.append(k.get("records"))
+        return step(*a, **k)
+
+    def counted(*a, **k):
+        appends.append(1)
+        return append(*a, **k)
+
+    monkeypatch.setattr(S, "photon_steps", step_given)
+    monkeypatch.setattr(S, "_append_records", counted)
+    T.capture_tracer().events.clear()
+    try:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            got = _run(monkeypatch, 4)
+        spans = [e.name for e in T.capture_tracer().events]
+    finally:
+        T.capture_tracer().events.clear()
+    _assert_same(got, want)
+    assert int(got.det_rec_n) > 0
+    assert steps and all(r is None for r in steps)
+    assert len(appends) == len(steps) == spans.count("round.records")
 
 
 def test_a_cancel_set_before_the_run_stops_it_at_the_first_read(
